@@ -1,0 +1,557 @@
+#!/usr/bin/env python3
+"""Drive grace_tpu_torch's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Runs as one process on one card, in a world-size-1 NCCL group (the
+collectives are real calls). Every phase passes or ends the script with a
+non-zero exit; nothing is caught and allowed to continue.
+
+1. Identify the card and build the CUDA kernels from grace_tpu_torch/csrc.
+2. Hold each kernel against its plain PyTorch version on the card, bit for
+   bit, over every distinct ResNet-50 leaf size at 1% and the edge cases.
+3. Time the kernels at the main path's shapes (all 161 ResNet-50 leaves),
+   beside their byte bound, their plain versions and a library yardstick.
+4. Check the port against a reference on a small input: a reduced ResNet
+   on the card against the same model on the CPU (forward and backward
+   within a tolerance, then the GRACE exchange of identical gradients bit
+   for bit: CUDA kernels against their plain versions).
+5. Train full-width ResNet-50 (batch 256, 224x224 NHWC input cast to
+   bfloat16, SGD lr 1e-3) through grace_from_params for both benchmark
+   configurations, the Top-K 1% chunk + residual + allgather main path and
+   the dense none + allreduce anchor; count the kernels' launches.
+
+Output: progress lines, then a JSON line with one entry per kernel, the
+card's name and power limit as nvidia-smi gives them, and last
+{"ok": true, "device": {...}}. Without CUDA, or without the rest of the
+repository beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+# The benchmark pair, verbatim (bench.py HEADLINE).
+HEADLINE = [
+    {"name": "none", "per_device_bs": 256,
+     "params": {"compressor": "none", "memory": "none",
+                "communicator": "allreduce",
+                "fusion": "none"}},
+    {"name": "topk1pct", "per_device_bs": 256,
+     "params": {"compressor": "topk",
+                "compress_ratio": 0.01,
+                "topk_algorithm": "chunk",
+                "memory": "residual",
+                "communicator": "allgather",
+                "fusion": "none"}},
+]
+IMAGE_HW = 224
+NUM_CLASSES = 1000
+WARMUP_STEPS = 2
+TIMED_STEPS = 5
+TIMING_RUNS = 25          # CUDA-event timings per kernel; the median is kept
+SEED = 0
+
+# Published H100 SXM rates (NVIDIA data sheet, at the full 700 W limit):
+# device-memory bandwidth and the FP32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def same_bits(a, b) -> bool:
+    """Bit-pattern equality (-0.0 differs from +0.0); two NaNs count as equal
+    whatever their payload bits, which CUDA arithmetic canonicalises."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+        eq = (a.view(iv) == b.view(iv)) | (torch.isnan(a) & torch.isnan(b))
+    else:
+        eq = a == b
+    return bool(eq.all())
+
+
+def max_abs_err(a, b) -> float:
+    import torch
+    a, b = a.float(), b.float()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    d = (a - b).abs().masked_fill(both_nan, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def cuda_time_ms(fn, runs: int = TIMING_RUNS, host: bool = False):
+    """Median over ``runs`` of the CUDA-event time of one call of ``fn``
+    (after two warm-up calls); with ``host``, also the median host time to
+    enqueue it (when that is as long, the host's launches set the time)."""
+    import torch
+    for _ in range(2):
+        fn()
+    times, host_times = [], []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host_times.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    if host:
+        return statistics.median(times), statistics.median(host_times)
+    return statistics.median(times)
+
+
+def resnet50_leaves():
+    """(name, numel) of the 161 ResNet-50 parameter leaves, in the GRACE
+    leaf order."""
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.transform import leaf_order
+    params = dict(resnet50(NUM_CLASSES, device="cpu").named_parameters())
+    return [(n, params[n].numel()) for n in leaf_order(params)]
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+def check_kernels(dev, leaves, errs):
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(n, scale=1.0):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
+    def compress_case(label, g, r, k, beta=1.0, gamma=1.0, bf16=False):
+        want = ck.chunk_compress_feedback_plain(g, r, k, beta, gamma, bf16)
+        got = ck.chunk_compress_feedback(
+            g, None if r is None else r.clone(), k, beta, gamma, bf16)
+        torch.cuda.synchronize()
+        for part, w, o in zip(("vals", "win", "resid"), want, got):
+            if not same_bits(w, o):
+                fail(f"chunk_compress_feedback {label}: {part} differs from "
+                     f"the plain version (max abs err {max_abs_err(w, o)})")
+            if part != "win":
+                errs["chunk_compress_feedback"] = max(
+                    errs["chunk_compress_feedback"], max_abs_err(w, o))
+        return got
+
+    def aggregate_case(label, vals, win, k, n):
+        for average in (True, False):
+            want = ck.chunk_aggregate_dense_plain(vals, win, k, n, average)
+            got = ck.chunk_aggregate_dense(vals, win, k, n, average)
+            torch.cuda.synchronize()
+            if not same_bits(want, got):
+                fail(f"chunk_aggregate_dense {label} average={average}: "
+                     f"differs from the plain version (max abs err "
+                     f"{max_abs_err(want, got)})")
+            errs["chunk_aggregate_dense"] = max(
+                errs["chunk_aggregate_dense"], max_abs_err(want, got))
+
+    cases = 0
+    sizes = sorted({n for _, n in leaves})
+    for n in sizes:                               # every distinct leaf size
+        k = static_k(n, 0.01)
+        g, r = randn(n), randn(n, 0.1)
+        compress_case(f"n={n}", g, r, k)
+        compress_case(f"n={n} residual=None", g, None, k)
+        compress_case(f"n={n} beta,gamma=0.9,0.5", g, r, k, 0.9, 0.5)
+        compress_case(f"n={n} wire_bf16", g, r, k, bf16=True)
+        cases += 4
+        for world in (1, 8):                      # eight synthetic payloads
+            for bf16 in (False, True):
+                pays = [ck.chunk_compress_feedback_plain(
+                    randn(n), None, k, wire_bf16=bf16) for _ in range(world)]
+                vals = torch.stack([p[0] for p in pays])
+                win = torch.stack([p[1] for p in pays])
+                aggregate_case(f"n={n} W={world} bf16={bf16}", vals, win, k, n)
+                cases += 2
+    for n, ratio in ((1003, 0.013), (257, 0.04)):
+        k = static_k(n, ratio)
+        g, r = randn(n), randn(n, 0.1)
+        for beta, gamma, bf16 in ((1.0, 1.0, False), (0.9, 0.5, False),
+                                  (1.0, 1.0, True)):
+            compress_case(f"n={n} k={k}", g, r, k, beta, gamma, bf16)
+            compress_case(f"n={n} k={k} residual=None", g, None, k, beta,
+                          gamma, bf16)
+            cases += 2
+    # Edge columns at n=1000, k=10: a NaN in column 7, an all -0.0 column 5
+    # (the winner is -0.0 and must ship as +0.0), an all-zero column 3, and
+    # a tied column 1 (the first row must win).
+    n, k = 1000, 10
+    g, r = randn(n), randn(n, 0.1)
+    g[437] = float("nan")
+    g[5::k] = -0.0
+    r[5::k] = -0.0
+    g[3::k] = 0.0
+    r[3::k] = 0.0
+    g[1::k] = 2.0
+    r[1::k] = 0.0
+    for beta, gamma, bf16 in ((1.0, 1.0, False), (0.9, 0.5, True)):
+        vals, win, _ = compress_case("edge columns", g, r, k, beta, gamma,
+                                     bf16)
+        compress_case("edge columns residual=None", g, None, k, beta, gamma,
+                      bf16)
+        cases += 2
+        if int(win[7]) != 0 or int(win[3]) != 0 or int(win[1]) != 0:
+            fail(f"edge columns: winners {win.tolist()} (NaN, zero and tied "
+                 "columns must pick row 0)")
+        if vals[5].float().view(torch.int32) != 0:
+            fail("edge columns: a -0.0 winner must ship as +0.0")
+    pays = [ck.chunk_compress_feedback_plain(randn(n), None, k)
+            for _ in range(8)]
+    pays[3] = (pays[3][0], pays[0][1].clone())     # colliding rows
+    vals = torch.stack([p[0] for p in pays])
+    win = torch.stack([p[1] for p in pays])
+    win[2, 4] = n // k + 5                         # out of range: dropped
+    aggregate_case("collisions", vals, win, k, n)
+    cases += 2
+    return cases
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+def time_kernels(dev, leaves):
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bufs = []
+    for _, n in leaves:
+        k = static_k(n, 0.01)
+        g = torch.randn(n, generator=gen, device=dev)
+        r = torch.randn(n, generator=gen, device=dev) * 0.1
+        vals, win, _ = ck.chunk_compress_feedback_plain(g, r, k)
+        idx = (win.long() * k + torch.arange(k, device=dev))
+        bufs.append((n, k, g, r, vals[None], win[None], idx, vals))
+    n_tot = sum(b[0] for b in bufs)
+    k_tot = sum(b[1] for b in bufs)
+
+    def compress_kernel(leaves=bufs):
+        for n, k, g, r, *_ in leaves:     # new residual written over r
+            ck.chunk_compress_feedback(g, r, k)
+
+    def compress_plain():
+        for n, k, g, r, *_ in bufs:
+            ck.chunk_compress_feedback_plain(g, r, k)
+
+    def aggregate_kernel(leaves=bufs):
+        for n, k, _g, _r, v, w, _i, _v in leaves:
+            ck.chunk_aggregate_dense(v, w, k, n)
+
+    def aggregate_plain():
+        for n, k, _g, _r, v, w, _i, _v in bufs:
+            ck.chunk_aggregate_dense_plain(v, w, k, n)
+
+    def aggregate_library():              # yardstick only; the port never calls it
+        for n, k, _g, _r, _v, _w, idx, vals in bufs:
+            torch.zeros(n, device=dev).scatter_add_(0, idx, vals)
+
+    # Bytes each function must move (inputs read once, outputs written
+    # once) and the fp32 operations it does, for this run's shapes.
+    world = 1
+    c_bytes = 12 * n_tot + 8 * k_tot      # g, r in; resid, vals, win out
+    c_ops = 5 * n_tot + k_tot             # scale+add, |.|, compare; subtract
+    a_bytes = 4 * n_tot + 8 * world * k_tot
+    a_ops = world * k_tot
+    out = {}
+    for name, kern, plain, lib, nbytes, nops in (
+            ("chunk_compress_feedback", compress_kernel, compress_plain, None,
+             c_bytes, c_ops),
+            ("chunk_aggregate_dense", aggregate_kernel, aggregate_plain,
+             aggregate_library, a_bytes, a_ops)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / FP32_FLOP_PER_S * 1e3
+        ms, host_ms = cuda_time_ms(kern, host=True)
+        out[name] = {
+            "ms": ms,
+            "plain_ms": cuda_time_ms(plain),
+            "library_ms": cuda_time_ms(lib) if lib is not None else None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        # The same kernel over the small leaves (BatchNorm and the fc bias:
+        # n <= 2048, k <= 20) and over the rest, to see where its time goes.
+        small = [b for b in bufs if b[0] <= 2048]
+        large = [b for b in bufs if b[0] > 2048]
+        split = (cuda_time_ms(lambda: kern(small)),
+                 cuda_time_ms(lambda: kern(large)))
+        log(f"  {name}: {out[name]['ms']:.4f} ms per step over "
+            f"{len(bufs)} leaves, {host_ms:.4f} ms of it to enqueue "
+            f"(bound {out[name]['bound_ms']:.4f} ms by "
+            f"{out[name]['bound_by']}: {nbytes / 1e6:.1f} MB), plain "
+            f"{out[name]['plain_ms']:.4f} ms, library "
+            f"{out[name]['library_ms']} ms; {len(small)} leaves of n <= 2048 "
+            f"{split[0]:.4f} ms, {len(large)} larger leaves {split[1]:.4f} ms")
+    return out
+
+
+# -- phases 4 and 5 ----------------------------------------------------------
+
+def loss_fn(model, batch):
+    import torch
+    import torch.nn.functional as F
+    x, y = batch
+    return F.cross_entropy(model(x.to(torch.bfloat16)), y)
+
+
+def check_reference(dev, group):
+    """Reduced ResNet, f32, 32x32, batch 2: the card against the CPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.models.resnet import ResNet
+
+    cpu_group = dist.new_group(backend="gloo")
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (2,)))
+    models = {}
+    for d in ("cpu", dev):
+        m = ResNet((1, 1, 0, 0), 10, device=d, seed=SEED)
+        logits = m(x.to(d))
+        loss = F.cross_entropy(logits, y.to(d))
+        loss.backward()
+        models[d] = (m, logits.detach().cpu(), loss.item())
+    (mc, lc, loss_c), (mg, lg, loss_g) = models["cpu"], models[dev]
+    # Both TF32 flags are off here: float32 convolutions and products in
+    # full precision; the tolerance covers their summation order.
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+    if not math.isclose(loss_g, loss_c, rel_tol=1e-5):
+        fail(f"reference: loss {loss_g} on the card vs {loss_c} on the CPU")
+    grads_c = {n: p.grad for n, p in mc.named_parameters()}
+    for n, p in mg.named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), grads_c[n], rtol=1e-4,
+                                   atol=1e-5)
+    for n, b in mg.named_buffers():
+        torch.testing.assert_close(b.cpu(), dict(mc.named_buffers())[n],
+                                   rtol=1e-4, atol=1e-5)
+    # The GRACE exchange of identical gradients: kernels vs plain versions.
+    params = HEADLINE[1]["params"]
+    tx_c = grace_from_params(params, group=cpu_group).transform(SEED)
+    tx_g = grace_from_params(params, group=group).transform(SEED)
+    st_c = tx_c.init(dict(mc.named_parameters()))
+    st_g = tx_g.init(dict(mg.named_parameters()))
+    for step in range(2):
+        grads = {n: g * (step + 1) for n, g in grads_c.items()}
+        up_c, st_c = tx_c.update({n: g.clone() for n, g in grads.items()},
+                                 st_c)
+        up_g, st_g = tx_g.update({n: g.to(dev) for n, g in grads.items()},
+                                 st_g)
+        for n in up_c:
+            if not same_bits(up_g[n].cpu(), up_c[n]):
+                fail(f"reference: GRACE update of {n} at step {step} differs "
+                     "between the card and the CPU")
+        for a, b in zip(st_g.mem, st_c.mem):
+            if not same_bits(a.cpu(), b):
+                fail(f"reference: residual differs at step {step}")
+    dist.destroy_process_group(cpu_group)
+
+
+def profile_step(step, state, batch, label):
+    """One more step under torch.profiler: the device time by kernel and
+    its sum against the step's wall time (a busy share that counts
+    overlapping kernels twice, so an upper bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernels only: an operator's own row repeats its kernels' time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    kernels = sum(e.count for e in events)
+    log(f"  {label} profiled step: wall {wall_ms:.1f} ms, {kernels} kernels, "
+        f"device time {total_ms:.1f} ms (busy share <= "
+        f"{total_ms / wall_ms:.2f})")
+    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+        log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def train(dev, group, cfg, x, y):
+    import torch
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.ops import chunk_topk as ck
+    from grace_tpu_torch.train import (init_stateful_train_state,
+                                       make_stateful_train_step)
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    n_leaves = sum(1 for _ in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_leaves != 161 or n_params != 25_557_032:
+        fail(f"ResNet-50 has {n_leaves} leaves / {n_params} parameters")
+    grace = grace_from_params(cfg["params"], group=group)
+    tx = grace.transform(seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    state = init_stateful_train_state(model, tx, opt, group)
+    step = make_stateful_train_step(loss_fn, tx, group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()                  # just before the main path
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, loss = step(state, (x, y))
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, loss = step(state, (x, y))
+    losses.append(float(loss))                # synchronises
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"chunk_compress_feedback": ck.chunk_compress_feedback.launches,
+                "chunk_aggregate_dense": ck.chunk_aggregate_dense.launches}
+    profile_step(step, state, (x, y), cfg["name"])
+    steps = WARMUP_STEPS + TIMED_STEPS
+    res = {"name": cfg["name"], "img_per_s": x.shape[0] * TIMED_STEPS / seconds,
+           "step_ms": seconds / TIMED_STEPS * 1e3, "first_loss": losses[0],
+           "last_loss": losses[-1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches, "steps": steps}
+    log(f"  {cfg['name']}: {res['img_per_s']:.1f} img/s "
+        f"({res['step_ms']:.1f} ms/step), loss {res['first_loss']:.4f} -> "
+        f"{res['last_loss']:.4f}, peak {res['peak_mem_gb']:.2f} GB, "
+        f"launches {launches} over {steps} steps")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{cfg['name']}: non-finite loss {losses}")
+    want = 161 * steps if cfg["params"]["compressor"] == "topk" else 0
+    for name, count in launches.items():
+        if count != want:
+            fail(f"{cfg['name']}: {name} launched {count} times over {steps} "
+                 f"steps, expected {want} (161 a step on the Top-K path)")
+    return res
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        import grace_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: grace_tpu_torch not importable ({e}); run from "
+              "the repository root", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from grace_tpu_torch.ops import _build
+    from grace_tpu_torch.parallel import init_process_group
+
+    # -- 1. identify ---------------------------------------------------------
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"[1] card: {smi} | {name} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda} | python {sys.version.split()[0]}")
+    log(f"    tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+        f"{torch.backends.cudnn.allow_tf32} | bounds from the H100 SXM data "
+        f"sheet: {HBM_BYTES_PER_S / 1e12} TB/s, "
+        f"{FP32_FLOP_PER_S / 1e12} fp32 TFLOP/s")
+    t0 = time.perf_counter()
+    _build.build_all()
+    _build.library("chunk_topk")
+    log(f"    kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log("chunk_topk").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"    ptxas: {line.strip()}")
+
+    group, dev = init_process_group("cuda")
+    try:
+        leaves = resnet50_leaves()
+        # -- 2. kernels against their plain versions -------------------------
+        errs = {"chunk_compress_feedback": 0.0, "chunk_aggregate_dense": 0.0}
+        cases = check_kernels(dev, leaves, errs)
+        log(f"[2] kernels bit-identical to their plain versions in {cases} "
+            f"cases on the card")
+        # -- 3. timing -------------------------------------------------------
+        log("[3] kernel times at the main path's shapes (161 leaves, W=1)")
+        times = time_kernels(dev, leaves)
+        # -- 4. reference on a small input -----------------------------------
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        check_reference(dev, group)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        log("[4] reduced ResNet on the card agrees with the CPU (forward and "
+            "backward within rtol 1e-4/atol 1e-5; GRACE exchange bit for bit)")
+        # -- 5. train full width ---------------------------------------------
+        log(f"[5] ResNet-50, batch {HEADLINE[0]['per_device_bs']}, "
+            f"{IMAGE_HW}x{IMAGE_HW} bf16, SGD lr 1e-3, {WARMUP_STEPS} warm-up "
+            f"+ {TIMED_STEPS} timed steps")
+        rng = np.random.default_rng(SEED)
+        bs = HEADLINE[0]["per_device_bs"]
+        x = torch.from_numpy(rng.standard_normal(
+            (bs, IMAGE_HW, IMAGE_HW, 3), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, NUM_CLASSES, (bs,))).to(dev)
+        runs = {}
+        for cfg in HEADLINE:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y)
+            torch.cuda.empty_cache()
+        topk = runs["topk1pct"]
+        kernels = []
+        for kname, line in (("chunk_compress_feedback", 132),
+                            ("chunk_aggregate_dense", 237)):
+            t = times[kname]
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "grace_tpu_torch/csrc/chunk_topk.cu",
+                "replaces": f"grace_tpu/ops/pallas_topk.py:{line}",
+                "launches": topk["launches"][kname],
+                "max_abs_err": errs[kname], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        log(json.dumps({"runs": runs}))
+        print(json.dumps({"kernels": kernels}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,7 @@
+"""Gradient codecs ported so far (the rest of the catalog is queued in
+ROADMAP)."""
+
+from grace_tpu_torch.compressors.none import NoneCompressor
+from grace_tpu_torch.compressors.topk import TopKCompressor, static_k
+
+__all__ = ["NoneCompressor", "TopKCompressor", "static_k"]

@@ -1,0 +1,157 @@
+"""Top-K magnitude sparsification, exact and chunked.
+
+Counterpart of the JAX package's ``compressors/topk.py``: keep k =
+max(1, int(ratio·n)) entries, ship ``(values, int32 indices)``, scatter
+into zeros to decompress. ``'chunk'`` keeps the largest-|x| entry of each
+strided chunk (column ``c`` of the ``(rows, k)`` view), so indices are
+``win_row*k + c``.
+
+``'approx'`` is ``lax.approx_max_k`` in the JAX package, a TPU primitive
+with no PyTorch counterpart; it raises ``NotImplementedError`` here.
+
+``use_pallas`` keeps its JAX name so the JAX params dicts build unchanged.
+Its meaning in the port: ``False`` selects the staged tensor path;
+``True`` and ``'auto'`` select the fused chunk kernels, which launch the
+CUDA kernel for CUDA tensors and run the kernel's plain version for CPU
+tensors. (In the JAX package ``'auto'`` means staged, a choice measured on
+a TPU that says nothing about this card.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from grace_tpu_torch.core import Compressor, Ctx, LeafKey, Payload, State
+from grace_tpu_torch.ops import chunk_topk
+from grace_tpu_torch.ops.sparse import chunkwise_dense, scatter_dense
+
+
+def static_k(numel: int, ratio: float) -> int:
+    return max(1, int(numel * ratio))
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKCompressor(Compressor):
+    # Re-selecting top-k over a partial sum is a sound multi-hop relaxation.
+    supports_hop_requant = True
+    # Per-rank index sets: payloads of different ranks do not sum.
+    payload_algebra = None
+
+    compress_ratio: float = 0.3
+    algorithm: str = "exact"      # 'exact' | 'chunk' ('approx' unported)
+    wire_dtype: str = "float32"   # 'float32' | 'bfloat16' wire values
+    use_pallas: bool | str = "auto"
+
+    def __post_init__(self):
+        if self.algorithm == "approx":
+            raise NotImplementedError(
+                "topk algorithm 'approx' is lax.approx_max_k, a TPU "
+                "primitive with no PyTorch counterpart; use 'chunk' or "
+                "'exact' (ROADMAP queue 1)")
+        if self.algorithm not in ("exact", "chunk"):
+            raise ValueError(f"unknown topk algorithm {self.algorithm!r}")
+        if self.wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}")
+        if not (self.use_pallas == "auto" or self.use_pallas is True
+                or self.use_pallas is False):
+            raise ValueError(f"use_pallas must be True, False or 'auto'; "
+                             f"got {self.use_pallas!r}")
+
+    def _fused_k(self, numel: int, dtype) -> int | None:
+        """k when the fused chunk kernels apply, else None (staged path).
+        The gates are semantic: the kernels select per chunk, compute and
+        ship float32, and need at least two rows."""
+        if self.algorithm != "chunk" or self.use_pallas is False:
+            return None
+        if dtype != torch.float32:
+            return None
+        k = static_k(numel, self.compress_ratio)
+        return k if numel >= 2 * k else None
+
+    def fused_feedback_compress(self, x: torch.Tensor, state, coeffs,
+                                rng: LeafKey):
+        """The ``Communicator.step`` fast path: compensate, compress and
+        residual update in one kernel. ``coeffs = (beta, gamma)`` is the
+        memory's ``compensate = beta*state + gamma*x``. Returns
+        ``(payload, ctx, new_state)``, bit-identical to the staged stages,
+        or None where the staged path must run."""
+        k = self._fused_k(x.numel(), x.dtype)
+        if k is None or (state is not None and state.dtype != torch.float32):
+            return None
+        beta, gamma = coeffs
+        resid = None if state is None else state.reshape(-1)
+        values, win_row, new_resid = chunk_topk.chunk_compress_feedback(
+            x.reshape(-1), resid, k, beta=float(beta), gamma=float(gamma),
+            wire_bf16=self.wire_dtype == "bfloat16")
+        indices = torch.arange(k, dtype=torch.int32, device=x.device)
+        indices.add_(win_row, alpha=k)             # win_row*k + c, in place
+        new_state = None if state is None else new_resid.reshape(state.shape)
+        return (values, indices), (x.numel(), tuple(x.shape), x.dtype), \
+            new_state
+
+    def _chunk_compress(self, flat: torch.Tensor, k: int):
+        """Staged chunk selection: argmax of |x| over each column of the
+        zero-padded ``(rows, k)`` view (first max wins, so padding lanes
+        never win over a real row), values by masked sum."""
+        n = flat.numel()
+        rows = -(-n // k)
+        body = torch.zeros(rows * k, dtype=flat.dtype, device=flat.device)
+        body[:n] = flat
+        body = body.reshape(rows, k)
+        win_row = torch.argmax(body.abs(), dim=0).to(torch.int32)
+        row_ids = torch.arange(rows, dtype=torch.int32, device=flat.device)
+        mask = row_ids[:, None] == win_row[None, :]
+        zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+        values = torch.sum(torch.where(mask, body, zero), dim=0)
+        indices = win_row * k + torch.arange(k, dtype=torch.int32,
+                                             device=flat.device)
+        return values, indices
+
+    def compress(self, x: torch.Tensor, state: State, rng: LeafKey
+                 ) -> tuple[Payload, Ctx, State]:
+        shape, numel = tuple(x.shape), x.numel()
+        flat = x.reshape(-1)
+        k = static_k(numel, self.compress_ratio)
+        if self.algorithm == "chunk" and numel >= 2 * k:
+            values, indices = self._chunk_compress(flat, k)
+        else:
+            # Exact top-k. Its tie order differs from lax.top_k; the wire
+            # set is the same wherever magnitudes are distinct.
+            indices = torch.topk(flat.abs(), k).indices.to(torch.int32)
+            values = flat[indices.long()]
+        if self.wire_dtype == "bfloat16":
+            # The rounding error lands in the residual memory.
+            values = values.to(torch.bfloat16)
+        return (values, indices), (numel, shape, x.dtype), state
+
+    def fused_aggregate_decompress(self, gathered: Payload, ctx: Ctx,
+                                   world: int):
+        """Allgather fast path: ``(world, k)`` payload stacks → the
+        aggregated (÷world with ``average``) dense tensor in one kernel.
+        None = staged path."""
+        numel, shape, dtype = ctx
+        k = self._fused_k(numel, dtype)
+        if k is None:
+            return None
+        values, indices = gathered
+        if tuple(values.shape) != (world, k):
+            return None                  # sub-k payloads lose chunk structure
+        win = torch.div(indices, k, rounding_mode="floor").to(torch.int32)
+        out = chunk_topk.chunk_aggregate_dense(values, win, k, numel,
+                                               average=self.average)
+        return out.reshape(shape).to(dtype)
+
+    def decompress(self, payload: Payload, ctx: Ctx) -> torch.Tensor:
+        values, indices = payload
+        numel, shape, dtype = ctx
+        k = static_k(numel, self.compress_ratio)
+        if (self.algorithm == "chunk" and numel >= 2 * k
+                and values.shape[0] == k):
+            rows = -(-numel // k)
+            win_row = torch.div(indices, k, rounding_mode="floor").to(
+                torch.int32)
+            return chunkwise_dense(values.to(dtype), win_row, rows, numel,
+                                   shape)
+        return scatter_dense(values.to(dtype), indices, numel, shape)

@@ -1,0 +1,254 @@
+"""The port's codecs, memory and ``Communicator.step`` against the JAX
+package's staged path, bit for bit; and the port's builders and gates.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+JAX side runs its staged path (``use_pallas=False``) with the ``Identity``
+communicator; the port runs both its fused path (the chunk kernels' plain
+versions on the CPU) and its staged path.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from grace_tpu import comm as jcomm
+from grace_tpu import compressors as jC
+from grace_tpu import memories as jM
+
+from grace_tpu_torch import comm, grace_from_params, grace_transform
+from grace_tpu_torch.compressors import NoneCompressor, TopKCompressor
+from grace_tpu_torch.core import LeafKey
+from grace_tpu_torch.memories import NoneMemory, ResidualMemory
+
+TOPK1 = {"compressor": "topk", "compress_ratio": 0.01,
+         "topk_algorithm": "chunk", "memory": "residual",
+         "communicator": "allgather", "fusion": "none"}
+DENSE = {"compressor": "none", "memory": "none", "communicator": "allreduce",
+         "fusion": "none"}
+
+
+def _bits(a):
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return a.view(np.int16)
+    if a.dtype == np.float32:
+        return a.view(np.int32)
+    return a
+
+
+def _t2n(t):
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return _bits(t.numpy())
+
+
+def assert_same_bits(port, ref):
+    np.testing.assert_array_equal(_t2n(port), _bits(ref))
+
+
+def _jax_step(compressor, memory, x, resid):
+    """JAX ``Identity.step``, run eagerly: with the staged codec it touches
+    no mesh axis."""
+    return jcomm.Identity(axis_name="data").step(
+        x, resid, None, memory, compressor, jax.random.key(0))[:2]
+
+
+CODEC_CASES = [
+    # (algorithm, shape, ratio, wire_dtype)
+    ("chunk", (1000,), 0.01, "float32"),
+    ("chunk", (3, 3, 8, 16), 0.01, "float32"),     # tail row
+    ("chunk", (1003,), 0.013, "bfloat16"),
+    ("chunk", (64,), 0.01, "float32"),             # k=1
+    ("chunk", (10,), 0.3, "float32"),              # n < 2k: exact path
+    ("exact", (40, 25), 0.05, "float32"),
+    ("exact", (257,), 0.04, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("algorithm,shape,ratio,wire", CODEC_CASES)
+def test_topk_codec_matches_jax(algorithm, shape, ratio, wire):
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    jc = jC.TopKCompressor(compress_ratio=ratio, algorithm=algorithm,
+                           wire_dtype=wire, use_pallas=False)
+    tc = TopKCompressor(compress_ratio=ratio, algorithm=algorithm,
+                        wire_dtype=wire, use_pallas=False)
+    (jv, ji), jctx, _ = jc.compress(jnp.asarray(x), None, jax.random.key(0))
+    (tv, ti), tctx, _ = tc.compress(torch.from_numpy(x), None,
+                                    LeafKey(0, 0, 0))
+    assert_same_bits(tv, jv)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert ti.dtype == torch.int32
+    assert_same_bits(tc.decompress((tv, ti), tctx),
+                     jc.decompress((jv, ji), jctx))
+
+
+STEP_CASES = [
+    # (shape, ratio, wire, beta, gamma, state_dtype)
+    ((1000,), 0.01, "float32", 1.0, 1.0, None),
+    ((3, 3, 8, 16), 0.01, "float32", 1.0, 1.0, None),
+    ((1003,), 0.013, "bfloat16", 1.0, 1.0, None),
+    ((64,), 0.01, "float32", 1.0, 1.0, None),
+    ((2048,), 0.05, "float32", 0.9, 0.5, None),
+    ((1003,), 0.013, "float32", 1.0, 1.0, "bfloat16"),   # staged in both
+]
+
+
+def _step_inputs(case):
+    shape, ratio, wire, beta, gamma, state_dtype = STEP_CASES[case]
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape).astype(np.float32)
+    resid = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    if state_dtype:
+        resid = np.asarray(jnp.asarray(resid).astype(state_dtype)
+                           .astype(jnp.float32))
+    return x, resid
+
+
+@functools.cache
+def _jax_reference(case):
+    shape, ratio, wire, beta, gamma, state_dtype = STEP_CASES[case]
+    x, resid = _step_inputs(case)
+    jc = jC.TopKCompressor(compress_ratio=ratio, algorithm="chunk",
+                           wire_dtype=wire, use_pallas=False)
+    jmem = jM.ResidualMemory(beta=beta, gamma=gamma, state_dtype=state_dtype)
+    out, mem = _jax_step(jc, jmem, jnp.asarray(x),
+                         jnp.asarray(resid).astype(state_dtype or "float32"))
+    return np.asarray(out), np.asarray(mem)
+
+
+@pytest.mark.parametrize("use_pallas", [True, "auto", False])
+@pytest.mark.parametrize("case", range(len(STEP_CASES)))
+def test_step_matches_jax_staged(case, use_pallas):
+    shape, ratio, wire, beta, gamma, state_dtype = STEP_CASES[case]
+    x, resid = _step_inputs(case)
+    tmem = ResidualMemory(beta=beta, gamma=gamma, state_dtype=state_dtype)
+    tr = torch.from_numpy(resid).to(
+        getattr(torch, state_dtype) if state_dtype else torch.float32)
+    tc = TopKCompressor(compress_ratio=ratio, algorithm="chunk",
+                        wire_dtype=wire, use_pallas=use_pallas)
+    out_t, mem_t, _ = comm.Identity().step(torch.from_numpy(x), tr, None,
+                                           tmem, tc, LeafKey(0, 0, 0))
+    out_j, mem_j = _jax_reference(case)
+    assert_same_bits(out_t, out_j)
+    assert_same_bits(mem_t, mem_j)
+
+
+def test_fused_path_taken_and_gated():
+    tc = TopKCompressor(compress_ratio=0.01, algorithm="chunk")
+    x, st = torch.ones(1000), torch.zeros(1000)
+    assert tc.fused_feedback_compress(x, st, (1.0, 1.0),
+                                      LeafKey(0, 0, 0)) is not None
+    # The semantic gates send these down the staged path.
+    for c, xx, ss in (
+            (TopKCompressor(compress_ratio=0.01, algorithm="exact"), x, st),
+            (TopKCompressor(compress_ratio=0.6, algorithm="chunk"), x, st),
+            (TopKCompressor(compress_ratio=0.01, algorithm="chunk",
+                            use_pallas=False), x, st),
+            (tc, x.bfloat16(), st.bfloat16()),
+            (tc, x, st.bfloat16())):
+        assert c.fused_feedback_compress(xx, ss, (1.0, 1.0),
+                                         LeafKey(0, 0, 0)) is None
+
+
+def test_none_codec_and_memory():
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 5)).astype(np.float32))
+    out, ms, cs = comm.Identity().step(x.clone(), None, None, NoneMemory(),
+                                       NoneCompressor(), LeafKey(0, 0, 0))
+    assert ms is None and cs is None
+    assert torch.equal(out, x)
+    assert NoneCompressor().summable_payload
+    assert not TopKCompressor().summable_payload
+    with pytest.raises(TypeError):
+        NoneCompressor(0.005)                  # average is keyword-only
+
+
+def test_residual_memory_state_dtype():
+    mem = ResidualMemory(state_dtype="bfloat16")
+    assert mem.init_state(torch.ones(3)).dtype == torch.bfloat16
+    assert ResidualMemory().init_state(torch.ones(3)).dtype == torch.float32
+    assert mem.linear_feedback_coeffs == (1.0, 1.0)
+    with pytest.raises(ValueError):
+        ResidualMemory(state_dtype="float8")
+
+
+def test_grace_from_params_builds_the_benchmark_pair():
+    g = grace_from_params(TOPK1)
+    assert isinstance(g.compressor, TopKCompressor)
+    assert g.compressor.algorithm == "chunk"
+    assert g.compressor.compress_ratio == 0.01
+    assert g.compressor.use_pallas == "auto"
+    assert isinstance(g.memory, ResidualMemory)
+    assert isinstance(g.communicator, comm.Allgather)
+    d = grace_from_params(DENSE)
+    assert isinstance(d.compressor, NoneCompressor)
+    assert isinstance(d.memory, NoneMemory)
+    assert isinstance(d.communicator, comm.Allreduce)
+    assert g.transform(seed=3).seed == 3
+    b = grace_from_params({"compressor": "topk", "memory": "residual",
+                           "beta": 0.9, "gamma": 0.5,
+                           "memory_dtype": "bfloat16",
+                           "communicator": "broadcast", "world_size": 8})
+    assert b.memory == ResidualMemory(0.9, 0.5, "bfloat16")
+    assert isinstance(b.communicator, comm.Broadcast)
+
+
+def test_topk_over_allreduce_raises_type_error():
+    g = grace_from_params(dict(TOPK1, communicator="allreduce"))
+    x = torch.randn(1000)
+    with pytest.raises(TypeError, match="summable_payload"):
+        g.communicator.step(x, torch.zeros(1000), None, g.memory,
+                            g.compressor, LeafKey(0, 0, 0))
+
+
+@pytest.mark.parametrize("params,match", [
+    ({"compressor": "qsgd"}, "qsgd"),
+    ({"compressor": "nonsense"}, "nonsense"),
+    ({"memory": "dgc"}, "dgc"),
+    ({"communicator": "ring"}, "ring"),
+    ({"compressor": "topk", "quantum_num": 4}, "quantum_num"),
+    ({"escape": "fp16"}, "escape"),
+    ({"fusion": "flat"}, "flat"),
+    ({"fusion": 1 << 20}, "1048576"),
+])
+def test_unported_names_raise_value_error(params, match):
+    with pytest.raises(ValueError, match=match):
+        grace_from_params(params)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="approx"):
+        grace_from_params({"compressor": "topk", "topk_algorithm": "approx"})
+    with pytest.raises(NotImplementedError, match="fusion"):
+        grace_transform(NoneCompressor(), NoneMemory(), comm.Identity(),
+                        fusion="grouped")
+    with pytest.raises(ValueError):
+        TopKCompressor(use_pallas=1)
+    with pytest.raises(ValueError):
+        TopKCompressor(algorithm="sorted")
+
+
+def test_leaf_key_contract():
+    a = LeafKey(0, 5, 3)
+    assert a.derived_seed() == LeafKey(0, 5, 3).derived_seed()
+    seeds = {LeafKey(s, c, i).derived_seed()
+             for s in range(2) for c in range(4) for i in range(8)}
+    assert len(seeds) == 64
+    x = torch.rand(4, generator=a.generator("cpu"))
+    assert torch.equal(x, torch.rand(4, generator=a.generator("cpu")))
+
+
+def test_entry_points_default_to_cuda():
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.parallel import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet50()
+    assert resolve_device("cpu") == torch.device("cpu")

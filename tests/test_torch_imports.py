@@ -1,0 +1,56 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no CUDA,
+nvcc or triton at import time."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "grace_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+_IMPORT_ALL = r"""
+import sys
+# jax, the JAX package and triton are made unimportable; no CUDA is asked.
+for name in ("jax", "jaxlib", "optax", "flax", "grace_tpu", "triton"):
+    sys.modules[name] = None
+import importlib, pkgutil
+import grace_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(grace_tpu_torch.__path__,
+                                               "grace_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(n for n in sys.modules
+                if n.split(".")[0] in ("jax", "jaxlib", "grace_tpu", "triton")
+                and sys.modules[n] is not None)
+print(len(names), leaked)
+"""
+
+
+def test_every_module_imports_without_jax_or_triton():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr
+    count, leaked = out.stdout.split(maxsplit=1)
+    assert int(count) >= 15                      # every module of the port
+    assert leaked.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_sources_name_no_jax(path):
+    text = path.read_text()
+    assert "grace_tpu." not in text
+    assert "import jax" not in text
+    assert not re.search(r"^\s*(from|import)\s+(jax|optax|flax|grace_tpu)\b",
+                         text, re.M)
+
+
+def test_kernel_source_is_in_the_package():
+    cu = sorted((PORT / "csrc").glob("*.cu"))
+    assert [p.name for p in cu] == ["chunk_topk.cu"]
+    assert "pallas_topk.py" in cu[0].read_text()    # names what it replaces

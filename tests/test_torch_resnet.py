@@ -1,0 +1,300 @@
+"""The port's layers, ResNet and training step against the JAX package.
+
+A pruned JAX ResNet-50 (stem, ``s0b0``, ``s1b0`` and a 512→10 fc) is
+carried into the port with ``convert.from_jax`` and run in float32 at
+32×32 with batch 2. Logits, loss, every gradient leaf and the BatchNorm
+state must match within ``rtol=1e-4, atol=1e-5`` (the two frameworks sum
+convolutions in different orders); then two training steps under the
+Top-K 1% chunk configuration must match the JAX package's staged path on a
+one-device mesh within the same tolerance.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.sharding import Mesh
+
+from grace_tpu import grace_from_params as jax_grace_from_params
+from grace_tpu.models import layers as JL
+from grace_tpu.models import resnet as jresnet
+from grace_tpu.train import (init_stateful_train_state as jax_init_state,
+                             make_stateful_train_step as jax_make_step)
+
+from grace_tpu_torch import grace_from_params
+from grace_tpu_torch.convert import from_jax
+from grace_tpu_torch.models import layers as L
+from grace_tpu_torch.models.resnet import ResNet
+from grace_tpu_torch.parallel import init_process_group
+from grace_tpu_torch.train import (init_stateful_train_state,
+                                   make_stateful_train_step)
+from grace_tpu_torch.transform import leaf_order
+
+RTOL, ATOL = 1e-4, 1e-5
+TOPK1 = {"compressor": "topk", "compress_ratio": 0.01,
+         "topk_algorithm": "chunk", "memory": "residual",
+         "communicator": "allgather", "fusion": "none"}
+
+
+def _path(path):
+    return ".".join(str(k.key) for k in path)
+
+
+def _flat(tree):
+    return {_path(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@functools.cache
+def _pruned_jax_resnet():
+    # The tree resnet.init builds, pruned to its first block of stages 0
+    # and 1; resnet.apply reads the stage counts off the tree.
+    keys = JL.split_keys(jax.random.key(0), 4)
+    p, s = {}, {}
+    p["stem"] = JL.conv_init(keys[0], 7, 7, 3, 64)
+    p["stem_bn"], s["stem_bn"] = JL.bn_init(64)
+    p["s0b0"], s["s0b0"] = jresnet._bottleneck_init(keys[1], 64, 64, 1)
+    p["s1b0"], s["s1b0"] = jresnet._bottleneck_init(keys[2], 256, 128, 2)
+    p["fc"] = JL.dense_init(keys[3], 512, 10, init="glorot")
+    assert jresnet._stages_from_params(p) == (1, 1, 0, 0)
+    # Non-trivial BatchNorm parameters and state, from a seed.
+    rng = np.random.default_rng(5)
+
+    def jitter(path, a):
+        name = _path(path)
+        if name.endswith(("scale", "var")):
+            return jnp.asarray(1 + 0.1 * rng.random(a.shape), jnp.float32)
+        if name.endswith(("bias", "mean")) and "fc" not in name:
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape), jnp.float32)
+        return a
+
+    p = jax.tree_util.tree_map_with_path(jitter, p)
+    s = jax.tree_util.tree_map_with_path(jitter, s)
+    return p, s
+
+
+def _batch():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, (2,)).astype(np.int32)
+    return x, y
+
+
+def _port_model(p, s):
+    sd, bufs = from_jax(jax.device_get(p), jax.device_get(s))
+    model = ResNet((1, 1, 0, 0), 10, device="cpu")
+    model.load_state_dict({**sd, **bufs})        # strict: every name matches
+    return model
+
+
+def _jax_loss(params, mstate, batch):
+    x, y = batch
+    logits, new = jresnet.apply(params, mstate, x, train=True)
+    loss = optax.softmax_cross_entropy_with_integer_labels(logits, y).mean()
+    return loss, (new, logits)
+
+
+def _port_loss(model, batch):
+    x, y = batch
+    return F.cross_entropy(model(x), y)
+
+
+@pytest.mark.parametrize("size,window,stride,want", [
+    (224, 7, 2, (2, 3)), (56, 3, 2, (0, 1)), (56, 1, 2, (0, 0)),
+    (56, 3, 1, (1, 1)), (7, 3, 1, (1, 1)), (32, 7, 2, (2, 3))])
+def test_same_padding_is_xla_same(size, window, stride, want):
+    assert L.same_padding(size, window, stride) == want
+
+
+@pytest.mark.parametrize("k,stride,hw", [(7, 2, 16), (3, 2, 8), (3, 1, 8),
+                                         (1, 2, 8)])
+def test_conv_matches_jax(k, stride, hw):
+    rng = np.random.default_rng(k * 10 + stride)
+    x = rng.standard_normal((2, hw, hw, 4)).astype(np.float32)
+    w = rng.standard_normal((k, k, 4, 6)).astype(np.float32)
+    want = JL.conv_apply({"w": jnp.asarray(w)}, jnp.asarray(x), stride=stride)
+    conv = L.Conv(k, k, 4, 6, stride, generator=torch.Generator())
+    with torch.no_grad():
+        conv.w.copy_(torch.from_numpy(w))
+        got = conv(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_max_pool_is_jax_pad_and_valid_pool():
+    x = np.random.default_rng(0).standard_normal((2, 9, 9, 3)).astype(
+        np.float32)
+    padded = jnp.pad(jnp.asarray(x), ((0, 0), (1, 1), (1, 1), (0, 0)),
+                     constant_values=-jnp.inf)
+    want = JL.max_pool(padded, 3, 2)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    # What the port's ResNet runs, and the port's VALID pool on the padding.
+    for got in (F.max_pool2d(xt, kernel_size=3, stride=2, padding=1),
+                L.max_pool(F.pad(xt, (1, 1, 1, 1), value=-np.inf), 3, 2)):
+        np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
+                                      np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batchnorm_matches_jax(dtype):
+    rng = np.random.default_rng(1)
+    x = (3 + 2 * rng.standard_normal((4, 5, 5, 8))).astype(np.float32)
+    p = {"scale": jnp.asarray(1 + rng.random(8), jnp.float32),
+         "bias": jnp.asarray(rng.standard_normal(8), jnp.float32)}
+    s = {"mean": jnp.asarray(rng.standard_normal(8), jnp.float32),
+         "var": jnp.asarray(1 + rng.random(8), jnp.float32)}
+    xj = jnp.asarray(x).astype(dtype)
+    want, new_s = JL.bn_apply(p, s, xj, train=True)
+    bn = L.BatchNorm(8)
+    with torch.no_grad():
+        for name, v in {**p, **s}.items():
+            getattr(bn, name).copy_(torch.from_numpy(np.asarray(v)))
+    xt = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    got = bn(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert got.dtype == xt.dtype                 # cast back to the input's
+    tol = dict(rtol=RTOL, atol=ATOL) if dtype == "float32" else \
+        dict(rtol=1e-2, atol=1e-2)               # one bf16 rounding apart
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+    # Running stats use the BIASED variance, as the JAX package does.
+    np.testing.assert_allclose(bn.mean.numpy(), np.asarray(new_s["mean"]),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(bn.var.numpy(), np.asarray(new_s["var"]),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_reduced_resnet_forward_backward_matches_jax():
+    p, s = _pruned_jax_resnet()
+    x, y = _batch()
+    (loss_j, (new_s, logits_j)), grads_j = jax.jit(jax.value_and_grad(
+        _jax_loss, has_aux=True))(p, s, (jnp.asarray(x), jnp.asarray(y)))
+    model = _port_model(p, s)
+    # The GRACE leaf order is the JAX flatten order of the same tree.
+    names = leaf_order(dict(model.named_parameters()))
+    assert names == [_path(q) for q, _ in
+                     jax.tree_util.tree_flatten_with_path(p)[0]]
+    assert len(names) == 29
+    logits = model(torch.from_numpy(x))
+    loss = F.cross_entropy(logits, torch.from_numpy(y).long())
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(logits_j),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=RTOL)
+    params = dict(model.named_parameters())
+    for name, g in _flat(grads_j).items():
+        np.testing.assert_allclose(params[name].grad.numpy(), g, rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+    buffers = dict(model.named_buffers())
+    for name, v in _flat(new_s).items():
+        np.testing.assert_allclose(buffers[name].numpy(), v, rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+def test_reduced_resnet_train_steps_match_jax(tmp_path):
+    p, s = _pruned_jax_resnet()
+    x, y = _batch()
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jgrace = jax_grace_from_params(TOPK1)          # 'auto': the staged path
+    jopt = optax.chain(jgrace.transform(seed=0), optax.sgd(1e-3))
+
+    def jloss(params, mstate, batch):
+        loss, (new, _) = _jax_loss(params, mstate, batch)
+        return loss, new
+
+    jstep = jax_make_step(jloss, jopt, mesh, donate=False)
+    jstate = jax_init_state(p, s, jopt, mesh)
+
+    model = _port_model(p, s)
+    group, _ = init_process_group("cpu",
+                                  init_method=f"file://{tmp_path}/store")
+    try:
+        tx = grace_from_params(TOPK1, group=group).transform(seed=0)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        state = init_stateful_train_state(model, tx, opt, group)
+        step = make_stateful_train_step(_port_loss, tx, group)
+        batch = (torch.from_numpy(x), torch.from_numpy(y).long())
+        for _ in range(2):
+            jstate, jl = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+            state, loss = step(state, batch)
+            np.testing.assert_allclose(loss.item(), float(jl), rtol=RTOL)
+            params = dict(model.named_parameters())
+            for name, v in _flat(jstate.params).items():
+                np.testing.assert_allclose(params[name].detach().numpy(), v,
+                                           rtol=RTOL, atol=ATOL, err_msg=name)
+            buffers = dict(model.named_buffers())
+            for name, v in _flat(jstate.model_state).items():
+                np.testing.assert_allclose(buffers[name].numpy(), v,
+                                           rtol=RTOL, atol=ATOL, err_msg=name)
+            jmem = jstate.opt_state[0].mem
+            for i, m in enumerate(state.grace.mem):
+                np.testing.assert_allclose(m.numpy(), np.asarray(jmem[i])[0],
+                                           rtol=RTOL, atol=ATOL)
+        assert state.grace.count == 2
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+class _MLP(torch.nn.Module):
+    """Two dense layers with the JAX tree's names (fc1, fc2)."""
+
+    def __init__(self):
+        super().__init__()
+        gen = torch.Generator().manual_seed(0)
+        self.fc1 = L.Dense(16, 32, generator=gen)
+        self.fc2 = L.Dense(32, 4, generator=gen)
+
+    def forward(self, x):
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+def test_stateless_train_steps_match_jax(tmp_path):
+    from grace_tpu.train import init_train_state, make_train_step as jmake
+
+    from grace_tpu_torch.train import init_train_state as tinit
+    from grace_tpu_torch.train import make_train_step
+
+    cfg = dict(TOPK1, compress_ratio=0.1)
+    rng = np.random.default_rng(11)
+    p = {"fc1": JL.dense_init(jax.random.key(2), 16, 32, init="glorot"),
+         "fc2": JL.dense_init(jax.random.key(3), 32, 4, init="glorot")}
+    x = rng.standard_normal((8, 16)).astype(np.float32)
+    y = rng.integers(0, 4, (8,)).astype(np.int32)
+
+    def jloss(params, batch):
+        h = jax.nn.relu(JL.dense_apply(params["fc1"], batch[0]))
+        logits = JL.dense_apply(params["fc2"], h)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, batch[1]).mean()
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jopt = optax.chain(jax_grace_from_params(cfg).transform(seed=0),
+                       optax.sgd(1e-3))
+    jstep = jmake(jloss, jopt, mesh, donate=False)
+    jstate = init_train_state(p, jopt, mesh)
+
+    model = _MLP()
+    model.load_state_dict(from_jax(jax.device_get(p), {})[0])
+    group, _ = init_process_group("cpu",
+                                  init_method=f"file://{tmp_path}/store")
+    try:
+        tx = grace_from_params(cfg, group=group).transform(seed=0)
+        state = tinit(model, tx, torch.optim.SGD(model.parameters(), lr=1e-3),
+                      group)
+        step = make_train_step(_port_loss, tx, group)
+        batch = (torch.from_numpy(x), torch.from_numpy(y).long())
+        for _ in range(3):
+            jstate, jl = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+            state, loss = step(state, batch)
+            np.testing.assert_allclose(loss.item(), float(jl), rtol=RTOL)
+            params = dict(model.named_parameters())
+            for name, v in _flat(jstate.params).items():
+                np.testing.assert_allclose(params[name].detach().numpy(), v,
+                                           rtol=RTOL, atol=ATOL, err_msg=name)
+    finally:
+        torch.distributed.destroy_process_group()
