@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive grace_tpu_torch's main path on one CUDA card and check it.
+"""Drive grace_tpu_torch's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,11 +7,14 @@ Runs as one process on one card, in a world-size-1 NCCL group (the
 collectives are real calls). Every phase passes or ends the script with a
 non-zero exit; nothing is caught and allowed to continue.
 
-1. Identify the card and build the CUDA kernels from grace_tpu_torch/csrc.
-2. Hold each kernel against its plain PyTorch version on the card, bit for
-   bit, over every distinct ResNet-50 leaf size at 1% and the edge cases.
-3. Time the kernels at the main path's shapes (all 161 ResNet-50 leaves),
-   beside their byte bound, their plain versions and a library yardstick.
+1. Identify the card and build the CUDA kernels from grace_tpu_torch/csrc
+   (one nvcc process per source, all started together).
+2. Hold each chunk Top-K kernel against its plain PyTorch version on the
+   card, bit for bit, over every distinct ResNet-50 leaf size at 1% and the
+   edge cases.
+3. Time the chunk Top-K kernels at the main path's shapes (all 161
+   ResNet-50 leaves), beside their byte bound, their plain versions and a
+   library yardstick.
 4. Check the port against a reference on a small input: a reduced ResNet
    on the card against the same model on the CPU (forward and backward
    within a tolerance, then the GRACE exchange of identical gradients bit
@@ -20,6 +23,24 @@ non-zero exit; nothing is caught and allowed to continue.
    bfloat16, SGD lr 1e-3) through grace_from_params for both benchmark
    configurations, the Top-K 1% chunk + residual + allgather main path and
    the dense none + allreduce anchor; count the kernels' launches.
+
+The quantized wire path:
+
+6. Hold the quantize, quantize-and-pack, sign-pack and decode-accumulate
+   kernels against their plain versions on the card, bit for bit: the
+   lengths around the kernels' hash block, every distinct ResNet-50 leaf
+   size and the flat gradient; q in {1, 3, 7, 64, 127, 200}; a zero norm;
+   a seed of 2^31 - 2; signs of +-0.0 and NaN in three float types; every
+   wire width, K in {1, 2, 8}, sign and vote.
+7. The ring-hop phase: two ranks' real ResNet-50 flat gradients, split into
+   W in {2, 8} shards and encoded by the QSGD (q=7 and q=1) and signSGD
+   kernels, decoded as the ring hop decodes them
+   (``Compressor.decode_accumulate((recv, own), ...)``), bit for bit
+   against the plain version and against the staged decompress + add.
+   A one-card group makes no hop, so this phase is where the kernel runs.
+8. Time the four kernels at the wire path's shapes.
+9. Train full-width ResNet-50 under the three wire-path configurations
+   (bench_all.py) and assert their kernels' launches a step.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -50,6 +71,28 @@ HEADLINE = [
                 "communicator": "allgather",
                 "fusion": "none"}},
 ]
+# The quantized wire path's configurations (bench_all.py: the serial
+# sibling of qsgd4_packed_ring_pipelined_bs256 with the kernel on, and
+# qsgd_pallas and signsgd_vote_bs256 verbatim), and each kernel's expected
+# launches a step on one card.
+WIRE_PATH = [
+    {"name": "qsgd4_ring", "per_device_bs": 256,
+     "params": {"compressor": "qsgd", "quantum_num": 7, "use_pallas": True,
+                "memory": "none", "communicator": "ring", "fusion": "flat"},
+     "per_step": {"quantize_pack_stochastic": 2}},
+    {"name": "qsgd_pallas", "per_device_bs": 256,
+     "params": {"compressor": "qsgd", "quantum_num": 64, "use_pallas": True,
+                "memory": "none", "communicator": "allgather",
+                "fusion": "flat"},
+     "per_step": {"quantize_stochastic": 1}},
+    {"name": "signsgd_vote_bs256", "per_device_bs": 256,
+     "params": {"compressor": "signsgd", "memory": "residual",
+                "communicator": "sign_allreduce", "fusion": "none"},
+     "per_step": {"sign_pack": 161}},
+]
+HEADLINE[0]["per_step"] = {}
+HEADLINE[1]["per_step"] = {"chunk_compress_feedback": 161,
+                           "chunk_aggregate_dense": 161}
 IMAGE_HW = 224
 NUM_CLASSES = 1000
 WARMUP_STEPS = 2
@@ -86,7 +129,8 @@ def same_bits(a, b) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.is_floating_point():
-        iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+        iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+              torch.float16: torch.int16}[a.dtype]
         eq = (a.view(iv) == b.view(iv)) | (torch.isnan(a) & torch.isnan(b))
     else:
         eq = a == b
@@ -354,25 +398,28 @@ def check_reference(dev, group):
     for n, b in mg.named_buffers():
         torch.testing.assert_close(b.cpu(), dict(mc.named_buffers())[n],
                                    rtol=1e-4, atol=1e-5)
-    # The GRACE exchange of identical gradients: kernels vs plain versions.
-    params = HEADLINE[1]["params"]
-    tx_c = grace_from_params(params, group=cpu_group).transform(SEED)
-    tx_g = grace_from_params(params, group=group).transform(SEED)
-    st_c = tx_c.init(dict(mc.named_parameters()))
-    st_g = tx_g.init(dict(mg.named_parameters()))
-    for step in range(2):
-        grads = {n: g * (step + 1) for n, g in grads_c.items()}
-        up_c, st_c = tx_c.update({n: g.clone() for n, g in grads.items()},
-                                 st_c)
-        up_g, st_g = tx_g.update({n: g.to(dev) for n, g in grads.items()},
-                                 st_g)
-        for n in up_c:
-            if not same_bits(up_g[n].cpu(), up_c[n]):
-                fail(f"reference: GRACE update of {n} at step {step} differs "
-                     "between the card and the CPU")
-        for a, b in zip(st_g.mem, st_c.mem):
-            if not same_bits(a.cpu(), b):
-                fail(f"reference: residual differs at step {step}")
+    # The GRACE exchange of identical gradients: kernels vs plain versions,
+    # for the Top-K main path and the (deterministic) signSGD vote.
+    for params in (HEADLINE[1]["params"], WIRE_PATH[2]["params"]):
+        tx_c = grace_from_params(params, group=cpu_group).transform(SEED)
+        tx_g = grace_from_params(params, group=group).transform(SEED)
+        st_c = tx_c.init(dict(mc.named_parameters()))
+        st_g = tx_g.init(dict(mg.named_parameters()))
+        for step in range(2):
+            grads = {n: g * (step + 1) for n, g in grads_c.items()}
+            up_c, st_c = tx_c.update(
+                {n: g.clone() for n, g in grads.items()}, st_c)
+            up_g, st_g = tx_g.update(
+                {n: g.to(dev) for n, g in grads.items()}, st_g)
+            for n in up_c:
+                if not same_bits(up_g[n].cpu(), up_c[n]):
+                    fail(f"reference: {params['compressor']} update of {n} "
+                         f"at step {step} differs between the card and the "
+                         "CPU")
+            for a, b in zip(st_g.mem, st_c.mem):
+                if not same_bits(a.cpu(), b):
+                    fail(f"reference: {params['compressor']} residual "
+                         f"differs at step {step}")
     dist.destroy_process_group(cpu_group)
 
 
@@ -409,9 +456,8 @@ def profile_step(step, state, batch, label):
 
 def train(dev, group, cfg, x, y):
     import torch
-    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.models.resnet import resnet50
-    from grace_tpu_torch.ops import chunk_topk as ck
     from grace_tpu_torch.train import (init_stateful_train_state,
                                        make_stateful_train_step)
 
@@ -427,7 +473,7 @@ def train(dev, group, cfg, x, y):
     step = make_stateful_train_step(loss_fn, tx, group)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    ck.reset_launch_counts()                  # just before the main path
+    ops.reset_launch_counts()                 # just before the main path
     losses = []
     for _ in range(WARMUP_STEPS):
         state, loss = step(state, (x, y))
@@ -439,8 +485,7 @@ def train(dev, group, cfg, x, y):
     losses.append(float(loss))                # synchronises
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"chunk_compress_feedback": ck.chunk_compress_feedback.launches,
-                "chunk_aggregate_dense": ck.chunk_aggregate_dense.launches}
+    launches = ops.launch_counts()            # just after it
     profile_step(step, state, (x, y), cfg["name"])
     steps = WARMUP_STEPS + TIMED_STEPS
     res = {"name": cfg["name"], "img_per_s": x.shape[0] * TIMED_STEPS / seconds,
@@ -454,12 +499,243 @@ def train(dev, group, cfg, x, y):
         f"launches {launches} over {steps} steps")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{cfg['name']}: non-finite loss {losses}")
-    want = 161 * steps if cfg["params"]["compressor"] == "topk" else 0
     for name, count in launches.items():
+        want = cfg["per_step"].get(name, 0) * steps
         if count != want:
             fail(f"{cfg['name']}: {name} launched {count} times over {steps} "
-                 f"steps, expected {want} (161 a step on the Top-K path)")
+                 f"steps, expected {want} ({cfg['per_step'].get(name, 0)} a "
+                 "step)")
     return res
+
+
+# -- phases 6 to 8: the quantized wire path ----------------------------------
+
+WIRE_KERNELS = ("quantize_stochastic", "quantize_pack_stochastic",
+                "sign_pack", "decode_accumulate")
+LEVELS = (1, 3, 7, 64, 127, 200)          # 200: the int16 wire
+HASH_EDGES = (1, 7, 8, 16383, 16384, 16385, 40000)
+BIG_SEED = 2**31 - 2                      # seed + block id wraps int32
+DECODE_MODES = ((1, False, False), (2, False, False), (3, False, False),
+                (4, False, False), (1, True, False), (1, True, True))
+
+
+def narrowest_width(q: int) -> int:
+    return 2 if q <= 1 else 3 if q <= 3 else 4
+
+
+def check_wire_kernels(dev, leaves, errs):
+    """Phase 6: every wire-path kernel against its plain version."""
+    import torch
+    from grace_tpu_torch.ops import quant as Q
+    from grace_tpu_torch.ops import wire as Wr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    flat_n = sum(n for _, n in leaves)
+    sizes = sorted(set(HASH_EDGES) | {n for _, n in leaves} | {flat_n})
+    cases = 0
+
+    def same(kname, label, want, got):
+        nonlocal cases
+        torch.cuda.synchronize()
+        if not same_bits(want, got):
+            fail(f"{kname} {label}: differs from the plain version (max abs "
+                 f"err {max_abs_err(want, got)})")
+        errs[kname] = max(errs[kname], max_abs_err(want, got))
+        cases += 1
+
+    for n in sizes:
+        x = torch.randn(n, generator=gen, device=dev)
+        norm = torch.linalg.vector_norm(x)
+        zero = torch.zeros((), device=dev)
+        runs = [(q, nrm, sd) for q in LEVELS for nrm, sd in
+                ((norm, 12345 + q), (zero, 5), (norm, BIG_SEED))]
+        for q, nrm, sd in runs:
+            label = f"n={n} q={q} seed={sd} zero_norm={nrm is zero}"
+            dt = torch.int8 if q < 128 else torch.int16
+            same("quantize_stochastic", label,
+                 Q.quantize_stochastic_plain(x, nrm, sd, q, dt),
+                 Q.quantize_stochastic(x, nrm, sd, q, dt))
+            if q <= 7:
+                for w in range(narrowest_width(q), 5):
+                    same("quantize_pack_stochastic", f"{label} width={w}",
+                         Q.quantize_pack_stochastic_plain(x, nrm, sd, q, w),
+                         Q.quantize_pack_stochastic(x, nrm, sd, q, w))
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            xs = x.to(dt)
+            edge = torch.tensor([0.0, -0.0, float("nan")], dtype=dt,
+                                device=dev)
+            xs[:3] = edge[:min(n, 3)]
+            same("sign_pack", f"n={n} {dt}", Q.sign_pack_plain(xs),
+                 Q.sign_pack(xs))
+        for w, sign, vote in DECODE_MODES:
+            for k in (1, 2, 8):
+                st = torch.randint(0, 256, (k, -(-n * w // 8)), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+                sc = torch.rand(k, generator=gen, device=dev) * 3
+                same("decode_accumulate",
+                     f"n={n} width={w} K={k} sign={sign} vote={vote}",
+                     Wr.decode_accumulate_plain(st, sc, n, w, sign, vote),
+                     Wr.decode_accumulate(st, sc, n, w, sign, vote))
+    return cases
+
+
+def resnet50_flat_grads(dev, count=2, batch=32):
+    """``count`` real ResNet-50 flat gradients (leaf order), one a batch of
+    synthetic images each: the ranks' gradients of the ring-hop phase."""
+    import numpy as np
+    import torch
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.transform import leaf_order
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    grads = []
+    for _ in range(count):
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, IMAGE_HW, IMAGE_HW, 3), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, NUM_CLASSES, (batch,))).to(dev)
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, (x, y)).backward()
+        named = dict(model.named_parameters())
+        grads.append(torch.cat([named[n].grad.reshape(-1)
+                                for n in leaf_order(named)]))
+    return grads
+
+
+def check_ring_hop(dev, flat_a, flat_b, errs):
+    """Phase 7: the ring hop's decode of two ranks' shards, exactly as
+    RingAllreduce calls it, against the plain version and the staged
+    decompress + add. Returns (cases, hop launches)."""
+    import torch
+    from grace_tpu_torch.compressors import QSGDCompressor, SignSGDCompressor
+    from grace_tpu_torch.core import LeafKey
+    from grace_tpu_torch.ops import wire as Wr
+
+    def shards(flat, w):
+        pad = -flat.numel() % w
+        return torch.cat([flat, flat.new_zeros(pad)]).view(w, -1)
+
+    cases = 0
+    hops = 0
+    Wr.reset_launch_counts()
+    for w in (2, 8):
+        ra, rb = shards(flat_a, w), shards(flat_b, w)
+        m = ra.shape[1]
+        for codec in (QSGDCompressor(quantum_num=7, use_pallas=True),
+                      QSGDCompressor(quantum_num=1, use_pallas=True),
+                      SignSGDCompressor(use_pallas=True)):
+            qsgd = isinstance(codec, QSGDCompressor)
+            for c in range(w):
+                recv, ctx, _ = codec.compress(ra[c], None,
+                                              LeafKey(SEED, 0, 0).fold(c))
+                own, _, _ = codec.compress(rb[c], None,
+                                           LeafKey(SEED, 1, 0).fold(c))
+                got = codec.decode_accumulate((recv, own), (ctx, ctx))
+                hops += 1
+                stacked = torch.stack([recv[0], own[0]])
+                if qsgd:
+                    scales = torch.stack([codec.decode_scale(recv[1]),
+                                          codec.decode_scale(own[1])])
+                    plain = Wr.decode_accumulate_plain(
+                        stacked, scales, m, codec.pack_width)
+                else:
+                    plain = Wr.decode_accumulate_plain(
+                        stacked, torch.ones(2, device=dev), m, 1, sign=True)
+                staged = (codec.decompress(recv, ctx)
+                          + codec.decompress(own, ctx))
+                torch.cuda.synchronize()
+                label = f"W={w} shard {c} {codec}"
+                for ref, what in ((plain, "plain version"),
+                                  (staged, "staged decompress + add")):
+                    if not same_bits(ref.reshape(-1), got.reshape(-1)):
+                        fail(f"ring hop {label}: differs from the {what} "
+                             f"(max abs err {max_abs_err(ref, got)})")
+                errs["decode_accumulate"] = max(errs["decode_accumulate"],
+                                                max_abs_err(plain, got))
+                cases += 1
+    launches = Wr.decode_accumulate.launches
+    if launches != hops:
+        fail(f"ring hop: {hops} hops launched decode_accumulate {launches} "
+             "times")
+    return cases, launches
+
+
+# Operations an element (a packed byte for the packers' bytes), counted at
+# the fp32 rate: the guide's table gives no int32 rate, and the bytes bound
+# these kernels many times over either way.
+QUANT_OPS = 20          # 11 for the hash, 9 for the level and its sign
+PACK_OPS = 24           # the same plus clamp, fold, shift and or
+SIGN_OPS = 3            # convert, compare, or
+DECODE_OPS = 8          # a payload: extract, sign-extend, convert, mul, add
+
+
+def time_wire_kernels(dev, leaves, flat):
+    """Phase 8: the four kernels at the wire path's shapes. Per launch for
+    the flat-buffer kernels (the flat path calls each once or twice a
+    step), per step over the 161 leaves for sign_pack, per hop for
+    decode_accumulate."""
+    import torch
+    from grace_tpu_torch.ops import quant as Q
+    from grace_tpu_torch.ops import wire as Wr
+
+    n = flat.numel()
+    norm = torch.linalg.vector_norm(flat)
+    views, off = [], 0
+    for _, size in leaves:                 # the 161 leaves, as flat views
+        views.append(flat[off:off + size])
+        off += size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def hop_inputs(w):
+        m = -(-n // w)
+        st = torch.randint(0, 256, (2, -(-m * 4 // 8)), generator=gen,
+                           device=dev, dtype=torch.uint8)
+        return st, torch.rand(2, generator=gen, device=dev), m
+
+    st2, sc2, m2 = hop_inputs(2)
+    st8, sc8, m8 = hop_inputs(8)
+    sign_bytes = sum(4 * v.numel() + -(-v.numel() // 8) for v in views)
+    specs = {
+        "quantize_pack_stochastic": (
+            lambda: Q.quantize_pack_stochastic(flat, norm, 1, 7, 4),
+            lambda: Q.quantize_pack_stochastic_plain(flat, norm, 1, 7, 4),
+            4 * n + -(-n * 4 // 8), PACK_OPS * n, "a launch, flat n"),
+        "quantize_stochastic": (
+            lambda: Q.quantize_stochastic(flat, norm, 1, 64),
+            lambda: Q.quantize_stochastic_plain(flat, norm, 1, 64),
+            5 * n, QUANT_OPS * n, "a launch, flat n"),
+        "sign_pack": (
+            lambda: [Q.sign_pack(v) for v in views],
+            lambda: [Q.sign_pack_plain(v) for v in views],
+            sign_bytes, SIGN_OPS * n, "a step, 161 leaves"),
+        "decode_accumulate": (
+            lambda: Wr.decode_accumulate(st2, sc2, m2, 4),
+            lambda: Wr.decode_accumulate_plain(st2, sc2, m2, 4),
+            2 * st2.shape[1] + 4 * m2, 2 * DECODE_OPS * m2,
+            "a hop, K=2 w=4 at W=2"),
+    }
+    out = {}
+    for name, (kern, plain, nbytes, nops, unit) in specs.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / FP32_FLOP_PER_S * 1e3
+        ms, host_ms = cuda_time_ms(kern, host=True)
+        out[name] = {"ms": ms, "host_ms": host_ms,
+                     "plain_ms": cuda_time_ms(plain), "library_ms": None,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations"}
+        log(f"  {name}: {ms:.4f} ms {unit}, {host_ms:.4f} ms of it to "
+            f"enqueue (bound {out[name]['bound_ms']:.4f} ms by "
+            f"{out[name]['bound_by']}: {nbytes / 1e6:.2f} MB), plain "
+            f"{out[name]['plain_ms']:.4f} ms, library none")
+    ms8, host8 = cuda_time_ms(lambda: Wr.decode_accumulate(st8, sc8, m8, 4),
+                              host=True)
+    bound8 = (2 * st8.shape[1] + 4 * m8) / HBM_BYTES_PER_S * 1e3
+    out["decode_accumulate"]["w8"] = {"ms": ms8, "host_ms": host8,
+                                      "bound_ms": bound8}
+    log(f"  decode_accumulate at W=8 (a hop, n/8): {ms8:.4f} ms, "
+        f"{host8:.4f} ms to enqueue (bound {bound8:.4f} ms by bytes)")
+    return out
 
 
 def main() -> int:
@@ -488,12 +764,14 @@ def main() -> int:
         f"sheet: {HBM_BYTES_PER_S / 1e12} TB/s, "
         f"{FP32_FLOP_PER_S / 1e12} fp32 TFLOP/s")
     t0 = time.perf_counter()
-    _build.build_all()
-    _build.library("chunk_topk")
+    _build.build_all()                    # one nvcc a source, in parallel
+    for src in _build.sources():
+        _build.library(src)
     log(f"    kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("chunk_topk").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+    for src in _build.sources():
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas {src}: {line.strip()}")
 
     group, dev = init_process_group("cuda")
     try:
@@ -515,7 +793,8 @@ def main() -> int:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
         log("[4] reduced ResNet on the card agrees with the CPU (forward and "
-            "backward within rtol 1e-4/atol 1e-5; GRACE exchange bit for bit)")
+            "backward within rtol 1e-4/atol 1e-5; Top-K and signSGD GRACE "
+            "exchanges bit for bit)")
         # -- 5. train full width ---------------------------------------------
         log(f"[5] ResNet-50, batch {HEADLINE[0]['per_device_bs']}, "
             f"{IMAGE_HW}x{IMAGE_HW} bf16, SGD lr 1e-3, {WARMUP_STEPS} warm-up "
@@ -529,17 +808,53 @@ def main() -> int:
         for cfg in HEADLINE:
             runs[cfg["name"]] = train(dev, group, cfg, x, y)
             torch.cuda.empty_cache()
-        topk = runs["topk1pct"]
+        # -- 6. wire-path kernels against their plain versions -------------
+        wire_errs = {k: 0.0 for k in WIRE_KERNELS}
+        cases = check_wire_kernels(dev, leaves, wire_errs)
+        log(f"[6] wire-path kernels bit-identical to their plain versions in "
+            f"{cases} cases on the card")
+        # -- 7. the ring hop -------------------------------------------------
+        flat_a, flat_b = resnet50_flat_grads(dev)
+        cases, hop_launches = check_ring_hop(dev, flat_a, flat_b, wire_errs)
+        del flat_b
+        log(f"[7] ring hop: {cases} shard decodes of two ranks' ResNet-50 "
+            f"gradients at W=2 and W=8 (qsgd q=7, q=1, signsgd) bit for bit "
+            f"against the plain version and the staged decode; "
+            f"decode_accumulate launched {hop_launches} times")
+        # -- 8. timing -------------------------------------------------------
+        log("[8] wire-path kernel times at the wire path's shapes (flat "
+            f"n={flat_a.numel()}, 161 leaves, W=1)")
+        wire_times = time_wire_kernels(dev, leaves, flat_a)
+        del flat_a
+        torch.cuda.empty_cache()
+        # -- 9. train the wire path ------------------------------------------
+        log(f"[9] ResNet-50 under the wire-path configurations, batch {bs}, "
+            f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
+        for cfg in WIRE_PATH:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y)
+            torch.cuda.empty_cache()
         kernels = []
-        for kname, line in (("chunk_compress_feedback", 132),
-                            ("chunk_aggregate_dense", 237)):
-            t = times[kname]
+        for kname, src, line, run in (
+                ("chunk_compress_feedback", "pallas_topk.py", 132, "topk1pct"),
+                ("chunk_aggregate_dense", "pallas_topk.py", 237, "topk1pct"),
+                ("quantize_stochastic", "pallas_quant.py", 111,
+                 "qsgd_pallas"),
+                ("quantize_pack_stochastic", "pallas_quant.py", 247,
+                 "qsgd4_ring"),
+                ("sign_pack", "pallas_quant.py", 316, "signsgd_vote_bs256"),
+                ("decode_accumulate", "pallas_wire.py", 180, None)):
+            t = times[kname] if kname in times else wire_times[kname]
             kernels.append({
                 "name": kname, "route": "cuda",
-                "source": "grace_tpu_torch/csrc/chunk_topk.cu",
-                "replaces": f"grace_tpu/ops/pallas_topk.py:{line}",
-                "launches": topk["launches"][kname],
-                "max_abs_err": errs[kname], "ms": t["ms"],
+                "source": "grace_tpu_torch/csrc/" + (
+                    "chunk_topk.cu" if src == "pallas_topk.py" else
+                    "quant.cu" if src == "pallas_quant.py" else "wire.cu"),
+                "replaces": f"grace_tpu/ops/{src}:{line}",
+                "launches": (runs[run]["launches"][kname] if run
+                             else hop_launches),
+                "launches_from": (f"the {run} run" if run
+                                  else "the ring-hop phase [7]"),
+                "max_abs_err": {**errs, **wire_errs}[kname], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         log(json.dumps({"runs": runs}))

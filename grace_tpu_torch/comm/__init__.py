@@ -1,23 +1,27 @@
 """Communicators over ``torch.distributed``; counterpart of the JAX
-``comm/__init__.py`` (``Allreduce``, ``Allgather``, ``Broadcast`` and
-``Identity``; the ring, two-shot, hierarchical, reduce-scatter and sign
-communicators are queued in ROADMAP).
+``comm/__init__.py`` (``Allreduce`` with its majority-vote routing,
+``Allgather``, ``Broadcast``, ``SignAllreduce``, ``RingAllreduce`` and
+``Identity``; the two-shot, hierarchical and reduce-scatter communicators
+are queued in ROADMAP).
 
 NCCL carries them on the card, gloo in the CPU tests. A world of one rank
-still makes the real collective calls.
+still makes the real collective calls, except the ring's point-to-point
+hops, of which a one-rank ring has none.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
 
-from grace_tpu_torch.core import (Communicator, Compressor, Ctx, Payload,
-                                  mean_scale)
+from grace_tpu_torch.core import (Communicator, Compressor, Ctx, LeafKey,
+                                  Payload, mean_scale)
 
-__all__ = ["Allreduce", "Allgather", "Broadcast", "Identity"]
+__all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
+           "SignAllreduce", "RingAllreduce", "vote_exact_max_world"]
 
 # Newer PyTorch renames all_gather_into_tensor (same signature) and
 # deprecates the old name.
@@ -29,6 +33,63 @@ def _algebra(compressor) -> str | None:
     return getattr(compressor, "payload_algebra", None)
 
 
+def _torch_dtype(name) -> torch.dtype:
+    dt = getattr(torch, name) if isinstance(name, str) else name
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"unknown dtype {name!r}")
+    return dt
+
+
+def vote_exact_max_world(vote_dtype) -> int:
+    """Largest world size whose ±1 majority-vote sums stay integer-exact
+    in ``vote_dtype``: a float with p explicit mantissa bits holds every
+    integer up to ``2^(p+1)``, and a W-rank tally lies in ``[-W, W]``.
+    bfloat16 gives 256, float16 2048, float32 16,777,216."""
+    dt = _torch_dtype(vote_dtype)
+    if not dt.is_floating_point:
+        raise TypeError(f"vote_dtype must be a float dtype; got {dt}")
+    nmant = round(-math.log2(torch.finfo(dt).eps))
+    return 2 ** (nmant + 1)
+
+
+def _psum_majority_vote(payload: Payload, ctx: Ctx, compressor: Compressor,
+                        group, vote_dtype: str) -> torch.Tensor:
+    """Decompress this rank's ±1 signs, all-reduce, re-sign: the exact
+    majority vote at a collective cost that does not grow with the world.
+    Shared by SignAllreduce and the Allreduce vote routing."""
+    w = dist.get_world_size(group)
+    bound = vote_exact_max_world(vote_dtype)
+    if w > bound:
+        raise ValueError(
+            f"vote_dtype={vote_dtype!r} is integer-exact only up to world "
+            f"size {bound} (comm.vote_exact_max_world: 2^(mantissa+1)); "
+            f"this group has {w}: use vote_dtype='float32'.")
+    vdt = _torch_dtype(vote_dtype)
+    dec = compressor.decompress(payload, ctx)
+    summed = dec.to(vdt, copy=True)
+    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+    out = (summed >= 0).to(vdt) * 2 - 1
+    return out.to(dec.dtype)
+
+
+def _gather(payload: Payload, group) -> Payload:
+    """All-gather every tensor of this rank's payload into a ``(W, ...)``
+    stack. Gathers into a flat buffer: gloo accepts no other shape, NCCL
+    both."""
+    world = dist.get_world_size(group)
+    gathered = []
+    for t in payload:
+        t = t.contiguous()
+        out = torch.empty(world * t.numel(), dtype=t.dtype, device=t.device)
+        _all_gather_into(out, t.reshape(-1), group=group)
+        gathered.append(out.view((world,) + tuple(t.shape)))
+    return tuple(gathered)
+
+
+def _rank_payload(gathered: Payload, j: int) -> Payload:
+    return tuple(t[j] for t in gathered)
+
+
 @dataclasses.dataclass(frozen=True)
 class Allreduce(Communicator):
     """Sum payloads across ranks, divide by the world size if
@@ -37,14 +98,19 @@ class Allreduce(Communicator):
 
     The sum is taken IN PLACE in the payload tensors: for the identity
     codec that is the gradient buffer itself, which the exchange consumes.
+
+    Majority-vote codecs (``vote_aggregate``: signsgd, signum) are routed
+    through the all-reduce vote of :class:`SignAllreduce`: summing their
+    packed sign bytes would be garbage.
     """
+
+    vote_dtype: str = "bfloat16"
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         if getattr(compressor, "vote_aggregate", False):
-            raise NotImplementedError(
-                "the majority-vote Allreduce (signsgd/signum) comes with the "
-                "quantized wire path (ROADMAP queue 1, slice B)")
+            return _psum_majority_vote(payload, ctx, compressor, self.group,
+                                       self.vote_dtype)
         if not getattr(compressor, "summable_payload", False):
             raise TypeError(
                 f"Allreduce requires a payload that sums meaningfully across "
@@ -80,22 +146,14 @@ class Allgather(Communicator):
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         world = self.world_size()
-        gathered = []
-        for t in payload:
-            t = t.contiguous()
-            # Flat output buffer: gloo accepts no other shape, NCCL both.
-            out = torch.empty(world * t.numel(), dtype=t.dtype,
-                              device=t.device)
-            _all_gather_into(out, t.reshape(-1), group=self.group)
-            gathered.append(out.view((world,) + tuple(t.shape)))
-        gathered = tuple(gathered)
+        gathered = _gather(payload, self.group)
         fused = getattr(compressor, "fused_aggregate_decompress", None)
         if fused is not None:
             out = fused(gathered, ctx, world)
             if out is not None:        # handles aggregate + average itself
                 return out
         stacked = torch.stack([
-            compressor.decompress(tuple(t[i] for t in gathered), ctx)
+            compressor.decompress(_rank_payload(gathered, i), ctx)
             for i in range(world)])
         out = compressor.aggregate(stacked)
         if compressor.average:
@@ -116,3 +174,286 @@ class Identity(Communicator):
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         return compressor.decompress(payload, ctx)
+
+
+@dataclasses.dataclass(frozen=True)
+class SignAllreduce(Communicator):
+    """Majority vote through an all-reduce instead of an all-gather:
+    decompress this rank's payload to ±1, all-reduce the ±1 in
+    ``vote_dtype``, re-sign. The same result as Allgather plus the sign
+    codecs' vote ``aggregate``, at a collective cost that does not grow
+    with the world. Only for ``vote_aggregate`` codecs (signsgd, signum).
+    ``'bfloat16'`` is integer-exact up to 256 ranks
+    (:func:`vote_exact_max_world`); pick ``'float32'`` beyond."""
+
+    vote_dtype: str = "bfloat16"
+
+    def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
+                 ) -> torch.Tensor:
+        if not getattr(compressor, "vote_aggregate", False):
+            raise TypeError(
+                "SignAllreduce implements majority-vote aggregation; "
+                f"{type(compressor).__name__} does not declare "
+                "vote_aggregate=True (its aggregate carries scaling the "
+                "re-sign would drop): use Allreduce/Allgather instead.")
+        return _psum_majority_vote(payload, ctx, compressor, self.group,
+                                   self.vote_dtype)
+
+
+# -- the compressed ring -----------------------------------------------------
+
+def _pipeline_segments(n: int, pipeline: int) -> list[tuple[int, int]]:
+    """``[lo, hi)`` bounds of the ``pipeline`` contiguous segments of an
+    ``n``-element flat buffer: equal ``ceil(n/P)`` segments (the last may
+    be shorter), clamped so that no segment is empty."""
+    p = max(1, min(int(pipeline), n if n else 1))
+    per = -(-n // p)
+    return [(lo, min(lo + per, n)) for lo in range(0, max(n, 1), per)]
+
+
+def _holds_tensor(obj) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return True
+    if isinstance(obj, (tuple, list)):
+        return any(_holds_tensor(o) for o in obj)
+    if isinstance(obj, dict):
+        return any(_holds_tensor(o) for o in obj.values())
+    return False
+
+
+@dataclasses.dataclass(frozen=True)
+class _ChunkedView:
+    """Decompress-only adapter: the W shard payloads of a stage-1 encode →
+    the full flat leaf, so that a Memory's ``update`` (which only calls
+    ``compressor.decompress``) sees the reconstruction of the whole buffer.
+    ``ctx = (shard ctxs, n, shape, dtype)``."""
+
+    inner: Compressor
+
+    def decompress(self, payload, ctx) -> torch.Tensor:
+        ctxs, n, shape, dtype = ctx
+        flat = torch.cat([self.inner.decompress(p, c).reshape(-1)
+                          for p, c in zip(payload, ctxs)])
+        return flat[:n].reshape(shape).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _PipelinedView:
+    """Decompress-only adapter over P segments' :class:`_ChunkedView` ctxs:
+    each segment decodes on its own, and the segments concatenate back into
+    the full leaf. ``ctx = (segment ctxs, n, shape, dtype)``."""
+
+    inner: Compressor
+
+    def decompress(self, payload, ctx) -> torch.Tensor:
+        seg_ctxs, n, shape, dtype = ctx
+        view = _ChunkedView(self.inner)
+        flat = torch.cat([view.decompress(p, c).reshape(-1)
+                          for p, c in zip(payload, seg_ctxs)])
+        return flat[:n].reshape(shape).to(dtype)
+
+
+def _shard_compress(compressor: Compressor, chunks: torch.Tensor,
+                    rng: LeafKey, comm_name: str):
+    """The stage-1 shard encode: ``compress`` of each of the ``(w, m)``
+    shards under the shard-folded key ``rng.fold(c)``. Checks that there is
+    a wire payload to send, and that ctx holds no tensor: ranks decode each
+    other's shard payloads with their own ctx, which is sound only when ctx
+    is a function of shapes alone (in the port, static Python data).
+    Returns ``(payloads, ctxs)``, one entry per shard."""
+    payloads, ctxs = [], []
+    for c in range(chunks.shape[0]):
+        payload, ctx, _ = compressor.compress(chunks[c], None, rng.fold(c))
+        if c == 0:
+            if not payload:
+                raise TypeError(
+                    f"{comm_name} needs a wire payload to scatter; "
+                    f"{type(compressor).__name__} communicates inside "
+                    "compress: use Allreduce instead.")
+            if _holds_tensor(ctx):
+                raise TypeError(
+                    f"{comm_name} requires a data-free ctx; "
+                    f"{type(compressor).__name__}.compress puts tensors in "
+                    "ctx, and ranks decode each other's shard payloads with "
+                    "their own ctx: keep data in the payload or use "
+                    "Allgather/Allreduce.")
+        payloads.append(tuple(payload))
+        ctxs.append(ctx)
+    return payloads, ctxs
+
+
+@dataclasses.dataclass(frozen=True)
+class RingAllreduce(Communicator):
+    """Compressed ring all-reduce, the payload compressed on every hop:
+
+    1. split the compensated gradient into W equal shards
+       (``Communicator.shard_spec``) and compress each under the key
+       ``rng.fold(c)`` (error feedback covers exactly this encode);
+    2. reduce-scatter, W−1 hops: at hop s rank i sends the running partial
+       of shard (i−1−s) mod W to rank i+1 and receives shard (i−2−s) mod W
+       from rank i−1 (``dist.batch_isend_irecv``);
+    3. all-gather the W reduced shards in wire format and decode them all.
+
+    Two accumulation paths, gated on the codec:
+
+    * **exact** (``payload_algebra='exact'``: none) — hops add wire words
+      (``payload_add``); the mean scales the owned shard by
+      ``mean_scale(W)`` before the gather.
+    * **requant** (``supports_hop_requant``: qsgd, signsgd, topk) — each
+      hop runs ``decode_accumulate((recv, own))`` (qsgd and signsgd: one
+      fused kernel) and re-compresses the partial under ``rng.fold(W+1+s)``
+      for the next hop; the owner aggregates (the vote re-signs), averages,
+      and encodes its shard once more under ``rng.fold(W)`` for the gather.
+
+    The homomorphic path (``shared_scale``/``sketch``) comes with slice C.
+    ``pipeline=P > 1`` splits the buffer into P contiguous segments, each
+    running the whole schedule under ``rng.fold(p)``. A one-rank ring makes
+    no hop, and so no point-to-point call.
+    """
+
+    pipeline: int = 1
+    shard_parallel = True
+
+    def __post_init__(self):
+        if self.pipeline < 1:
+            raise ValueError(
+                f"RingAllreduce pipeline must be >= 1; got {self.pipeline}: "
+                "it is the number of segments the ring schedule splits the "
+                "buffer into.")
+
+    def step(self, x: torch.Tensor, mem_state, comp_state, memory,
+             compressor: Compressor, rng: LeafKey):
+        if comp_state is not None:
+            raise TypeError(
+                f"RingAllreduce requires a stateless compressor; "
+                f"{type(compressor).__name__} carries cross-step state "
+                "(init_state != None) that has no per-shard meaning: use "
+                "Allgather/Allreduce instead.")
+        algebra = _algebra(compressor)
+        exact = bool(getattr(compressor, "summable_payload", False))
+        requant = bool(getattr(compressor, "supports_hop_requant", False))
+        if not (exact or requant):
+            raise TypeError(
+                "RingAllreduce keeps the payload compressed on every hop, "
+                "which needs a payload algebra (exact: none) or an opt-in "
+                "to per-hop requantization (supports_hop_requant=True: "
+                f"topk/qsgd/signsgd); {type(compressor).__name__} declares "
+                "neither. Use Allgather instead.")
+        if algebra in ("shared_scale", "sketch"):
+            raise NotImplementedError(
+                "the homomorphic ring path (shared-scale and sketch "
+                "payloads) comes with the homomorphic codecs (ROADMAP "
+                "queue 1, slice C)")
+        shape, dtype = tuple(x.shape), x.dtype
+        compensated, mem_state = memory.compensate(x, mem_state)
+        flat = compensated.reshape(-1)
+        n = flat.numel()
+        segs = _pipeline_segments(n, self.pipeline)
+        if len(segs) == 1:
+            out, payloads, ctxs = self._segment_schedule(
+                flat, compressor, rng, exact)
+            view, view_ctx = _ChunkedView(compressor), (ctxs, n, shape, dtype)
+        else:
+            outs, seg_pay, seg_ctx = [], [], []
+            for p, (lo, hi) in enumerate(segs):
+                o, pay, ctxs = self._segment_schedule(
+                    flat[lo:hi], compressor, rng.fold(p), exact)
+                outs.append(o)
+                seg_pay.append(pay)
+                seg_ctx.append((ctxs, hi - lo, (hi - lo,), flat.dtype))
+            out = torch.cat(outs)
+            payloads = tuple(seg_pay)
+            view, view_ctx = (_PipelinedView(compressor),
+                              (tuple(seg_ctx), n, shape, dtype))
+        # Error feedback covers the stage-1 encode exactly; the hop
+        # requant losses are downstream of it.
+        mem_state = memory.update(compensated, payloads, view_ctx, view,
+                                  mem_state)
+        return out[:n].reshape(shape).to(dtype), mem_state, comp_state
+
+    def _shift(self, send: Payload) -> Payload:
+        """Send ``send`` to the next rank and receive the previous rank's
+        payload of the same shapes."""
+        w = dist.get_world_size(self.group)
+        i = dist.get_rank(self.group)
+        peer = (lambda r: r) if self.group is None else (
+            lambda r: dist.get_global_rank(self.group, r))
+        bufs = [t.reshape(-1).contiguous() for t in send]
+        recv = [torch.empty_like(b) for b in bufs]
+        ops = [dist.P2POp(dist.isend, b, peer((i + 1) % w), self.group)
+               for b in bufs]
+        ops += [dist.P2POp(dist.irecv, r, peer((i - 1) % w), self.group)
+                for r in recv]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return tuple(r.view(t.shape) for r, t in zip(recv, send))
+
+    def _segment_schedule(self, flat: torch.Tensor, compressor: Compressor,
+                          rng: LeafKey, exact: bool):
+        """One full ring schedule over one contiguous flat segment: the
+        stage-1 shard encode, the W−1 hops, the gather and the decode.
+        Returns ``(decoded flat segment, stage-1 payloads, shard ctxs)``."""
+        n = flat.numel()
+        w, m, pad = self.shard_spec(n)
+        chunks = (torch.cat([flat, flat.new_zeros(pad)]) if pad
+                  else flat).reshape(w, m)
+        payloads, ctxs = _shard_compress(compressor, chunks, rng,
+                                         "RingAllreduce")
+        i = dist.get_rank(self.group)
+        if exact:
+            # Payload-space accumulation: the wire format is the
+            # accumulator, and phase 2 needs no re-encode.
+            send = payloads[(i - 1) % w]
+            for s in range(w - 1):
+                recv = self._shift(send)
+                send = compressor.payload_add(recv, payloads[(i - 2 - s) % w])
+            owned = send
+            if compressor.average:
+                if not all(t.is_floating_point() for t in owned):
+                    raise TypeError(
+                        "RingAllreduce with average=True requires float "
+                        f"payloads; got {[t.dtype for t in owned]}.")
+                owned = tuple(t * mean_scale(w) for t in owned)   # t / w
+            gathered = _gather(owned, self.group)
+            # Rank j owns shard j, so shard j's ctx decodes it.
+            out = torch.cat([
+                compressor.decompress(_rank_payload(gathered, j),
+                                      ctxs[j]).reshape(-1)
+                for j in range(w)])
+        else:
+            hop_ctx = None
+            send = payloads[(i - 1) % w]
+            partial = None
+            for s in range(w - 1):
+                recv = self._shift(send)
+                rc = (i - 2 - s) % w
+                # Hop 0 arrives in the stage-1 format (shard rc's ctx);
+                # later hops in the previous hop's requant format.
+                rctx = ctxs[rc] if s == 0 else hop_ctx
+                partial = compressor.decode_accumulate(
+                    (recv, payloads[rc]), (rctx, ctxs[rc]))
+                if s < w - 2:
+                    pay, hop_ctx, _ = compressor.compress(
+                        partial, None, rng.fold(w + 1 + s))
+                    send = tuple(pay)
+            if partial is None:                     # w == 1: nothing moved
+                partial = compressor.decompress(payloads[0], ctxs[0])
+            # A singleton stack: sum codecs pass through, vote codecs
+            # re-sign the final tally.
+            owned = compressor.aggregate(partial[None])
+            if compressor.average:
+                owned = owned * mean_scale(w)                    # owned / w
+            payload2, ctx2, _ = compressor.compress(
+                owned.to(chunks.dtype), None, rng.fold(w))
+            gathered = _gather(tuple(payload2), self.group)
+            out = torch.cat([
+                compressor.decompress(_rank_payload(gathered, j),
+                                      ctx2).reshape(-1)
+                for j in range(w)])
+        return out[:n], payloads, ctxs
+
+    def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
+                 ) -> torch.Tensor:
+        raise TypeError("RingAllreduce re-shards the gradient before "
+                        "compression; it only supports the full step() "
+                        "pipeline, not a bare exchange().")

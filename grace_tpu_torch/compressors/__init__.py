@@ -2,6 +2,10 @@
 ROADMAP)."""
 
 from grace_tpu_torch.compressors.none import NoneCompressor
+from grace_tpu_torch.compressors.qsgd import QSGDCompressor
+from grace_tpu_torch.compressors.signsgd import (SignSGDCompressor,
+                                                 SignumCompressor)
 from grace_tpu_torch.compressors.topk import TopKCompressor, static_k
 
-__all__ = ["NoneCompressor", "TopKCompressor", "static_k"]
+__all__ = ["NoneCompressor", "QSGDCompressor", "SignSGDCompressor",
+           "SignumCompressor", "TopKCompressor", "static_k"]

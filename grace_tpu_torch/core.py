@@ -14,7 +14,7 @@ Communicators exchange over a ``torch.distributed`` process group (``None``
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,16 +72,34 @@ class LeafKey:
     same (step, leaf), which is what codecs with a shared random selection
     rely on. The bits differ from JAX's threefry stream: tests that compare
     a random codec with the JAX package feed both the same noise.
+
+    :meth:`fold` is the counterpart of a further ``jax.random.fold_in(key,
+    i)`` (a ring's per-shard and per-hop keys): each folded ``i`` adds one
+    more step, ``s = splitmix64(s ^ i)``, after the three above.
+    :meth:`seed_int32` is the counterpart of ``jax.random.randint(key, (),
+    0, 2**31 - 1, int32)``: a host-side seed for the kernels' counter hash.
     """
 
     seed: int
     count: int
     leaf: int
+    folds: Tuple[int, ...] = ()
 
     def derived_seed(self) -> int:
         s = _splitmix64(self.seed & _MASK64)
         s = _splitmix64(s ^ (self.count & _MASK64))
-        return _splitmix64(s ^ (self.leaf & _MASK64))
+        s = _splitmix64(s ^ (self.leaf & _MASK64))
+        for i in self.folds:
+            s = _splitmix64(s ^ (i & _MASK64))
+        return s
+
+    def fold(self, i: int) -> "LeafKey":
+        """The key of sub-stream ``i`` (``jax.random.fold_in(key, i)``)."""
+        return dataclasses.replace(self, folds=self.folds + (int(i),))
+
+    def seed_int32(self) -> int:
+        """A seed in ``[0, 2**31 - 1)``, drawn on the host from this key."""
+        return self.derived_seed() % (2**31 - 1)
 
     def generator(self, device) -> torch.Generator:
         """A fresh generator on ``device`` seeded by the contract above."""
@@ -136,6 +154,30 @@ class Compressor:
         """Reduce decompressed tensors stacked along a leading world axis."""
         return torch.sum(stacked, dim=0)
 
+    # -- the wire path's hooks: the communicators' hop arithmetic runs
+    # through these, so a codec can swap in its fused kernels without the
+    # schedules knowing. The defaults are the staged spellings.
+
+    def decode_accumulate(self, payloads: Sequence[Payload],
+                          ctxs: Sequence[Ctx]) -> torch.Tensor:
+        """Decode K payloads and sum them into one dense partial, left to
+        right (the ring hop's ``decompress(recv) + decompress(own)``).
+        Codecs with a fused decode→accumulate kernel override this."""
+        out = self.decompress(payloads[0], ctxs[0])
+        for payload, ctx in zip(payloads[1:], ctxs[1:]):
+            out = out + self.decompress(payload, ctx)
+        return out
+
+    def payload_add(self, a: Payload, b: Payload) -> Payload:
+        """Payload-space ``a + b`` for summable payloads (the exact ring
+        hop): element-wise over the tuple."""
+        return tuple(r + o for r, o in zip(a, b))
+
+    def wire_fused(self) -> bool:
+        """True when :meth:`decode_accumulate` runs a fused kernel. Default
+        False (no wire kernels)."""
+        return False
+
 
 @dataclasses.dataclass(frozen=True)
 class Memory:
@@ -162,6 +204,14 @@ class Communicator:
 
     def world_size(self) -> int:
         return dist.get_world_size(self.group)
+
+    def shard_spec(self, n: int) -> tuple[int, int, int]:
+        """Equal-shard split of an ``n``-element flat buffer over the group:
+        ``(world, shard_elems, pad)`` with ``world * shard_elems == n +
+        pad``, the chunk schedule of the shard-parallel communicators."""
+        w = self.world_size()
+        pad = (-n) % w
+        return w, (n + pad) // w, pad
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:

@@ -23,8 +23,9 @@ from grace_tpu_torch.transform import GraceTransform, grace_transform
 # Keys of the JAX schema that this port reads.
 PORTED_KEYS = frozenset({
     "compressor", "compress_ratio", "topk_algorithm", "wire_dtype",
-    "use_pallas", "memory", "beta", "gamma", "memory_dtype", "communicator",
-    "fusion", "world_size"})
+    "use_pallas", "quantum_num", "momentum", "memory", "beta", "gamma",
+    "memory_dtype", "communicator", "pipeline", "vote_dtype", "fusion",
+    "world_size"})
 
 
 def _unsupported(kind: str, name, ported) -> ValueError:
@@ -40,10 +41,12 @@ class Grace:
     compressor: Compressor
     memory: Memory
     communicator: Communicator
+    fusion: Optional[str] = None
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
-                               self.communicator, seed=seed)
+                               self.communicator, seed=seed,
+                               fusion=self.fusion)
 
 
 def _build_compressor(params: Dict[str, Any]) -> Compressor:
@@ -56,7 +59,18 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
             algorithm=params.get("topk_algorithm", "exact"),
             wire_dtype=params.get("wire_dtype", "float32"),
             use_pallas=params.get("use_pallas", "auto"))
-    raise _unsupported("compressor", name, ("none", "topk"))
+    if name == "qsgd":
+        return C.QSGDCompressor(quantum_num=params.get("quantum_num", 64),
+                                use_pallas=params.get("use_pallas", "auto"))
+    if name == "signsgd":
+        return C.SignSGDCompressor(use_pallas=params.get("use_pallas",
+                                                         "auto"))
+    if name == "signum":
+        return C.SignumCompressor(momentum=params.get("momentum", 0.9),
+                                  use_pallas=params.get("use_pallas",
+                                                        "auto"))
+    raise _unsupported("compressor", name,
+                       ("none", "topk", "qsgd", "signsgd", "signum"))
 
 
 def _build_memory(params: Dict[str, Any]) -> Memory:
@@ -73,15 +87,23 @@ def _build_memory(params: Dict[str, Any]) -> Memory:
 def _build_communicator(params: Dict[str, Any], group) -> Communicator:
     name = params.get("communicator", "allgather")
     if name == "allreduce":
-        return comm.Allreduce(group=group)
+        return comm.Allreduce(group=group,
+                              vote_dtype=params.get("vote_dtype", "bfloat16"))
     if name == "allgather":
         return comm.Allgather(group=group)
     if name == "broadcast":
         return comm.Broadcast(group=group)
+    if name in ("ring", "ring_allreduce"):
+        return comm.RingAllreduce(group=group,
+                                  pipeline=int(params.get("pipeline", 1)))
+    if name in ("sign_allreduce", "signallreduce"):
+        return comm.SignAllreduce(
+            group=group, vote_dtype=params.get("vote_dtype", "bfloat16"))
     if name in ("identity", "none"):
         return comm.Identity(group=group)
     raise _unsupported("communicator", name,
-                       ("allreduce", "allgather", "broadcast", "identity"))
+                       ("allreduce", "allgather", "broadcast", "ring",
+                        "sign_allreduce", "identity"))
 
 
 def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
@@ -94,8 +116,9 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
     fusion = params.get("fusion")
     if fusion in ("none", "None", ""):     # CLI spelling of "no fusion"
         fusion = None
-    if fusion is not None:
-        raise _unsupported("fusion", fusion, (None, "none"))
+    if fusion is not None and fusion != "flat":
+        raise _unsupported("fusion", fusion, (None, "none", "flat"))
     return Grace(compressor=_build_compressor(params),
                  memory=_build_memory(params),
-                 communicator=_build_communicator(params, group))
+                 communicator=_build_communicator(params, group),
+                 fusion=fusion)

@@ -149,7 +149,7 @@ def test_wrapper_takes_plain_version_only_on_cpu():
 def test_kernel_source_and_build_are_found_without_building():
     from grace_tpu_torch.ops import _build
     srcs = _build.sources()
-    assert set(srcs) == {"chunk_topk"}
+    assert set(srcs) == {"chunk_topk", "quant", "wire"}
     text = srcs["chunk_topk"].read_text()
     for sym in ("grace_chunk_compress_feedback", "grace_chunk_aggregate_dense",
                 "__fmul_rn", "__fadd_rn", "__fdiv_rn"):

@@ -206,13 +206,13 @@ def test_topk_over_allreduce_raises_type_error():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"compressor": "qsgd"}, "qsgd"),
+    ({"compressor": "homoqsgd"}, "qsgd"),                # slice C
     ({"compressor": "nonsense"}, "nonsense"),
     ({"memory": "dgc"}, "dgc"),
-    ({"communicator": "ring"}, "ring"),
-    ({"compressor": "topk", "quantum_num": 4}, "quantum_num"),
+    ({"communicator": "ring", "pipeline": 0}, "ring"),
+    ({"compressor": "qsgd", "quantum_num": 40000}, "quantum_num"),
     ({"escape": "fp16"}, "escape"),
-    ({"fusion": "flat"}, "flat"),
+    ({"fusion": "flatten"}, "flat"),
     ({"fusion": 1 << 20}, "1048576"),
 ])
 def test_unported_names_raise_value_error(params, match):

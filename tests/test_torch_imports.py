@@ -27,8 +27,14 @@ import chip_smoke
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "grace_tpu", "triton")
                 and sys.modules[n] is not None)
-print(len(names), leaked)
+print(",".join(names), leaked)
 """
+
+# The modules of the quantized wire path, which must be among those walked.
+WIRE_PATH_MODULES = {
+    "grace_tpu_torch.ops.packing", "grace_tpu_torch.ops.quant",
+    "grace_tpu_torch.ops.wire", "grace_tpu_torch.compressors.qsgd",
+    "grace_tpu_torch.compressors.signsgd"}
 
 
 def test_every_module_imports_without_jax_or_triton():
@@ -36,8 +42,10 @@ def test_every_module_imports_without_jax_or_triton():
                          capture_output=True, text=True, timeout=120,
                          env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.split(maxsplit=1)
-    assert int(count) >= 15                      # every module of the port
+    names, leaked = out.stdout.split(maxsplit=1)
+    names = set(names.split(","))
+    assert len(names) >= 20                      # every module of the port
+    assert WIRE_PATH_MODULES <= names
     assert leaked.strip() == "[]"
 
 
@@ -51,6 +59,9 @@ def test_sources_name_no_jax(path):
 
 
 def test_kernel_source_is_in_the_package():
-    cu = sorted((PORT / "csrc").glob("*.cu"))
-    assert [p.name for p in cu] == ["chunk_topk.cu"]
-    assert "pallas_topk.py" in cu[0].read_text()    # names what it replaces
+    cu = {p.name: p.read_text() for p in (PORT / "csrc").glob("*.cu")}
+    assert sorted(cu) == ["chunk_topk.cu", "quant.cu", "wire.cu"]
+    # Each names the TPU kernels it replaces.
+    assert "pallas_topk.py" in cu["chunk_topk.cu"]
+    assert "pallas_quant.py" in cu["quant.cu"]
+    assert "pallas_wire.py" in cu["wire.cu"]

@@ -6,9 +6,12 @@ carried into the port with ``convert.from_jax`` and run in float32 at
 state must match within ``rtol=1e-4, atol=1e-5`` (the two frameworks sum
 convolutions in different orders); then two training steps under the
 Top-K 1% chunk configuration must match the JAX package's staged path on a
-one-device mesh within the same tolerance.
+one-device mesh within the same tolerance. Two steps under the wire path's
+signSGD vote and QSGD 4-bit ring (``fusion='flat'``) follow, each within
+the tolerance its test states.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -26,8 +29,9 @@ from grace_tpu.models import resnet as jresnet
 from grace_tpu.train import (init_stateful_train_state as jax_init_state,
                              make_stateful_train_step as jax_make_step)
 
-from grace_tpu_torch import grace_from_params
+from grace_tpu_torch import grace_from_params, transform
 from grace_tpu_torch.convert import from_jax
+from grace_tpu_torch.core import LeafKey
 from grace_tpu_torch.models import layers as L
 from grace_tpu_torch.models.resnet import ResNet
 from grace_tpu_torch.parallel import init_process_group
@@ -39,6 +43,12 @@ RTOL, ATOL = 1e-4, 1e-5
 TOPK1 = {"compressor": "topk", "compress_ratio": 0.01,
          "topk_algorithm": "chunk", "memory": "residual",
          "communicator": "allgather", "fusion": "none"}
+# The wire path's configurations (bench_all.py).
+SIGNSGD_VOTE = {"compressor": "signsgd", "memory": "residual",
+                "communicator": "sign_allreduce", "fusion": "none"}
+QSGD4_RING = {"compressor": "qsgd", "quantum_num": 7, "use_pallas": True,
+              "memory": "none", "communicator": "ring", "fusion": "flat"}
+LR = 1e-3
 
 
 def _path(path):
@@ -196,12 +206,15 @@ def test_reduced_resnet_forward_backward_matches_jax():
                                    atol=ATOL, err_msg=name)
 
 
-def test_reduced_resnet_train_steps_match_jax(tmp_path):
+def _train_both(tmp_path, cfg, steps=2):
+    """Two steps of the reduced ResNet under ``cfg`` in both packages, SGD
+    at ``LR`` on a one-device mesh / a one-rank gloo group. Yields, after
+    each step, (JAX state, JAX loss, port model, port loss, port state)."""
     p, s = _pruned_jax_resnet()
     x, y = _batch()
     mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
-    jgrace = jax_grace_from_params(TOPK1)          # 'auto': the staged path
-    jopt = optax.chain(jgrace.transform(seed=0), optax.sgd(1e-3))
+    jopt = optax.chain(jax_grace_from_params(cfg).transform(seed=0),
+                       optax.sgd(LR))
 
     def jloss(params, mstate, batch):
         loss, (new, _) = _jax_loss(params, mstate, batch)
@@ -209,35 +222,39 @@ def test_reduced_resnet_train_steps_match_jax(tmp_path):
 
     jstep = jax_make_step(jloss, jopt, mesh, donate=False)
     jstate = jax_init_state(p, s, jopt, mesh)
-
     model = _port_model(p, s)
     group, _ = init_process_group("cpu",
                                   init_method=f"file://{tmp_path}/store")
     try:
-        tx = grace_from_params(TOPK1, group=group).transform(seed=0)
-        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        tx = grace_from_params(cfg, group=group).transform(seed=0)
+        opt = torch.optim.SGD(model.parameters(), lr=LR)
         state = init_stateful_train_state(model, tx, opt, group)
         step = make_stateful_train_step(_port_loss, tx, group)
         batch = (torch.from_numpy(x), torch.from_numpy(y).long())
-        for _ in range(2):
+        for _ in range(steps):
             jstate, jl = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
             state, loss = step(state, batch)
-            np.testing.assert_allclose(loss.item(), float(jl), rtol=RTOL)
-            params = dict(model.named_parameters())
-            for name, v in _flat(jstate.params).items():
-                np.testing.assert_allclose(params[name].detach().numpy(), v,
-                                           rtol=RTOL, atol=ATOL, err_msg=name)
-            buffers = dict(model.named_buffers())
-            for name, v in _flat(jstate.model_state).items():
-                np.testing.assert_allclose(buffers[name].numpy(), v,
-                                           rtol=RTOL, atol=ATOL, err_msg=name)
-            jmem = jstate.opt_state[0].mem
-            for i, m in enumerate(state.grace.mem):
-                np.testing.assert_allclose(m.numpy(), np.asarray(jmem[i])[0],
-                                           rtol=RTOL, atol=ATOL)
-        assert state.grace.count == 2
+            yield jstate, float(jl), model, loss.item(), state
     finally:
         torch.distributed.destroy_process_group()
+
+
+def test_reduced_resnet_train_steps_match_jax(tmp_path):
+    for jstate, jl, model, loss, state in _train_both(tmp_path, TOPK1):
+        np.testing.assert_allclose(loss, jl, rtol=RTOL)
+        params = dict(model.named_parameters())
+        for name, v in _flat(jstate.params).items():
+            np.testing.assert_allclose(params[name].detach().numpy(), v,
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+        buffers = dict(model.named_buffers())
+        for name, v in _flat(jstate.model_state).items():
+            np.testing.assert_allclose(buffers[name].numpy(), v,
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+        jmem = jstate.opt_state[0].mem
+        for i, m in enumerate(state.grace.mem):
+            np.testing.assert_allclose(m.numpy(), np.asarray(jmem[i])[0],
+                                       rtol=RTOL, atol=ATOL)
+    assert state.grace.count == 2
 
 
 class _MLP(torch.nn.Module):
@@ -298,3 +315,92 @@ def test_stateless_train_steps_match_jax(tmp_path):
                                            rtol=RTOL, atol=ATOL, err_msg=name)
     finally:
         torch.distributed.destroy_process_group()
+
+
+# -- the quantized wire path -------------------------------------------------
+
+def test_reduced_resnet_signsgd_vote_steps_match_jax(tmp_path):
+    """signSGD + residual + the all-reduce vote. Each step moves every
+    parameter by ±LR; the two packages must move it the same way except
+    where the vote may flip: where JAX's compensated gradient (residual
+    plus gradient) is within 1e-4 of 0, closer than the two frameworks'
+    gradients (rtol 1e-4 apart) can be told apart. Such flips must be rare
+    (at most 1e-4 of the parameters), and an element that flipped is left
+    out of the later comparisons. Elsewhere, losses, parameters and
+    residuals agree within the model's tolerance."""
+    p, _ = _pruned_jax_resnet()
+    prev_j = _flat(p)
+    prev_t = dict(prev_j)
+    tainted = {n: np.zeros(v.shape, bool) for n, v in prev_j.items()}
+    for jstate, jl, model, loss, state in _train_both(tmp_path, SIGNSGD_VOTE):
+        np.testing.assert_allclose(loss, jl, rtol=RTOL)
+        now_j = _flat(jstate.params)
+        now_t = {n: t.detach().numpy().copy()
+                 for n, t in model.named_parameters()}
+        jmem = jstate.opt_state[0].mem
+        for i, name in enumerate(leaf_order(now_t)):
+            u_j = np.rint((prev_j[name] - now_j[name]) / LR)
+            u_t = np.rint((prev_t[name] - now_t[name]) / LR)
+            assert set(np.unique(u_t)) <= {-1.0, 1.0}
+            jm = np.asarray(jmem[i])[0].reshape(u_j.shape)
+            flipped = (u_j != u_t) & ~tainted[name]
+            assert (np.abs(jm + u_j)[flipped] <= 1e-4).all(), name
+            tainted[name] |= flipped
+            keep = ~tainted[name]
+            np.testing.assert_allclose(now_t[name][keep], now_j[name][keep],
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+            np.testing.assert_allclose(
+                state.grace.mem[i].numpy()[keep], jm[keep], rtol=RTOL,
+                atol=ATOL, err_msg=name)
+        prev_j, prev_t = now_j, now_t
+    n_tainted = sum(int(t.sum()) for t in tainted.values())
+    assert n_tainted <= 1e-4 * sum(t.size for t in tainted.values())
+    assert state.grace.count == 2
+
+
+@dataclasses.dataclass(frozen=True)
+class _JaxSeedKey(LeafKey):
+    """A leaf key whose kernel seed is the one the JAX package draws under
+    its counterpart key, ``fold_in(fold_in(key(seed), count), leaf)`` folded
+    further by ``folds``: the two packages' QSGD kernels then hash the same
+    seeds and draw the same roundings."""
+
+    def seed_int32(self) -> int:
+        k = jax.random.fold_in(jax.random.fold_in(jax.random.key(self.seed),
+                                                  self.count), self.leaf)
+        for i in self.folds:
+            k = jax.random.fold_in(k, i)
+        return int(jax.random.randint(k, (), 0, 2**31 - 1, jnp.int32))
+
+
+def test_reduced_resnet_qsgd4_ring_flat_steps_match_jax(tmp_path,
+                                                        monkeypatch):
+    """QSGD 4-bit over the ring on the flat buffer, the port's kernels
+    seeded with the JAX package's draws (``_JaxSeedKey``), so both encode
+    the same roundings: losses, parameters and BatchNorm state match within
+    the model's tolerance at both steps, as under Top-K. Each step moves
+    the parameters by far more than that tolerance, so a port that skipped
+    or flipped the update, or lost a level, would not pass."""
+    monkeypatch.setattr(transform, "LeafKey", _JaxSeedKey)
+    p, _ = _pruned_jax_resnet()
+    prev = _flat(p)
+    for jstate, jl, model, loss, state in _train_both(tmp_path, QSGD4_RING):
+        np.testing.assert_allclose(loss, jl, rtol=RTOL)
+        params = dict(model.named_parameters())
+        now = _flat(jstate.params)
+        moved = 0
+        for name, v in now.items():
+            got = params[name].detach().numpy()
+            np.testing.assert_allclose(got, v, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
+            # The elements this step moved, each by at least 10x ATOL.
+            step = np.abs(v - prev[name])
+            moved += int((step > 10 * ATOL).sum())
+        assert moved > 100
+        buffers = dict(model.named_buffers())
+        for name, v in _flat(jstate.model_state).items():
+            np.testing.assert_allclose(buffers[name].numpy(), v,
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+        prev = now
+    assert len(state.grace.mem) == 1 and state.grace.mem[0] is None
+    assert state.grace.count == 2

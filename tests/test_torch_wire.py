@@ -1,0 +1,148 @@
+"""The plain version of the port's decode→accumulate kernel against the JAX
+Pallas kernel in interpret mode, and against the staged sequential decode.
+
+A finding pins the shape of these tests: in interpret mode XLA's CPU
+backend contracts the scaled accumulate ``acc + scale_k * level_k`` into
+fused multiply-adds (one rounding where the staged decode rounds twice).
+The port's kernel and its plain version round the product and the sum
+each on their own, which is the staged decode's definition. So:
+
+* at every width, K, ``sign`` and ``vote``, with power-of-two scales (every
+  product exact, so a contraction cannot change a bit), the plain version
+  equals the interpret-mode kernel bit for bit;
+* with arbitrary scales it equals the staged decode run op by op (JAX
+  eager: each product and sum rounded) bit for bit, and the interpret-mode
+  kernel equals the contracted sum exactly, within one rounding a payload.
+"""
+
+from fractions import Fraction
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from grace_tpu.ops import packing as jpacking
+from grace_tpu.ops import pallas_wire
+from grace_tpu_torch.ops import wire
+
+NUMELS = [7, 1000, 16385]
+MODES = [(w, False, False) for w in (1, 2, 3, 4)] + [(1, True, False),
+                                                     (1, True, True)]
+JAX_UNPACK = {w: u for w, _, u in jpacking.pack_widths()}
+
+
+def _payloads(numel, width, k, seed, pow2=True):
+    rng = np.random.default_rng(seed)
+    stacked = rng.integers(0, 256, (k, -(-numel * width // 8))).astype(
+        np.uint8)
+    if pow2:
+        scales = (2.0 ** rng.integers(-6, 4, k)).astype(np.float32)
+    else:
+        scales = (rng.random(k) * 3).astype(np.float32)
+    return stacked, scales
+
+
+def _jax(stacked, scales, numel, width, sign, vote):
+    return np.asarray(pallas_wire.decode_accumulate(
+        jnp.asarray(stacked), jnp.asarray(scales), numel, width, sign=sign,
+        vote=vote, interpret=True))
+
+
+def _port(stacked, scales, numel, width, sign, vote):
+    return wire.decode_accumulate(torch.from_numpy(stacked),
+                                  torch.from_numpy(scales), numel, width,
+                                  sign, vote).numpy()
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("width,sign,vote", MODES)
+@pytest.mark.parametrize("numel", NUMELS)
+def test_decode_accumulate_matches_pallas_interpret(numel, width, sign, vote,
+                                                    k):
+    stacked, scales = _payloads(numel, width, k, seed=numel + 10 * width + k)
+    got = _port(stacked, scales, numel, width, sign, vote)
+    want = _jax(stacked, scales, numel, width, sign, vote)
+    assert got.dtype == np.float32 and got.shape == (numel,)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if vote:
+        assert set(np.unique(got)) <= {-1.0, 1.0}
+
+
+def _staged_eager(stacked, scales, numel, width):
+    """The staged sequential decode, op by op in JAX eager mode."""
+    acc = None
+    for k in range(stacked.shape[0]):
+        code = JAX_UNPACK[width](jnp.asarray(stacked[k]), numel).astype(
+            jnp.int8)
+        level = jnp.where(code >= (1 << (width - 1)), code - (1 << width),
+                          code)
+        val = jnp.asarray(scales[k]) * level.astype(jnp.float32)
+        acc = val if acc is None else acc + val
+    return np.asarray(acc)
+
+
+def _contracted(stacked, scales, numel, width):
+    """XLA CPU's contraction, computed exactly: acc = fma(s0, l0, s1*l1),
+    then acc = fma(sk, lk, acc)."""
+    levels = []
+    for k in range(stacked.shape[0]):
+        code = np.asarray(JAX_UNPACK[width](jnp.asarray(stacked[k]), numel)
+                          ).astype(np.int64)
+        levels.append(code - (1 << width) * (code >= (1 << (width - 1))))
+    out = np.empty(numel, np.float32)
+    s = [Fraction(float(v)) for v in scales]
+    for i in range(numel):
+        if len(levels) == 1:
+            out[i] = np.float32(scales[0] * np.float32(levels[0][i]))
+            continue
+        acc = np.float32(float(s[0] * int(levels[0][i])
+                               + Fraction(float(np.float32(
+                                   scales[1] * np.float32(levels[1][i]))))))
+        for k in range(2, len(levels)):
+            acc = np.float32(float(s[k] * int(levels[k][i])
+                                   + Fraction(float(acc))))
+        out[i] = acc
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_decode_accumulate_arbitrary_scales(width, k):
+    numel = 1000
+    stacked, scales = _payloads(numel, width, k, seed=width * 7 + k,
+                                pow2=False)
+    got = _port(stacked, scales, numel, width, False, False)
+    # Bit for bit with the staged decode, each operation rounded.
+    np.testing.assert_array_equal(
+        got.view(np.int32),
+        _staged_eager(stacked, scales, numel, width).view(np.int32))
+    # The interpret-mode kernel is that sum with its multiply-adds fused,
+    # exactly; the two differ by at most one rounding a payload.
+    want = _jax(stacked, scales, numel, width, False, False)
+    np.testing.assert_array_equal(
+        want.view(np.int32),
+        _contracted(stacked, scales, numel, width).view(np.int32))
+    ulp = np.spacing(np.abs(want).max())
+    assert np.abs(got - want).max() <= (k - 1) * ulp
+
+
+def test_wrapper_gates_and_plain_only_on_cpu():
+    stacked, scales = _payloads(100, 4, 2, seed=0)
+    before = wire.decode_accumulate.launches
+    _port(stacked, scales, 100, 4, False, False)
+    assert wire.decode_accumulate.launches == before
+    t = torch.from_numpy(stacked)
+    s = torch.from_numpy(scales)
+    with pytest.raises(ValueError, match="width"):
+        wire.decode_accumulate(t, s, 100, 5)
+    with pytest.raises(ValueError, match="sign"):
+        wire.decode_accumulate(t, s, 100, 4, sign=True)
+    with pytest.raises(ValueError, match="vote"):
+        wire.decode_accumulate(t, s, 100, 4, vote=True)
+    with pytest.raises(ValueError, match="uint8"):
+        wire.decode_accumulate(t[:, :10], s, 100, 4)      # too few bytes
+    with pytest.raises(ValueError, match="scales"):
+        wire.decode_accumulate(t, s[:1], 100, 4)
+    with pytest.raises(NotImplementedError, match="slice C"):
+        wire.packed_int_accumulate(t, 100, 4)
