@@ -42,6 +42,26 @@ The quantized wire path:
 9. Train full-width ResNet-50 under the three wire-path configurations
    (bench_all.py) and assert their kernels' launches a step.
 
+The homomorphic path:
+
+10. Hold the packed integer accumulate kernel against its plain version on
+    the card, byte for byte: widths 2, 3 and 4; K in {1, 2, 3, 7} with
+    levels bounded to the field; one wrap case a width; lengths around the
+    byte and 3-byte boundaries, every distinct ResNet-50 leaf size and the
+    flat gradient; one input that is not 4-byte aligned.
+11. The packed hop: two ranks' real ResNet-50 flat gradients, encoded by
+    homoqsgd (q=1, 4-bit fields at W in {2, 4, 7}, 3-bit at W in {2, 3})
+    against their shared scale, each shard's W payloads summed as the ring
+    hop (``payload_add``) and the reduce-scatter (``payload_sum``) call
+    the kernel: byte for byte against the plain version and the staged
+    unpack -> add -> repack, and the true integer sum of the levels. Then
+    a lattice input through the one-card reduce-scatter comes back exact.
+12. Time the kernel at K=1 on the flat buffer, K=2 on a W=2 shard and K=7
+    on a W=7 shard.
+13. Train full-width ResNet-50 under the homomorphic path's configurations
+    (homoqsgd4_ring_bs256, the fused 4-bit homoqsgd over the reduce-
+    scatter, topk1pct_rscatter_bs256) and assert their launches a step.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -89,6 +109,29 @@ WIRE_PATH = [
      "params": {"compressor": "signsgd", "memory": "residual",
                 "communicator": "sign_allreduce", "fusion": "none"},
      "per_step": {"sign_pack": 161}},
+]
+# The homomorphic path's configurations and their launches a step on one
+# card: bench_all.py's homoqsgd4_ring_bs256 (int16 wire: no kernel; one
+# rank: no hop) and topk1pct_rscatter_bs256 (the single-requant path: the
+# staged chunk encode, no kernel) verbatim, and the homoqsgd4-ring-fused
+# registry entry (grace_tpu/analysis/configs.py) with the reduce-scatter as
+# its communicator, whose owned-chunk sum runs the kernel once a step.
+HOMO_PATH = [
+    {"name": "homoqsgd4_ring_bs256", "per_device_bs": 256,
+     "params": {"compressor": "homoqsgd", "quantum_num": 7,
+                "memory": "residual", "communicator": "ring",
+                "fusion": "flat"},
+     "per_step": {}},
+    {"name": "homoqsgd4_rscatter_fused", "per_device_bs": 256,
+     "params": {"compressor": "homoqsgd", "quantum_num": 1, "accum_bits": 4,
+                "use_pallas": True, "memory": "residual",
+                "communicator": "rscatter", "fusion": "flat"},
+     "per_step": {"packed_int_accumulate": 1}},
+    {"name": "topk1pct_rscatter_bs256", "per_device_bs": 256,
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "chunk", "memory": "residual",
+                "communicator": "rscatter", "fusion": "flat"},
+     "per_step": {}},
 ]
 HEADLINE[0]["per_step"] = {}
 HEADLINE[1]["per_step"] = {"chunk_compress_feedback": 161,
@@ -738,6 +781,230 @@ def time_wire_kernels(dev, leaves, flat):
     return out
 
 
+# -- phases 10 to 12: the homomorphic path ----------------------------------
+
+ACCUM_KS = (1, 2, 3, 7)
+ACCUM_EDGES = (1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 15, 16, 17, 23, 24, 25, 31,
+               32, 33, 16383, 16384, 16385)    # codes
+ACCUM_OPS = 5          # a code a payload: shift, mask, sign-extend, add; pack
+
+
+def bounded_levels(gen, k, n, width, dev):
+    """``(k, n)`` int32 levels whose K-way sums fit the ``width``-bit
+    field: uniform in ``±(ceil // k)``, or where that is 0 one nonzero
+    level a slot in ``±ceil`` (``ceil = 2^(width-1) - 1``)."""
+    import torch
+    ceil = (1 << (width - 1)) - 1
+    q = ceil // k
+    if q >= 1:
+        return torch.randint(-q, q + 1, (k, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+    levels = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    owner = torch.randint(0, k, (n,), generator=gen, device=dev)
+    levels[owner, torch.arange(n, device=dev)] = torch.randint(
+        -ceil, ceil + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    return levels
+
+
+def pack_levels(levels, width):
+    import torch
+    from grace_tpu_torch.ops.packing import PACKERS
+    return torch.stack([PACKERS[width][0](
+        torch.remainder(lv, 1 << width).to(torch.uint8)) for lv in levels])
+
+
+def check_accum_kernel(dev, leaves, errs):
+    """Phase 10: packed_int_accumulate against its plain version."""
+    import torch
+    from grace_tpu_torch.ops import wire as Wr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    flat_n = sum(n for _, n in leaves)
+    cases = 0
+
+    def same(label, stacked, width):
+        nonlocal cases
+        slots = stacked.shape[1] * 8 // width
+        got = Wr.packed_int_accumulate(stacked, slots, width)
+        want = Wr.packed_int_accumulate_plain(stacked, slots, width)
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"packed_int_accumulate {label} width={width}: differs "
+                 f"from the plain version (max abs err {err})")
+        errs["packed_int_accumulate"] = max(errs["packed_int_accumulate"],
+                                            err)
+        cases += 1
+
+    sizes = sorted(set(ACCUM_EDGES) | {n for _, n in leaves})
+    for width in (2, 3, 4):
+        for n in sizes:
+            for k in ACCUM_KS:
+                same(f"n={n} K={k}",
+                     pack_levels(bounded_levels(gen, k, n, width, dev),
+                                 width), width)
+        for k in (1, 2, 7):
+            same(f"flat n={flat_n} K={k}",
+                 pack_levels(bounded_levels(gen, k, flat_n, width, dev),
+                             width), width)
+        for n in (9, 1001, 16385):                # sums beyond the field
+            nbytes = -(-n * width // 8)
+            same(f"wrap n={n} K=7", torch.randint(
+                0, 256, (7, nbytes), generator=gen, device=dev,
+                dtype=torch.uint8), width)
+        # Rows that do not start on 4-byte boundaries: the byte path.
+        buf = torch.randint(0, 256, (1 + 3 * 4000,), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        same("unaligned K=3", buf[1:].view(3, 4000), width)
+    return cases
+
+
+def check_packed_hop(dev, flat_a, flat_b, errs):
+    """Phase 11: the packed hop of homoqsgd over two ranks' gradients, as
+    RingAllreduce (payload_add) and ReduceScatterAllreduce (payload_sum)
+    call it. Returns (cases, launches)."""
+    import dataclasses
+    import torch
+    from grace_tpu_torch.comm import ReduceScatterAllreduce
+    from grace_tpu_torch.compressors import HomoQSGDCompressor
+    from grace_tpu_torch.core import LeafKey
+    from grace_tpu_torch.memories import ResidualMemory
+    from grace_tpu_torch.ops import wire as Wr
+
+    def shards(flat, w):
+        pad = -flat.numel() % w
+        return torch.cat([flat, flat.new_zeros(pad)]).view(w, -1)
+
+    cases = 0
+    calls = 0
+    Wr.reset_launch_counts()
+    # The negotiated scale of a group holding both gradients.
+    scale = torch.maximum(flat_a.abs().max(), flat_b.abs().max()).float()
+    for bits, worlds in ((4, (2, 4, 7)), (3, (2, 3))):
+        codec = HomoQSGDCompressor(quantum_num=1, accum_bits=bits,
+                                   use_pallas=True)
+        staged = dataclasses.replace(codec, use_pallas=False)
+        for w in worlds:
+            grads = (shards(flat_a, w), shards(flat_b, w))
+            m = grads[0].shape[1]
+            for c in range(w):
+                pays = [codec.compress(grads[r % 2][c], None,
+                                       LeafKey(SEED, r, 0).fold(c),
+                                       shared=scale)[0][0]
+                        for r in range(w)]
+                stacked = torch.stack(pays)
+                (summed,) = codec.payload_sum((stacked,))
+                ring = pays[0]
+                for p in pays[1:]:
+                    (ring,) = codec.payload_add((ring,), (p,))
+                calls += w
+                slots = stacked.shape[1] * 8 // bits
+                plain = Wr.packed_int_accumulate_plain(stacked, slots, bits)
+                (want,) = staged.payload_sum((stacked,))
+                levels = sum(codec._unpack_levels(p, m) for p in pays)
+                torch.cuda.synchronize()
+                label = f"{bits}-bit W={w} shard {c}"
+                for got, what in ((summed, "payload_sum"),
+                                  (ring, "the ring's payload_add chain")):
+                    for ref, name in ((plain, "plain version"),
+                                      (want, "staged unpack-add-repack")):
+                        if not torch.equal(got, ref):
+                            fail(f"packed hop {label}: {what} differs from "
+                                 f"the {name}")
+                if not torch.equal(codec._unpack_levels(summed, m), levels):
+                    fail(f"packed hop {label}: the packed sum is not the "
+                         "integer sum of the levels")
+                cases += 1
+    launches = Wr.packed_int_accumulate.launches
+    if launches != calls:
+        fail(f"packed hop: {calls} accumulates launched the kernel "
+             f"{launches} times")
+    # End to end on one card: a lattice input is encoded without loss, and
+    # the one-rank reduce-scatter's sum and mean give it back exactly.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randint(-1, 2, (100_003,), generator=gen, device=dev).float()
+    x[0] = 1.0
+    mem = ResidualMemory()
+    codec = HomoQSGDCompressor(quantum_num=1, accum_bits=4, use_pallas=True)
+    out, resid, _ = ReduceScatterAllreduce().step(
+        x, mem.init_state(x), None, mem, codec, LeafKey(SEED, 0, 0))
+    torch.cuda.synchronize()
+    if not same_bits(out, x) or bool(resid.abs().max() != 0):
+        fail("packed hop: the one-card reduce-scatter of a lattice input "
+             "does not return it exactly")
+    if Wr.packed_int_accumulate.launches != launches + 1:
+        fail("packed hop: the reduce-scatter did not launch the kernel once")
+    return cases, launches
+
+
+def time_accum_kernel(dev, flat):
+    """Phase 12: packed_int_accumulate at its shapes on the 4-bit wire of
+    the flat buffer: K=1 (the one-card reduce-scatter), K=2 on a W=2 shard
+    (a ring hop) and K=7 on a W=7 shard."""
+    import torch
+    from grace_tpu_torch.ops import wire as Wr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n = flat.numel()
+    out = {}
+    for label, k in (("K=1", 1), ("K=2", 2), ("K=7", 7)):
+        m = -(-n // k)                             # the shard's codes
+        nbytes = -(-m * 4 // 8)
+        st = torch.randint(0, 256, (k, nbytes), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        slots = nbytes * 8 // 4
+        nbytes_moved = (k + 1) * nbytes
+        bytes_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ACCUM_OPS * k * slots / FP32_FLOP_PER_S * 1e3
+        ms, host_ms = cuda_time_ms(
+            lambda: Wr.packed_int_accumulate(st, slots, 4), host=True)
+        out[label] = {
+            "ms": ms, "host_ms": host_ms,
+            "device_ms": kernel_device_ms(
+                lambda: Wr.packed_int_accumulate(st, slots, 4),
+                "packed_int_accumulate_kernel"),
+            "plain_ms": cuda_time_ms(
+                lambda: Wr.packed_int_accumulate_plain(st, slots, 4)),
+            "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "mb": nbytes_moved / 1e6}
+        log(f"  packed_int_accumulate {label} ({nbytes} bytes a payload): "
+            f"{ms:.4f} ms, {host_ms:.4f} ms of it to enqueue, the kernel "
+            f"itself {out[label]['device_ms']:.4f} ms (bound "
+            f"{out[label]['bound_ms']:.4f} ms by {out[label]['bound_by']}: "
+            f"{nbytes_moved / 1e6:.2f} MB), plain "
+            f"{out[label]['plain_ms']:.4f} ms, library none")
+    return out
+
+
+def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS):
+    """The mean device time of the CUDA kernel named ``kernel_name`` over
+    ``runs`` calls of ``fn`` under torch.profiler: the kernel alone,
+    without the host's enqueue that a CUDA-event pair around one call
+    also holds when the host is the slower. The mean is over the launches
+    the profiler recorded, which can miss one at the edge of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+    seen = sum(e.count for e in hits)
+    if not runs // 2 <= seen <= runs:
+        fail(f"the profiler saw {seen} launches of {kernel_name} in {runs} "
+             "calls")
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in hits)
+    return total / seen / 1e3
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -816,7 +1083,6 @@ def main() -> int:
         # -- 7. the ring hop -------------------------------------------------
         flat_a, flat_b = resnet50_flat_grads(dev)
         cases, hop_launches = check_ring_hop(dev, flat_a, flat_b, wire_errs)
-        del flat_b
         log(f"[7] ring hop: {cases} shard decodes of two ranks' ResNet-50 "
             f"gradients at W=2 and W=8 (qsgd q=7, q=1, signsgd) bit for bit "
             f"against the plain version and the staged decode; "
@@ -825,6 +1091,26 @@ def main() -> int:
         log("[8] wire-path kernel times at the wire path's shapes (flat "
             f"n={flat_a.numel()}, 161 leaves, W=1)")
         wire_times = time_wire_kernels(dev, leaves, flat_a)
+        # -- 10. the packed integer accumulate against its plain version -----
+        wire_errs["packed_int_accumulate"] = 0.0
+        cases = check_accum_kernel(dev, leaves, wire_errs)
+        log(f"[10] packed_int_accumulate byte-identical to its plain version "
+            f"in {cases} cases on the card")
+        # -- 11. the packed hop ----------------------------------------------
+        cases, accum_launches = check_packed_hop(dev, flat_a, flat_b,
+                                                 wire_errs)
+        del flat_b
+        log(f"[11] packed hop: {cases} shard sums of W ranks' homoqsgd "
+            f"payloads (4-bit at W=2, 4, 7; 3-bit at W=2, 3), each as "
+            f"payload_sum and as the ring's payload_add chain, byte for byte "
+            f"against the plain version and the staged path and equal to "
+            f"the levels' integer sum; packed_int_accumulate launched "
+            f"{accum_launches} times; a lattice input through the one-card "
+            f"reduce-scatter came back exact")
+        # -- 12. timing -------------------------------------------------------
+        log("[12] packed_int_accumulate times on the 4-bit wire of the flat "
+            "buffer")
+        accum_times = time_accum_kernel(dev, flat_a)
         del flat_a
         torch.cuda.empty_cache()
         # -- 9. train the wire path ------------------------------------------
@@ -833,6 +1119,15 @@ def main() -> int:
         for cfg in WIRE_PATH:
             runs[cfg["name"]] = train(dev, group, cfg, x, y)
             torch.cuda.empty_cache()
+        # -- 13. train the homomorphic path ----------------------------------
+        log(f"[13] ResNet-50 under the homomorphic path's configurations, "
+            f"batch {bs}, {WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
+        for cfg in HOMO_PATH:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y)
+            torch.cuda.empty_cache()
+        wire_times["packed_int_accumulate"] = {
+            **accum_times["K=1"],
+            "hop": {k: accum_times[k] for k in ("K=2", "K=7")}}
         kernels = []
         for kname, src, line, run in (
                 ("chunk_compress_feedback", "pallas_topk.py", 132, "topk1pct"),
@@ -842,7 +1137,9 @@ def main() -> int:
                 ("quantize_pack_stochastic", "pallas_quant.py", 247,
                  "qsgd4_ring"),
                 ("sign_pack", "pallas_quant.py", 316, "signsgd_vote_bs256"),
-                ("decode_accumulate", "pallas_wire.py", 180, None)):
+                ("decode_accumulate", "pallas_wire.py", 180, None),
+                ("packed_int_accumulate", "pallas_wire.py", 254,
+                 "homoqsgd4_rscatter_fused")):
             t = times[kname] if kname in times else wire_times[kname]
             kernels.append({
                 "name": kname, "route": "cuda",

@@ -107,6 +107,13 @@ class LeafKey:
         gen.manual_seed(self.derived_seed())
         return gen
 
+    def uniform(self, shape, device) -> torch.Tensor:
+        """Float32 uniforms in ``[0, 1)`` from this key's stream: the one
+        place the staged stochastic codecs draw their noise (the
+        counterpart of ``jax.random.uniform(key, shape)``)."""
+        return torch.rand(shape, generator=self.generator(device),
+                          device=device, dtype=torch.float32)
+
 
 # -- the three roles ---------------------------------------------------------
 
@@ -141,9 +148,32 @@ class Compressor:
     def init_state(self, x: torch.Tensor) -> State:
         return None
 
-    def compress(self, x: torch.Tensor, state: State, rng: LeafKey
-                 ) -> tuple[Payload, Ctx, State]:
-        """Encode ``x``; return (wire payload, decode ctx, next state)."""
+    # -- pre-encode negotiation (shared scale) --------------------------------
+
+    def negotiate(self, x: torch.Tensor, group, rng: LeafKey = None):
+        """The pre-encode collective over ``group``: return the value every
+        rank holds alike (a shared scale) that ``compress(..., shared=...)``
+        encodes against, or None when the codec needs none. The
+        communicators run it before the stage-1 encode, so error feedback
+        covers the one negotiated encode."""
+        return None
+
+    def negotiation_nbytes(self, world: int) -> int:
+        """Bytes one rank receives in one :meth:`negotiate` at ``world``
+        ranks; 0 for codecs without a negotiation."""
+        return 0
+
+    def payload_sum_max_world(self) -> Optional[int]:
+        """Largest world whose payload-space sum stays exact in the payload
+        dtype, or None for no codec-specific bound. The homomorphic paths
+        of the communicators raise beyond it."""
+        return None
+
+    def compress(self, x: torch.Tensor, state: State, rng: LeafKey,
+                 shared=None) -> tuple[Payload, Ctx, State]:
+        """Encode ``x``; return (wire payload, decode ctx, next state).
+        ``shared`` is the result of :meth:`negotiate`, passed only by the
+        codecs that negotiate."""
         raise NotImplementedError
 
     def decompress(self, payload: Payload, ctx: Ctx) -> torch.Tensor:
@@ -172,6 +202,13 @@ class Compressor:
         """Payload-space ``a + b`` for summable payloads (the exact ring
         hop): element-wise over the tuple."""
         return tuple(r + o for r, o in zip(a, b))
+
+    def payload_sum(self, stacked: Payload) -> Payload:
+        """Payload-space sum over a stacked leading world axis (the
+        reduce-scatter's owned-chunk sum), in the payload's own dtype:
+        ``torch.sum`` would widen int16 to int64, and the accumulator
+        width is what :meth:`payload_sum_max_world` bounds."""
+        return tuple(torch.sum(t, dim=0, dtype=t.dtype) for t in stacked)
 
     def wire_fused(self) -> bool:
         """True when :meth:`decode_accumulate` runs a fused kernel. Default
@@ -240,13 +277,20 @@ class Communicator:
                 return (self.exchange(payload, ctx, compressor), mem_state,
                         comp_state)
         compensated, mem_state = memory.compensate(x, mem_state)
+        # The negotiation runs before the encode, on the compensated
+        # tensor: the shared value (and so the decode ctx) is the same on
+        # every rank, payloads sum homomorphically, and error feedback
+        # covers the one negotiated encode. A process group always exists
+        # here, a one-rank one included, so it always runs.
+        shared = None
         if needs_negotiation(compressor):
-            raise NotImplementedError(
-                f"{type(compressor).__name__} negotiates a shared object "
-                "before encoding; the negotiation hoist comes with the "
-                "homomorphic codecs (ROADMAP queue 1, slice C).")
-        payload, ctx, comp_state = compressor.compress(compensated,
-                                                       comp_state, rng)
+            shared = compressor.negotiate(compensated, self.group, rng=rng)
+        if shared is None:
+            payload, ctx, comp_state = compressor.compress(
+                compensated, comp_state, rng)
+        else:
+            payload, ctx, comp_state = compressor.compress(
+                compensated, comp_state, rng, shared=shared)
         mem_state = memory.update(compensated, payload, ctx, compressor,
                                   mem_state)
         return self.exchange(payload, ctx, compressor), mem_state, comp_state

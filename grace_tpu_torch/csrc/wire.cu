@@ -1,10 +1,10 @@
-// Fused decode->accumulate kernel for Hopper (sm_90a), plain C interface for
-// ctypes.
+// The wire path's hop kernels for Hopper (sm_90a), plain C interface for
+// ctypes: decode->accumulate and the packed integer accumulate (below).
 //
-// Replaces the Pallas TPU kernel grace_tpu/ops/pallas_wire.py
-// decode_accumulate (:180, call :208): K packed payloads (a ring hop: K=2,
-// recv then own) -> one float32 partial, and must equal its plain PyTorch
-// version (grace_tpu_torch/ops/wire.py) bit for bit.
+// decode_accumulate replaces the Pallas TPU kernel
+// grace_tpu/ops/pallas_wire.py decode_accumulate (:180, call :208): K packed
+// payloads (a ring hop: K=2, recv then own) -> one float32 partial, and must
+// equal its plain PyTorch version (grace_tpu_torch/ops/wire.py) bit for bit.
 //
 // What bounds it on this card: bytes. It reads K * width/8 bytes and writes
 // 4 bytes an element; the decode is a handful of integer operations and one
@@ -85,6 +85,94 @@ void launch(const uint8_t* stacked, const float* scales, float* out,
           stacked, scales, out, k, row_bytes, numel);
 }
 
+// The packed integer accumulate.
+//
+// Replaces the Pallas TPU kernel grace_tpu/ops/pallas_wire.py
+// packed_int_accumulate (:254, call :270): K payloads of W-bit two's-
+// complement levels (homoqsgd's packed wire, W in {2, 3, 4}), each
+// row_bytes long -> one payload of their integer sums, row_bytes long. It
+// must equal its plain PyTorch version (grace_tpu_torch/ops/wire.py), which
+// is homoqsgd's staged unpack -> add -> repack, byte for byte.
+//
+// What bounds it on this card: bytes. It reads K * row_bytes and writes
+// row_bytes; each code costs a shift, a mask, a sign extension and an add.
+//
+// What the design does about it: one thread owns one group of G bytes of
+// the output, G = 4 for widths 2 and 4 (16 or 8 whole codes) and G = 3 for
+// width 3 (8 codes, which straddle the byte boundaries inside the group
+// but never leave it). The thread reads its group from each of the K
+// payloads (one 32-bit load where the rows are 4-byte aligned), keeps the
+// per-code sums in registers and writes its group once; nothing unpacked
+// reaches device memory. A trailing partial group reads zeros past the
+// row's end and writes only the bytes that exist.
+//
+// Exactness: integers only. level = code - 2^W * (code >= 2^(W-1)); the
+// int32 sum folds back to a code with & (2^W - 1), which is the floored
+// mod 2^W of the staged path (torch.remainder) for negative sums as well,
+// so the two agree even where a sum leaves the field. Code slots from
+// numel on are written as 0, as the staged repack of numel codes leaves
+// them.
+
+template <int W>
+__global__ void packed_int_accumulate_kernel(const uint8_t* stacked,
+                                             uint8_t* out, int64_t k_payloads,
+                                             int64_t row_bytes, int64_t numel,
+                                             bool aligned) {
+  constexpr int G = W == 3 ? 3 : 4;       // bytes a thread
+  constexpr int C = G * 8 / W;            // whole codes in those bytes
+  constexpr uint32_t kMask = (1u << W) - 1u;
+  const int64_t groups = (row_bytes + G - 1) / G;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       g < groups; g += stride) {
+    const int64_t b0 = g * G;
+    const int nb = row_bytes - b0 < G ? static_cast<int>(row_bytes - b0) : G;
+    const bool word = W != 3 && aligned && nb == G;
+    int acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0;
+    for (int64_t k = 0; k < k_payloads; ++k) {
+      const uint8_t* p = stacked + k * row_bytes + b0;
+      uint32_t bits = 0;
+      if (word) {
+        bits = *reinterpret_cast<const uint32_t*>(p);
+      } else {
+        for (int i = 0; i < nb; ++i) bits |= static_cast<uint32_t>(p[i]) << (8 * i);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int code = static_cast<int>((bits >> (W * c)) & kMask);
+        acc[c] += code - ((code >> (W - 1)) << W);
+      }
+    }
+    const int64_t slot0 = b0 * 8 / W;     // b0 is a multiple of G
+    uint32_t packed = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (slot0 + c < numel) {
+        packed |= (static_cast<uint32_t>(acc[c]) & kMask) << (W * c);
+      }
+    }
+    if (word) {
+      *reinterpret_cast<uint32_t*>(out + b0) = packed;
+    } else {
+      for (int i = 0; i < nb; ++i) out[b0 + i] = static_cast<uint8_t>(packed >> (8 * i));
+    }
+  }
+}
+
+template <int W>
+void launch_accumulate(const uint8_t* stacked, uint8_t* out, int64_t k,
+                       int64_t row_bytes, int64_t numel, bool aligned,
+                       cudaStream_t s) {
+  constexpr int G = W == 3 ? 3 : 4;
+  int64_t blocks = ((row_bytes + G - 1) / G + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;   // grid-stride covers the rest
+  packed_int_accumulate_kernel<W>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+          stacked, out, k, row_bytes, numel, aligned);
+}
+
 }  // namespace
 
 extern "C" {
@@ -112,6 +200,30 @@ int grace_decode_accumulate(const uint8_t* stacked, const float* scales,
     launch<3, false, false>(stacked, scales, out, k, row_bytes, numel, s);
   } else if (width == 4) {
     launch<4, false, false>(stacked, scales, out, k, row_bytes, numel, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stacked: (k, row_bytes) uint8 row-major; out: row_bytes uint8; numel: the
+// code slots summed, ceil(numel*width/8) <= row_bytes; aligned: stacked
+// and out start on 4-byte boundaries and row_bytes % 4 == 0. Returns the
+// launch's cudaError_t.
+int grace_packed_int_accumulate(const uint8_t* stacked, uint8_t* out,
+                                int64_t k, int64_t row_bytes, int64_t numel,
+                                int width, int aligned, void* stream) {
+  if (k <= 0 || row_bytes <= 0 || numel < 0 ||
+      row_bytes < (numel * width + 7) / 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 2) {
+    launch_accumulate<2>(stacked, out, k, row_bytes, numel, aligned != 0, s);
+  } else if (width == 3) {
+    launch_accumulate<3>(stacked, out, k, row_bytes, numel, aligned != 0, s);
+  } else if (width == 4) {
+    launch_accumulate<4>(stacked, out, k, row_bytes, numel, aligned != 0, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

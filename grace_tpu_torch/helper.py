@@ -23,9 +23,9 @@ from grace_tpu_torch.transform import GraceTransform, grace_transform
 # Keys of the JAX schema that this port reads.
 PORTED_KEYS = frozenset({
     "compressor", "compress_ratio", "topk_algorithm", "wire_dtype",
-    "use_pallas", "quantum_num", "momentum", "memory", "beta", "gamma",
-    "memory_dtype", "communicator", "pipeline", "vote_dtype", "fusion",
-    "world_size"})
+    "use_pallas", "quantum_num", "accum_dtype", "accum_bits", "sketch_rows",
+    "momentum", "memory", "beta", "gamma", "memory_dtype", "communicator",
+    "pipeline", "vote_dtype", "fusion", "world_size"})
 
 
 def _unsupported(kind: str, name, ported) -> ValueError:
@@ -62,6 +62,16 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
     if name == "qsgd":
         return C.QSGDCompressor(quantum_num=params.get("quantum_num", 64),
                                 use_pallas=params.get("use_pallas", "auto"))
+    if name == "homoqsgd":
+        return C.HomoQSGDCompressor(
+            quantum_num=params.get("quantum_num", 7),
+            accum_dtype=params.get("accum_dtype", "int16"),
+            accum_bits=params.get("accum_bits"),
+            use_pallas=params.get("use_pallas", "auto"))
+    if name == "countsketch":
+        return C.CountSketchCompressor(
+            compress_ratio=params.get("compress_ratio", 0.25),
+            rows=params.get("sketch_rows", 3))
     if name == "signsgd":
         return C.SignSGDCompressor(use_pallas=params.get("use_pallas",
                                                          "auto"))
@@ -70,7 +80,8 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
                                   use_pallas=params.get("use_pallas",
                                                         "auto"))
     raise _unsupported("compressor", name,
-                       ("none", "topk", "qsgd", "signsgd", "signum"))
+                       ("none", "topk", "qsgd", "homoqsgd", "countsketch",
+                        "signsgd", "signum"))
 
 
 def _build_memory(params: Dict[str, Any]) -> Memory:
@@ -96,6 +107,8 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
     if name in ("ring", "ring_allreduce"):
         return comm.RingAllreduce(group=group,
                                   pipeline=int(params.get("pipeline", 1)))
+    if name in ("rscatter", "reduce_scatter", "rscatter_allreduce"):
+        return comm.ReduceScatterAllreduce(group=group)
     if name in ("sign_allreduce", "signallreduce"):
         return comm.SignAllreduce(
             group=group, vote_dtype=params.get("vote_dtype", "bfloat16"))
@@ -103,7 +116,7 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
         return comm.Identity(group=group)
     raise _unsupported("communicator", name,
                        ("allreduce", "allgather", "broadcast", "ring",
-                        "sign_allreduce", "identity"))
+                        "rscatter", "sign_allreduce", "identity"))
 
 
 def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None

@@ -2,10 +2,11 @@
 
 ``chunk_topk`` holds the chunk Top-K kernels' wrappers and plain versions,
 ``quant`` the QSGD quantize, quantize-and-pack and sign-pack kernels',
-``wire`` the decode→accumulate kernel's; ``packing`` holds the sub-byte
-packers and ``sparse`` the dense builds of sparse payloads. ``_build``
-compiles ``grace_tpu_torch/csrc`` with nvcc at first use. No module here
-touches CUDA, nvcc or triton when it is imported.
+``wire`` the decode→accumulate and packed integer accumulate kernels';
+``packing`` holds the sub-byte packers and ``sparse`` the dense builds of
+sparse payloads. ``_build`` compiles ``grace_tpu_torch/csrc`` with nvcc at
+first use. No module here touches CUDA, nvcc or triton when it is
+imported.
 """
 
 from grace_tpu_torch.ops import chunk_topk, quant, wire
@@ -22,4 +23,4 @@ def launch_counts() -> dict:
     return {f.__name__: f.launches for f in (
         chunk_topk.chunk_compress_feedback, chunk_topk.chunk_aggregate_dense,
         quant.quantize_stochastic, quant.quantize_pack_stochastic,
-        quant.sign_pack, wire.decode_accumulate)}
+        quant.sign_pack, wire.decode_accumulate, wire.packed_int_accumulate)}

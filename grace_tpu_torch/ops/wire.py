@@ -1,19 +1,21 @@
-"""The decode side of the wire path: K packed payloads → one float32 partial.
+"""The decode side of the wire path: K packed payloads → one float32
+partial, and K packed level payloads → their packed integer sum.
 
 Counterpart of the JAX package's ``ops/pallas_wire.py``, in the pattern of
-``ops/chunk_topk.py``: :func:`decode_accumulate_plain` is the plain PyTorch
-version (the oracle, and what runs for CPU tensors), :func:`decode_accumulate`
-launches the hand-written kernel of ``grace_tpu_torch/csrc/wire.cu`` for
-CUDA tensors or raises, and ``decode_accumulate.launches`` counts its
-launches.
+``ops/chunk_topk.py``. Each kernel has a plain PyTorch version (the
+oracle, and what runs for CPU tensors: :func:`decode_accumulate_plain`,
+:func:`packed_int_accumulate_plain`), a wrapper that launches the
+hand-written kernel of ``grace_tpu_torch/csrc/wire.cu`` for CUDA tensors or
+raises, and a ``.launches`` counter on the wrapper.
 
-The bit-identity contract is the JAX package's: the fused decode equals the
-staged sequential ``decompress(payload_0) + decompress(payload_1) + …`` —
-the same unpack layout, the same sign extension, the same per-payload scale
-(pre-divided by the caller with the staged path's own expression), and the
-same float32 additions in stack order.
+The bit-identity contract of ``decode_accumulate`` is the JAX package's:
+the fused decode equals the staged sequential ``decompress(payload_0) +
+decompress(payload_1) + …`` — the same unpack layout, the same sign
+extension, the same per-payload scale (pre-divided by the caller with the
+staged path's own expression), and the same float32 additions in stack
+order. ``packed_int_accumulate`` is integer arithmetic only, so it equals
+homoqsgd's staged unpack → add → repack byte for byte by construction.
 
-``packed_int_accumulate`` (homoqsgd's exact packed hop) is not ported yet;
 ``hop_hbm_bytes``, a model of TPU HBM traffic, is not ported.
 """
 
@@ -28,11 +30,14 @@ from grace_tpu_torch.ops import _build
 from grace_tpu_torch.ops.packing import PACKERS
 
 __all__ = ["decode_accumulate", "decode_accumulate_plain",
-           "packed_int_accumulate", "WIRE_WIDTHS"]
+           "packed_int_accumulate", "packed_int_accumulate_plain",
+           "WIRE_WIDTHS", "ACCUM_WIDTHS"]
 
 # The pack widths decoded here: the sign mask plus qsgd's two's-complement
 # fields (ops/packing.py declares the layouts).
 WIRE_WIDTHS = (1, 2, 3, 4)
+# The two's-complement field widths that homoqsgd's packed levels ride.
+ACCUM_WIDTHS = (2, 3, 4)
 
 
 def _check_args(stacked: torch.Tensor, scales: torch.Tensor, numel: int,
@@ -87,6 +92,9 @@ def _lib() -> ctypes.CDLL:
     lib.grace_decode_accumulate.argtypes = [p, p, p, i64, i64, i64, i32, i32,
                                             i32, p]
     lib.grace_decode_accumulate.restype = ctypes.c_int
+    lib.grace_packed_int_accumulate.argtypes = [p, p, i64, i64, i64, i32,
+                                                i32, p]
+    lib.grace_packed_int_accumulate.restype = ctypes.c_int
     return lib
 
 
@@ -122,13 +130,73 @@ def decode_accumulate(stacked: torch.Tensor, scales: torch.Tensor,
 decode_accumulate.launches = 0
 
 
-def packed_int_accumulate(stacked: torch.Tensor, numel: int, width: int):
-    """homoqsgd's exact packed hop (``pallas_wire.packed_int_accumulate``):
-    not ported yet."""
-    raise NotImplementedError(
-        "packed_int_accumulate serves the shared-scale homoqsgd codec and "
-        "comes with it (ROADMAP queue 1, slice C)")
+def _check_accum_args(stacked: torch.Tensor, numel: int, width: int) -> None:
+    if width not in ACCUM_WIDTHS:
+        raise ValueError(f"width must be one of {ACCUM_WIDTHS}; got {width}")
+    if (stacked.dim() != 2 or stacked.dtype != torch.uint8
+            or stacked.shape[0] < 1
+            or stacked.shape[1] < -(-numel * width // 8) or numel < 0):
+        raise ValueError(
+            f"packed_int_accumulate takes (K >= 1, >= ceil(numel*width/8)) "
+            f"uint8 payloads; got {stacked.dtype} of shape "
+            f"{tuple(stacked.shape)} for numel={numel}, width={width}")
+
+
+def packed_int_accumulate_plain(stacked: torch.Tensor, numel: int,
+                                width: int) -> torch.Tensor:
+    """``(K, nbytes)`` uint8 payloads of ``width``-bit two's-complement
+    levels → one ``nbytes`` uint8 payload of their sums; the plain version
+    of the kernel, and homoqsgd's staged spelling: unpack the first
+    ``numel`` codes of each payload LSB-first, sign-extend, add in int32,
+    fold with a floored ``mod 2^width`` (exact while the sums fit the
+    field, the ``payload_sum_max_world`` bound; a wrap beyond it) and
+    repack. Code slots from ``numel`` on come out 0."""
+    _check_accum_args(stacked, numel, width)
+    pack, unpack = PACKERS[width]
+    acc = torch.zeros(numel, dtype=torch.int32, device=stacked.device)
+    for k in range(stacked.shape[0]):
+        code = unpack(stacked[k], numel).to(torch.int32)
+        acc += code - (1 << width) * (code >= (1 << (width - 1))).to(
+            torch.int32)
+    packed = pack(torch.remainder(acc, 1 << width).to(torch.uint8))
+    out = torch.zeros(stacked.shape[1], dtype=torch.uint8,
+                      device=stacked.device)
+    out[:packed.numel()] = packed
+    return out
+
+
+def packed_int_accumulate(stacked: torch.Tensor, numel: int, width: int
+                          ) -> torch.Tensor:
+    """The exact payload-space accumulate of packed ``shared_scale``
+    levels: K packed payloads in, one packed payload of the integer level
+    sums out, in one pass, with no unpacked intermediate. Byte-identical
+    to :func:`packed_int_accumulate_plain`."""
+    if stacked.device.type == "cpu":
+        return packed_int_accumulate_plain(stacked, numel, width)
+    if stacked.device.type != "cuda":
+        raise ValueError(f"no packed_int_accumulate for {stacked.device}")
+    _check_accum_args(stacked, numel, width)
+    stacked = stacked.contiguous()
+    k, nbytes = stacked.shape
+    out = torch.empty(nbytes, dtype=torch.uint8, device=stacked.device)
+    if nbytes:
+        # 32-bit loads need every row to start on a 4-byte boundary.
+        aligned = stacked.data_ptr() % 4 == 0 and nbytes % 4 == 0
+        with torch.cuda.device(stacked.device):
+            err = _lib().grace_packed_int_accumulate(
+                stacked.data_ptr(), out.data_ptr(), k, nbytes, numel,
+                int(width), int(aligned),
+                torch.cuda.current_stream(stacked.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"packed_int_accumulate: CUDA kernel launch "
+                               f"failed with cudaError_t {err}")
+        packed_int_accumulate.launches += 1
+    return out
+
+
+packed_int_accumulate.launches = 0
 
 
 def reset_launch_counts() -> None:
     decode_accumulate.launches = 0
+    packed_int_accumulate.launches = 0

@@ -206,7 +206,7 @@ def test_topk_over_allreduce_raises_type_error():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"compressor": "homoqsgd"}, "qsgd"),                # slice C
+    ({"compressor": "cyclictopk"}, "cyclictopk"),
     ({"compressor": "nonsense"}, "nonsense"),
     ({"memory": "dgc"}, "dgc"),
     ({"communicator": "ring", "pipeline": 0}, "ring"),

@@ -30,11 +30,14 @@ leaked = sorted(n for n in sys.modules
 print(",".join(names), leaked)
 """
 
-# The modules of the quantized wire path, which must be among those walked.
+# The modules of the quantized wire path and the homomorphic path, which
+# must be among those walked.
 WIRE_PATH_MODULES = {
     "grace_tpu_torch.ops.packing", "grace_tpu_torch.ops.quant",
     "grace_tpu_torch.ops.wire", "grace_tpu_torch.compressors.qsgd",
-    "grace_tpu_torch.compressors.signsgd"}
+    "grace_tpu_torch.compressors.signsgd",
+    "grace_tpu_torch.compressors.homoqsgd",
+    "grace_tpu_torch.compressors.countsketch"}
 
 
 def test_every_module_imports_without_jax_or_triton():

@@ -7,8 +7,8 @@ state must match within ``rtol=1e-4, atol=1e-5`` (the two frameworks sum
 convolutions in different orders); then two training steps under the
 Top-K 1% chunk configuration must match the JAX package's staged path on a
 one-device mesh within the same tolerance. Two steps under the wire path's
-signSGD vote and QSGD 4-bit ring (``fusion='flat'``) follow, each within
-the tolerance its test states.
+signSGD vote, QSGD 4-bit ring and homomorphic QSGD 4-bit ring
+(``fusion='flat'``) follow, each within the tolerance its test states.
 """
 
 import dataclasses
@@ -48,6 +48,10 @@ SIGNSGD_VOTE = {"compressor": "signsgd", "memory": "residual",
                 "communicator": "sign_allreduce", "fusion": "none"}
 QSGD4_RING = {"compressor": "qsgd", "quantum_num": 7, "use_pallas": True,
               "memory": "none", "communicator": "ring", "fusion": "flat"}
+# The homomorphic path's configuration (bench_all.py homoqsgd4_ring_bs256).
+HOMOQSGD4_RING = {"compressor": "homoqsgd", "quantum_num": 7,
+                  "memory": "residual", "communicator": "ring",
+                  "fusion": "flat"}
 LR = 1e-3
 
 
@@ -404,3 +408,107 @@ def test_reduced_resnet_qsgd4_ring_flat_steps_match_jax(tmp_path,
         prev = now
     assert len(state.grace.mem) == 1 and state.grace.mem[0] is None
     assert state.grace.count == 2
+
+
+@dataclasses.dataclass(frozen=True)
+class _JaxUniformKey(LeafKey):
+    """A leaf key whose uniforms are the JAX package's
+    ``jax.random.uniform`` under its counterpart key, ``fold_in(fold_in(
+    key(seed), count), leaf)`` folded further by ``folds``: the two
+    packages' staged homoqsgd encodes then draw the same noise."""
+
+    def uniform(self, shape, device):
+        k = jax.random.fold_in(jax.random.fold_in(jax.random.key(self.seed),
+                                                  self.count), self.leaf)
+        for i in self.folds:
+            k = jax.random.fold_in(k, i)
+        return torch.from_numpy(np.array(
+            jax.random.uniform(k, tuple(shape)))).to(device)
+
+
+def _grad_gap(params, mstate):
+    """|port gradient − JAX gradient| of the reduced ResNet at the same
+    parameters and batch, flat in leaf order."""
+    x, y = _batch()
+    (_, _), grads = jax.jit(jax.value_and_grad(_jax_loss, has_aux=True))(
+        params, mstate, (jnp.asarray(x), jnp.asarray(y)))
+    model = _port_model(params, mstate)
+    F.cross_entropy(model(torch.from_numpy(x)),
+                    torch.from_numpy(y).long()).backward()
+    got = dict(model.named_parameters())
+    want = _flat(grads)
+    return np.concatenate([np.abs(got[n].grad.numpy() - want[n]).ravel()
+                           for n in leaf_order(want)])
+
+
+def test_reduced_resnet_homoqsgd4_ring_flat_steps_match_jax(tmp_path,
+                                                            monkeypatch):
+    """Shared-scale QSGD 4-bit over the ring on the flat buffer, with
+    residual memory: the scale is negotiated on the compensated buffer, the
+    stage-1 encode draws JAX's uniforms (``_JaxUniformKey``), and one
+    decode scales the levels. Losses, parameters and BatchNorm state match
+    the JAX package within the model's tolerance at both steps. The
+    residual carries the compensated gradient itself, and at the second
+    step's parameters the two frameworks' own gradients part by up to
+    ~2e-3 in the early layers (a pre-activation near a ReLU's kink goes the
+    other way; ``_grad_gap`` measures it at the same parameters): so the
+    residual is held within the model's tolerance plus that measured gap.
+    With the same noise, a level rounds the other way only where the
+    compensated gradients fall on two sides of a rounding boundary. Such a
+    flip must move the parameter by one decode step (LR·scale/7) and the
+    residual by one level the same way (within 1e-3 of a level plus the
+    gap), must be rare (at most 1e-3 of the parameters), and the element
+    is left out of the later comparisons. Each step moves many parameters
+    by far more than the tolerance."""
+    from grace_tpu_torch.compressors import HomoQSGDCompressor
+    monkeypatch.setattr(transform, "LeafKey", _JaxUniformKey)
+    scales = []
+    negotiate = HomoQSGDCompressor.negotiate
+
+    def spy(self, x, group, rng=None):
+        scales.append(float(negotiate(self, x, group, rng=rng)))
+        return torch.tensor(scales[-1])
+
+    monkeypatch.setattr(HomoQSGDCompressor, "negotiate", spy)
+    p, s = _pruned_jax_resnet()
+    prev = _flat(p)
+    names = leaf_order(prev)
+    gap = _grad_gap(p, s)
+    tainted = np.zeros(gap.size, bool)
+    for jstate, jl, model, loss, state in _train_both(tmp_path,
+                                                      HOMOQSGD4_RING):
+        np.testing.assert_allclose(loss, jl, rtol=RTOL)
+        level = scales[-1] / 7
+        params = dict(model.named_parameters())
+        now = _flat(jstate.params)
+        got = np.concatenate([params[n].detach().numpy().ravel()
+                              for n in names])
+        want = np.concatenate([now[n].ravel() for n in names])
+        before = np.concatenate([prev[n].ravel() for n in names])
+        mem = state.grace.mem[0].numpy()
+        jmem = np.asarray(jstate.opt_state[0].mem[0])[0]
+        off = ~np.isclose(got, want, rtol=RTOL, atol=ATOL) & ~tainted
+        np.testing.assert_allclose(np.abs(got - want)[off], LR * level,
+                                   rtol=1e-3)
+        assert (np.abs(np.abs(mem - jmem) - level)[off]
+                <= 1e-3 * level + gap[off]).all()
+        # One level more in the decode lowers both the parameter and the
+        # residual.
+        np.testing.assert_array_equal(np.sign(got - want)[off],
+                                      np.sign(mem - jmem)[off])
+        tainted |= off
+        keep = ~tainted
+        np.testing.assert_allclose(got[keep], want[keep], rtol=RTOL,
+                                   atol=ATOL)
+        assert (np.abs(mem - jmem)[keep]
+                <= ATOL + RTOL * np.abs(jmem[keep]) + gap[keep]).all()
+        assert int((np.abs(want - before) > 10 * ATOL).sum()) > 100
+        buffers = dict(model.named_buffers())
+        for name, v in _flat(jstate.model_state).items():
+            np.testing.assert_allclose(buffers[name].numpy(), v,
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+        prev = now
+        gap = _grad_gap(jax.device_get(jstate.params),
+                        jax.device_get(jstate.model_state))
+    assert tainted.sum() <= 1e-3 * tainted.size
+    assert len(scales) == 2 and state.grace.count == 2

@@ -291,6 +291,9 @@ def _gate_codecs():
     class SharedScale(NoAlgebra):
         payload_algebra = "shared_scale"
 
+        def payload_sum_max_world(self):
+            return 0                      # no world sums exactly
+
     return NoAlgebra(), NoPayload(), TensorCtx(), SharedScale()
 
 
@@ -312,7 +315,7 @@ def test_ring_gates_raise_as_in_jax(group):
         ring.step(x, None, None, mem, no_payload, key)
     with pytest.raises(TypeError, match="data-free ctx"):
         ring.step(x, None, None, mem, tensor_ctx, key)
-    with pytest.raises(NotImplementedError, match="slice C"):
+    with pytest.raises(ValueError, match="payload_sum_max_world"):
         ring.step(x, None, None, mem, shared, key)
     with pytest.raises(ValueError, match="pipeline"):
         comm.RingAllreduce(pipeline=0)

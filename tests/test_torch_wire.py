@@ -1,5 +1,6 @@
-"""The plain version of the port's decode→accumulate kernel against the JAX
-Pallas kernel in interpret mode, and against the staged sequential decode.
+"""The plain versions of the port's decode→accumulate and packed integer
+accumulate kernels against the JAX Pallas kernels in interpret mode, and
+against the staged paths they fuse.
 
 A finding pins the shape of these tests: in interpret mode XLA's CPU
 backend contracts the scaled accumulate ``acc + scale_k * level_k`` into
@@ -25,6 +26,7 @@ import torch
 from grace_tpu.ops import packing as jpacking
 from grace_tpu.ops import pallas_wire
 from grace_tpu_torch.ops import wire
+from grace_tpu_torch.ops.packing import PACKERS
 
 NUMELS = [7, 1000, 16385]
 MODES = [(w, False, False) for w in (1, 2, 3, 4)] + [(1, True, False),
@@ -144,5 +146,95 @@ def test_wrapper_gates_and_plain_only_on_cpu():
         wire.decode_accumulate(t[:, :10], s, 100, 4)      # too few bytes
     with pytest.raises(ValueError, match="scales"):
         wire.decode_accumulate(t, s[:1], 100, 4)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        wire.packed_int_accumulate(t, 100, 4)
+    # The packed integer accumulate runs its plain version on the CPU too.
+    before = wire.packed_int_accumulate.launches
+    out = wire.packed_int_accumulate(t, 100, 4)
+    assert out.shape == (t.shape[1],) and out.dtype == torch.uint8
+    assert wire.packed_int_accumulate.launches == before
+
+
+# -- the packed integer accumulate --------------------------------------------
+
+LENGTHS = (1, 7, 8, 9, 531, 16383, 16384, 16385)
+
+
+def _bounded_levels(rng, k, n, width):
+    """``(k, n)`` levels whose K-way sums stay in the ``width``-bit field:
+    uniform in ``±(ceil // k)``, or, where that is 0, one nonzero level a
+    slot, in ``±ceil`` (``ceil = 2^(width-1) - 1``)."""
+    ceil = (1 << (width - 1)) - 1
+    q = ceil // k
+    if q >= 1:
+        return rng.integers(-q, q + 1, (k, n))
+    levels = np.zeros((k, n), np.int64)
+    levels[rng.integers(0, k, n), np.arange(n)] = rng.integers(-ceil,
+                                                                ceil + 1, n)
+    return levels
+
+
+def _pack(levels, width):
+    codes = torch.from_numpy(np.mod(levels, 1 << width).astype(np.uint8))
+    return torch.stack([PACKERS[width][0](c) for c in codes])
+
+
+@pytest.mark.parametrize("k", range(1, 8))
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_packed_int_accumulate_matches_pallas_interpret(width, k):
+    """Byte for byte with the interpret-mode Pallas kernel, called as
+    homoqsgd calls it (every code slot of the bytes), on levels bounded to
+    the field, over lengths around the byte and 3-byte boundaries (each
+    width sees every length across K) and the Pallas block of 16384."""
+    rng = np.random.default_rng(10 * width + k)
+    for i in range(3):
+        n = LENGTHS[(3 * (k - 1) + i) % len(LENGTHS)]
+        levels = _bounded_levels(rng, k, n, width)
+        stacked = _pack(levels, width)
+        slots = stacked.shape[1] * 8 // width
+        got = wire.packed_int_accumulate(stacked, slots, width)
+        want = pallas_wire.packed_int_accumulate(
+            jnp.asarray(stacked.numpy()), slots, width, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        # And the packed sum is the true integer sum of the levels.
+        sums = wire.packed_int_accumulate_plain(stacked, n, width)
+        code = PACKERS[width][1](sums, n).numpy().astype(np.int64)
+        code -= (1 << width) * (code >= (1 << (width - 1)))
+        np.testing.assert_array_equal(code, levels.sum(0))
+
+
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_packed_int_accumulate_matches_jax_staged_and_wraps(width):
+    """Against JAX homoqsgd's staged ``_packed_accumulate`` (unpack → add →
+    ``jnp.mod`` → repack): on bounded levels, and on random bytes whose
+    sums leave the field, where both wrap with a floored mod the same way
+    (and zero the bits past the last whole 3-bit code)."""
+    from grace_tpu import compressors as JC
+    staged = JC.HomoQSGDCompressor(quantum_num=1, accum_bits=width,
+                                   use_pallas=False)
+    rng = np.random.default_rng(width)
+    for k, n in ((2, 531), (3, 1000), (7, 97)):
+        cases = (_pack(_bounded_levels(rng, k, n, width), width),
+                 torch.from_numpy(rng.integers(0, 256, (k, -(-n * width // 8))
+                                               ).astype(np.uint8)))
+        for stacked in cases:
+            slots = stacked.shape[1] * 8 // width
+            want = np.asarray(staged._packed_accumulate(
+                jnp.asarray(stacked.numpy())))
+            got = wire.packed_int_accumulate(stacked, slots, width)
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_packed_int_accumulate_wrapper_gates():
+    stacked = torch.zeros(2, 8, dtype=torch.uint8)
+    before = wire.packed_int_accumulate.launches
+    out = wire.packed_int_accumulate(stacked, 16, 4)
+    assert out.dtype == torch.uint8 and out.shape == (8,)
+    assert wire.packed_int_accumulate.launches == before     # plain on CPU
+    with pytest.raises(ValueError, match="width"):
+        wire.packed_int_accumulate(stacked, 8, 1)
+    with pytest.raises(ValueError, match="uint8"):
+        wire.packed_int_accumulate(stacked, 17, 4)            # too few bytes
+    with pytest.raises(ValueError, match="uint8"):
+        wire.packed_int_accumulate(stacked.to(torch.int8), 16, 4)
+    # Slots from numel on come out zero.
+    full = torch.full((1, 3), 0xFF, dtype=torch.uint8)
+    assert wire.packed_int_accumulate(full, 3, 4).tolist() == [0xFF, 0x0F, 0]
