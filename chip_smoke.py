@@ -10,19 +10,25 @@ non-zero exit; nothing is caught and allowed to continue.
 1. Identify the card and build the CUDA kernels from grace_tpu_torch/csrc
    (one nvcc process per source, all started together).
 2. Hold each chunk Top-K kernel against its plain PyTorch version on the
-   card, bit for bit, over every distinct ResNet-50 leaf size at 1% and the
-   edge cases.
-3. Time the chunk Top-K kernels at the main path's shapes (all 161
-   ResNet-50 leaves), beside their byte bound, their plain versions and a
-   library yardstick.
+   card, bit for bit: one leaf at a time over every distinct ResNet-50 leaf
+   size at 1% and the edge cases, then grouped, all 161 ResNet-50 leaves
+   and the edge-column leaf in one launch (the four compress variants; the
+   aggregate at W in {1, 8} x {f32, bf16} with colliding and out-of-range
+   rows in the group).
+3. Time the grouped chunk Top-K kernels at the main path's shapes (all 161
+   ResNet-50 leaves in one launch), beside their byte bound, the kernel
+   alone, their plain versions and a one-call library yardstick, and the
+   161 one-leaf calls that the main path made before it was grouped.
 4. Check the port against a reference on a small input: a reduced ResNet
    on the card against the same model on the CPU (forward and backward
    within a tolerance, then the GRACE exchange of identical gradients bit
-   for bit: CUDA kernels against their plain versions).
+   for bit: CUDA kernels against their plain versions; the Top-K exchange
+   through the grouped path).
 5. Train full-width ResNet-50 (batch 256, 224x224 NHWC input cast to
    bfloat16, SGD lr 1e-3) through grace_from_params for both benchmark
-   configurations, the Top-K 1% chunk + residual + allgather main path and
-   the dense none + allreduce anchor; count the kernels' launches.
+   configurations, the Top-K 1% chunk + residual + allgather main path (one
+   grouped launch of each chunk Top-K kernel a step) and the dense none +
+   allreduce anchor; count the kernels' launches.
 
 The quantized wire path:
 
@@ -38,7 +44,7 @@ The quantized wire path:
    (``Compressor.decode_accumulate((recv, own), ...)``), bit for bit
    against the plain version and against the staged decompress + add.
    A one-card group makes no hop, so this phase is where the kernel runs.
-8. Time the four kernels at the wire path's shapes.
+8. Time the four kernels at the wire path's shapes, the kernel alone too.
 9. Train full-width ResNet-50 under the three wire-path configurations
    (bench_all.py) and assert their kernels' launches a step.
 
@@ -134,8 +140,9 @@ HOMO_PATH = [
      "per_step": {}},
 ]
 HEADLINE[0]["per_step"] = {}
-HEADLINE[1]["per_step"] = {"chunk_compress_feedback": 161,
-                           "chunk_aggregate_dense": 161}
+# The main path groups its 161 leaves: one launch of each kernel a step.
+HEADLINE[1]["per_step"] = {"chunk_compress_feedback": 1,
+                           "chunk_aggregate_dense": 1}
 IMAGE_HW = 224
 NUM_CLASSES = 1000
 WARMUP_STEPS = 2
@@ -223,6 +230,22 @@ def resnet50_leaves():
 
 # -- phase 2 -----------------------------------------------------------------
 
+EDGE_N, EDGE_K = 1000, 10
+
+
+def edge_columns(g, r, k):
+    """Edge columns, in place: a NaN in column 7, an all -0.0 column 5 (the
+    winner is -0.0 and must ship as +0.0), an all-zero column 3, and a tied
+    column 1 (the first row must win)."""
+    g[437] = float("nan")
+    g[5::k] = -0.0
+    r[5::k] = -0.0
+    g[3::k] = 0.0
+    r[3::k] = 0.0
+    g[1::k] = 2.0
+    r[1::k] = 0.0
+
+
 def check_kernels(dev, leaves, errs):
     import torch
     from grace_tpu_torch.compressors import static_k
@@ -286,18 +309,9 @@ def check_kernels(dev, leaves, errs):
             compress_case(f"n={n} k={k} residual=None", g, None, k, beta,
                           gamma, bf16)
             cases += 2
-    # Edge columns at n=1000, k=10: a NaN in column 7, an all -0.0 column 5
-    # (the winner is -0.0 and must ship as +0.0), an all-zero column 3, and
-    # a tied column 1 (the first row must win).
-    n, k = 1000, 10
+    n, k = EDGE_N, EDGE_K
     g, r = randn(n), randn(n, 0.1)
-    g[437] = float("nan")
-    g[5::k] = -0.0
-    r[5::k] = -0.0
-    g[3::k] = 0.0
-    r[3::k] = 0.0
-    g[1::k] = 2.0
-    r[1::k] = 0.0
+    edge_columns(g, r, k)
     for beta, gamma, bf16 in ((1.0, 1.0, False), (0.9, 0.5, True)):
         vals, win, _ = compress_case("edge columns", g, r, k, beta, gamma,
                                      bf16)
@@ -320,81 +334,168 @@ def check_kernels(dev, leaves, errs):
     return cases
 
 
+def check_grouped_kernels(dev, leaves, errs):
+    """Phase 2, grouped: the 161 ResNet-50 leaves at 1% and the edge-column
+    leaf in one launch of each kernel, against the grouped plain versions,
+    bit for bit."""
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def randn(n, scale=1.0):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
+    ns = [n for _, n in leaves] + [EDGE_N]
+    ks = [static_k(n, 0.01) for _, n in leaves] + [EDGE_K]
+    gs = [randn(n) for n in ns]
+    rs = [randn(n, 0.1) for n in ns]
+    edge_columns(gs[-1], rs[-1], EDGE_K)
+
+    def one_launch(wrapper, label):
+        if wrapper.launches != 1:
+            fail(f"{wrapper.__name__} {label}: {wrapper.launches} launches "
+                 f"for {len(ns)} leaves, expected one")
+        wrapper.launches = 0
+
+    def same(kname, label, want, got):
+        if not same_bits(want, got):
+            fail(f"{kname} grouped {label}: differs from the grouped plain "
+                 f"version (max abs err {max_abs_err(want, got)})")
+        if want.is_floating_point():
+            errs[kname] = max(errs[kname], max_abs_err(want, got))
+
+    cases = 0
+    ck.reset_launch_counts()
+    for label, feedback, beta, gamma, bf16 in (
+            ("", True, 1.0, 1.0, False), ("residual=None", False, 1.0, 1.0, False),
+            ("beta,gamma=0.9,0.5", True, 0.9, 0.5, False),
+            ("wire_bf16", True, 1.0, 1.0, True)):
+        resids = rs if feedback else [None] * len(rs)
+        want = ck.chunk_compress_feedback_grouped_plain(gs, resids, ks, beta,
+                                                        gamma, bf16)
+        got = ck.chunk_compress_feedback_grouped(
+            gs, [None if r is None else r.clone() for r in resids], ks, beta,
+            gamma, bf16)
+        torch.cuda.synchronize()
+        one_launch(ck.chunk_compress_feedback_grouped, label)
+        same("chunk_compress_feedback", f"{label} vals", want[0], got[0])
+        same("chunk_compress_feedback", f"{label} indices", want[1], got[1])
+        for (name, _), w, o in zip(leaves + [("edge", 0)], want[2], got[2]):
+            same("chunk_compress_feedback", f"{label} residual of {name}", w,
+                 o.reshape(-1))
+        cases += 1
+    edge = int(ck.leaf_plan(tuple(ks), tuple(ns)).koff[-2])  # its K-offset
+    for world in (1, 8):
+        for bf16 in (False, True):
+            pays = [ck.chunk_compress_feedback_grouped_plain(
+                [randn(n) for n in ns], [None] * len(ns), ks, wire_bf16=bf16)
+                for _ in range(world)]
+            vals = torch.stack([p[0] for p in pays])
+            idx = torch.stack([p[1] for p in pays])
+            idx[-1, edge:] = idx[0, edge:]          # colliding rows (W=8)
+            idx[world // 2, edge + 4] = (EDGE_N // EDGE_K + 5) * EDGE_K + 4
+            for average in (True, False):
+                label = f"W={world} bf16={bf16} average={average}"
+                want = ck.chunk_aggregate_dense_grouped_plain(vals, idx, ks, ns,
+                                                              average)
+                got = ck.chunk_aggregate_dense_grouped(vals, idx, ks, ns,
+                                                       average)
+                torch.cuda.synchronize()
+                one_launch(ck.chunk_aggregate_dense_grouped, label)
+                same("chunk_aggregate_dense", label, want, got)
+                cases += 1
+    return cases
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def time_kernels(dev, leaves):
+    """The grouped kernels over the 161 leaves, one launch each, and beside
+    them the 161 one-leaf calls a step of the path before it was grouped."""
     import torch
     from grace_tpu_torch.compressors import static_k
     from grace_tpu_torch.ops import chunk_topk as ck
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    bufs = []
-    for _, n in leaves:
-        k = static_k(n, 0.01)
-        g = torch.randn(n, generator=gen, device=dev)
-        r = torch.randn(n, generator=gen, device=dev) * 0.1
-        vals, win, _ = ck.chunk_compress_feedback_plain(g, r, k)
-        idx = (win.long() * k + torch.arange(k, device=dev))
-        bufs.append((n, k, g, r, vals[None], win[None], idx, vals))
-    n_tot = sum(b[0] for b in bufs)
-    k_tot = sum(b[1] for b in bufs)
+    ns = [n for _, n in leaves]
+    ks = [static_k(n, 0.01) for n in ns]
+    gs = [torch.randn(n, generator=gen, device=dev) for n in ns]
+    rs = [torch.randn(n, generator=gen, device=dev) * 0.1 for n in ns]
+    vals, idx, _ = ck.chunk_compress_feedback_grouped_plain(gs, rs, ks)
+    vals, idx = vals[None], idx[None]                 # W = 1
+    plan = ck.leaf_plan(tuple(ks), tuple(ns))
+    wins = [idx[:, lo:lo + k] // k for lo, k in zip(plan.koff.tolist(), ks)]
+    one_vals = [vals[:, lo:lo + k].contiguous()
+                for lo, k in zip(plan.koff.tolist(), ks)]
+    # The library yardstick: one scatter_add_ over the concatenated buffer,
+    # at global indices (the leaf's N-offset plus its wire index).
+    noff = torch.repeat_interleave(
+        torch.tensor(plan.noff[:-1].tolist(), device=dev),
+        torch.tensor(ks, device=dev))
+    gidx = noff + idx[0].long()
+    n_tot, k_tot = plan.n_total, plan.k_total
 
-    def compress_kernel(leaves=bufs):
-        for n, k, g, r, *_ in leaves:     # new residual written over r
+    def compress_grouped():               # new residuals written over rs
+        ck.chunk_compress_feedback_grouped(gs, rs, ks)
+
+    def compress_one_leaf():
+        for g, r, k in zip(gs, rs, ks):
             ck.chunk_compress_feedback(g, r, k)
 
     def compress_plain():
-        for n, k, g, r, *_ in bufs:
-            ck.chunk_compress_feedback_plain(g, r, k)
+        ck.chunk_compress_feedback_grouped_plain(gs, rs, ks)
 
-    def aggregate_kernel(leaves=bufs):
-        for n, k, _g, _r, v, w, _i, _v in leaves:
+    def aggregate_grouped():
+        ck.chunk_aggregate_dense_grouped(vals, idx, ks, ns)
+
+    def aggregate_one_leaf():
+        for v, w, k, n in zip(one_vals, wins, ks, ns):
             ck.chunk_aggregate_dense(v, w, k, n)
 
     def aggregate_plain():
-        for n, k, _g, _r, v, w, _i, _v in bufs:
-            ck.chunk_aggregate_dense_plain(v, w, k, n)
+        ck.chunk_aggregate_dense_grouped_plain(vals, idx, ks, ns)
 
     def aggregate_library():              # yardstick only; the port never calls it
-        for n, k, _g, _r, _v, _w, idx, vals in bufs:
-            torch.zeros(n, device=dev).scatter_add_(0, idx, vals)
+        torch.zeros(n_tot, device=dev).scatter_add_(0, gidx, vals[0])
 
     # Bytes each function must move (inputs read once, outputs written
     # once) and the fp32 operations it does, for this run's shapes.
     world = 1
-    c_bytes = 12 * n_tot + 8 * k_tot      # g, r in; resid, vals, win out
+    c_bytes = 12 * n_tot + 8 * k_tot      # g, r in; resid, vals, idx out
     c_ops = 5 * n_tot + k_tot             # scale+add, |.|, compare; subtract
     a_bytes = 4 * n_tot + 8 * world * k_tot
     a_ops = world * k_tot
     out = {}
-    for name, kern, plain, lib, nbytes, nops in (
-            ("chunk_compress_feedback", compress_kernel, compress_plain, None,
-             c_bytes, c_ops),
-            ("chunk_aggregate_dense", aggregate_kernel, aggregate_plain,
-             aggregate_library, a_bytes, a_ops)):
+    for name, grouped, one_leaf, plain, lib, nbytes, nops in (
+            ("chunk_compress_feedback", compress_grouped, compress_one_leaf,
+             compress_plain, None, c_bytes, c_ops),
+            ("chunk_aggregate_dense", aggregate_grouped, aggregate_one_leaf,
+             aggregate_plain, aggregate_library, a_bytes, a_ops)):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_FLOP_PER_S * 1e3
-        ms, host_ms = cuda_time_ms(kern, host=True)
-        out[name] = {
-            "ms": ms,
+        kernel = f"{name}_kernel"
+        ms, host_ms = cuda_time_ms(grouped, host=True)
+        one_ms, one_host_ms = cuda_time_ms(one_leaf, host=True)
+        t = out[name] = {
+            "ms": ms, "host_ms": host_ms,
+            "kernel_ms": kernel_device_ms(grouped, kernel),
             "plain_ms": cuda_time_ms(plain),
             "library_ms": cuda_time_ms(lib) if lib is not None else None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        }
-        # The same kernel over the small leaves (BatchNorm and the fc bias:
-        # n <= 2048, k <= 20) and over the rest, to see where its time goes.
-        small = [b for b in bufs if b[0] <= 2048]
-        large = [b for b in bufs if b[0] > 2048]
-        split = (cuda_time_ms(lambda: kern(small)),
-                 cuda_time_ms(lambda: kern(large)))
-        log(f"  {name}: {out[name]['ms']:.4f} ms per step over "
-            f"{len(bufs)} leaves, {host_ms:.4f} ms of it to enqueue "
-            f"(bound {out[name]['bound_ms']:.4f} ms by "
-            f"{out[name]['bound_by']}: {nbytes / 1e6:.1f} MB), plain "
-            f"{out[name]['plain_ms']:.4f} ms, library "
-            f"{out[name]['library_ms']} ms; {len(small)} leaves of n <= 2048 "
-            f"{split[0]:.4f} ms, {len(large)} larger leaves {split[1]:.4f} ms")
+            "one_leaf": {"ms": one_ms, "host_ms": one_host_ms,
+                         "kernel_ms": kernel_device_ms(
+                             one_leaf, kernel, launches_per_call=len(ns))}}
+        log(f"  {name}: grouped, one launch over {len(ns)} leaves: {ms:.4f} "
+            f"ms, {host_ms:.4f} ms of it to enqueue, the kernel alone "
+            f"{t['kernel_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']}: {nbytes / 1e6:.1f} MB), plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms; the "
+            f"{len(ns)} one-leaf calls {one_ms:.4f} ms, {one_host_ms:.4f} ms "
+            f"to enqueue, their kernels alone "
+            f"{t['one_leaf']['kernel_ms']:.4f} ms")
     return out
 
 
@@ -442,7 +543,10 @@ def check_reference(dev, group):
         torch.testing.assert_close(b.cpu(), dict(mc.named_buffers())[n],
                                    rtol=1e-4, atol=1e-5)
     # The GRACE exchange of identical gradients: kernels vs plain versions,
-    # for the Top-K main path and the (deterministic) signSGD vote.
+    # for the Top-K main path (through the grouped kernels, one launch each
+    # a step) and the (deterministic) signSGD vote.
+    from grace_tpu_torch.ops import chunk_topk as ck
+    ck.reset_launch_counts()
     for params in (HEADLINE[1]["params"], WIRE_PATH[2]["params"]):
         tx_c = grace_from_params(params, group=cpu_group).transform(SEED)
         tx_g = grace_from_params(params, group=group).transform(SEED)
@@ -464,6 +568,12 @@ def check_reference(dev, group):
                     fail(f"reference: {params['compressor']} residual "
                          f"differs at step {step}")
     dist.destroy_process_group(cpu_group)
+    grouped = (ck.chunk_compress_feedback_grouped.launches,
+               ck.chunk_aggregate_dense_grouped.launches)
+    if grouped != (2, 2) or ck.chunk_compress_feedback.launches:
+        fail(f"reference: the Top-K exchange made {grouped} grouped launches "
+             f"and {ck.chunk_compress_feedback.launches} one-leaf ones in two "
+             "steps, expected (2, 2) and 0")
 
 
 def profile_step(step, state, batch, label):
@@ -738,37 +848,44 @@ def time_wire_kernels(dev, leaves, flat):
     st2, sc2, m2 = hop_inputs(2)
     st8, sc8, m8 = hop_inputs(8)
     sign_bytes = sum(4 * v.numel() + -(-v.numel() // 8) for v in views)
-    specs = {
+    specs = {   # kernel, plain, bytes, ops, unit, CUDA kernel, its launches
         "quantize_pack_stochastic": (
             lambda: Q.quantize_pack_stochastic(flat, norm, 1, 7, 4),
             lambda: Q.quantize_pack_stochastic_plain(flat, norm, 1, 7, 4),
-            4 * n + -(-n * 4 // 8), PACK_OPS * n, "a launch, flat n"),
+            4 * n + -(-n * 4 // 8), PACK_OPS * n, "a launch, flat n",
+            "quantize_pack_kernel", 1),
         "quantize_stochastic": (
             lambda: Q.quantize_stochastic(flat, norm, 1, 64),
             lambda: Q.quantize_stochastic_plain(flat, norm, 1, 64),
-            5 * n, QUANT_OPS * n, "a launch, flat n"),
+            5 * n, QUANT_OPS * n, "a launch, flat n",
+            "quantize_stochastic_kernel", 1),
         "sign_pack": (
             lambda: [Q.sign_pack(v) for v in views],
             lambda: [Q.sign_pack_plain(v) for v in views],
-            sign_bytes, SIGN_OPS * n, "a step, 161 leaves"),
+            sign_bytes, SIGN_OPS * n, "a step, 161 leaves",
+            "sign_pack_kernel", len(views)),
         "decode_accumulate": (
             lambda: Wr.decode_accumulate(st2, sc2, m2, 4),
             lambda: Wr.decode_accumulate_plain(st2, sc2, m2, 4),
             2 * st2.shape[1] + 4 * m2, 2 * DECODE_OPS * m2,
-            "a hop, K=2 w=4 at W=2"),
+            "a hop, K=2 w=4 at W=2", "decode_accumulate_kernel", 1),
     }
     out = {}
-    for name, (kern, plain, nbytes, nops, unit) in specs.items():
+    for name, (kern, plain, nbytes, nops, unit, kname, per_call) in \
+            specs.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_FLOP_PER_S * 1e3
         ms, host_ms = cuda_time_ms(kern, host=True)
         out[name] = {"ms": ms, "host_ms": host_ms,
+                     "kernel_ms": kernel_device_ms(
+                         kern, kname, launches_per_call=per_call),
                      "plain_ms": cuda_time_ms(plain), "library_ms": None,
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations"}
         log(f"  {name}: {ms:.4f} ms {unit}, {host_ms:.4f} ms of it to "
-            f"enqueue (bound {out[name]['bound_ms']:.4f} ms by "
+            f"enqueue, the kernel alone {out[name]['kernel_ms']:.4f} ms "
+            f"(bound {out[name]['bound_ms']:.4f} ms by "
             f"{out[name]['bound_by']}: {nbytes / 1e6:.2f} MB), plain "
             f"{out[name]['plain_ms']:.4f} ms, library none")
     ms8, host8 = cuda_time_ms(lambda: Wr.decode_accumulate(st8, sc8, m8, 4),
@@ -960,7 +1077,7 @@ def time_accum_kernel(dev, flat):
             lambda: Wr.packed_int_accumulate(st, slots, 4), host=True)
         out[label] = {
             "ms": ms, "host_ms": host_ms,
-            "device_ms": kernel_device_ms(
+            "kernel_ms": kernel_device_ms(
                 lambda: Wr.packed_int_accumulate(st, slots, 4),
                 "packed_int_accumulate_kernel"),
             "plain_ms": cuda_time_ms(
@@ -970,19 +1087,21 @@ def time_accum_kernel(dev, flat):
             "mb": nbytes_moved / 1e6}
         log(f"  packed_int_accumulate {label} ({nbytes} bytes a payload): "
             f"{ms:.4f} ms, {host_ms:.4f} ms of it to enqueue, the kernel "
-            f"itself {out[label]['device_ms']:.4f} ms (bound "
+            f"itself {out[label]['kernel_ms']:.4f} ms (bound "
             f"{out[label]['bound_ms']:.4f} ms by {out[label]['bound_by']}: "
             f"{nbytes_moved / 1e6:.2f} MB), plain "
             f"{out[label]['plain_ms']:.4f} ms, library none")
     return out
 
 
-def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS):
-    """The mean device time of the CUDA kernel named ``kernel_name`` over
-    ``runs`` calls of ``fn`` under torch.profiler: the kernel alone,
-    without the host's enqueue that a CUDA-event pair around one call
-    also holds when the host is the slower. The mean is over the launches
-    the profiler recorded, which can miss one at the edge of the window."""
+def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
+                     launches_per_call: int = 1):
+    """The device time of the CUDA kernel named ``kernel_name`` in one call
+    of ``fn`` (which launches it ``launches_per_call`` times), from
+    ``runs`` calls under torch.profiler: the kernel alone, without the
+    host's enqueue that a CUDA-event pair around one call also holds when
+    the host is the slower. The mean is over the launches the profiler
+    recorded, which can miss one at the edge of the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -996,13 +1115,14 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS):
     hits = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel_name in e.key]
     seen = sum(e.count for e in hits)
-    if not runs // 2 <= seen <= runs:
+    want = runs * launches_per_call
+    if not want // 2 <= seen <= want:
         fail(f"the profiler saw {seen} launches of {kernel_name} in {runs} "
-             "calls")
+             f"calls of {launches_per_call}")
     total = sum(getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0))
                 for e in hits)
-    return total / seen / 1e3
+    return total / seen * launches_per_call / 1e3
 
 
 def main() -> int:
@@ -1046,10 +1166,14 @@ def main() -> int:
         # -- 2. kernels against their plain versions -------------------------
         errs = {"chunk_compress_feedback": 0.0, "chunk_aggregate_dense": 0.0}
         cases = check_kernels(dev, leaves, errs)
+        grouped_cases = check_grouped_kernels(dev, leaves, errs)
         log(f"[2] kernels bit-identical to their plain versions in {cases} "
-            f"cases on the card")
+            f"one-leaf cases and {grouped_cases} grouped cases ({len(leaves)} "
+            f"ResNet-50 leaves and the edge-column leaf in one launch each) "
+            f"on the card")
         # -- 3. timing -------------------------------------------------------
-        log("[3] kernel times at the main path's shapes (161 leaves, W=1)")
+        log(f"[3] kernel times at the main path's shapes ({len(leaves)} "
+            f"leaves, W=1)")
         times = time_kernels(dev, leaves)
         # -- 4. reference on a small input -----------------------------------
         tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -1152,6 +1276,7 @@ def main() -> int:
                 "launches_from": (f"the {run} run" if run
                                   else "the ring-hop phase [7]"),
                 "max_abs_err": {**errs, **wire_errs}[kname], "ms": t["ms"],
+                "host_ms": t["host_ms"], "kernel_ms": t["kernel_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         log(json.dumps({"runs": runs}))

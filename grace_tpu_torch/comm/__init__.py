@@ -223,7 +223,43 @@ class Allreduce(Communicator):
 class Allgather(Communicator):
     """Gather every rank's payload, decompress per rank, aggregate, and
     average after the aggregate. A codec with ``fused_aggregate_decompress``
-    may do the decompress + aggregate + average in one kernel."""
+    may do the decompress + aggregate + average in one kernel.
+
+    Over many leaves (:meth:`step_leaves`), a codec with grouped fused
+    hooks (chunk Top-K) under linear error feedback takes every leaf its
+    gates pass through one grouped compress, one gather of each payload
+    tensor and one grouped aggregate; the other leaves run :meth:`step`.
+    """
+
+    def step_leaves(self, xs, mem_states, comp_states, memory, compressor,
+                    rngs):
+        coeffs = getattr(memory, "linear_feedback_coeffs", None)
+        compress = getattr(compressor, "fused_feedback_compress_leaves", None)
+        aggregate = getattr(compressor, "fused_aggregate_decompress_leaves",
+                            None)
+        grouped = None
+        if coeffs is not None and compress is not None and aggregate is not None:
+            grouped = compress(xs, mem_states, coeffs, rngs)
+        if grouped is None:
+            return super().step_leaves(xs, mem_states, comp_states, memory,
+                                       compressor, rngs)
+        taken, payload, ctx, new_mem = grouped
+        # Concatenated payloads gather as one tensor each; every rank takes
+        # the same leaves (the gates read shapes and dtypes only), so the
+        # collectives line up.
+        outs = [None] * len(xs)
+        mems, comps = list(mem_states), list(comp_states)
+        for i, out, ms in zip(taken, aggregate(_gather(payload, self.group),
+                                               ctx, self.world_size()),
+                              new_mem):
+            outs[i], mems[i] = out, ms
+        grouped_leaves = set(taken)
+        for i in range(len(xs)):
+            if i not in grouped_leaves:
+                outs[i], mems[i], comps[i] = self.step(
+                    xs[i], mem_states[i], comp_states[i], memory, compressor,
+                    rngs[i])
+        return outs, mems, comps
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:

@@ -91,6 +91,52 @@ class TopKCompressor(Compressor):
         return (values, indices), (x.numel(), tuple(x.shape), x.dtype), \
             new_state
 
+    def fused_feedback_compress_leaves(self, xs, states, coeffs, rngs):
+        """The grouped fast path of ``Communicator.step_leaves``: every leaf
+        that passes :meth:`fused_feedback_compress`'s gates (float32,
+        ``n >= 2k``, a float32 residual; both contiguous, since the kernel
+        reads them in place) goes through ONE grouped kernel
+        launch. Returns ``(taken, payload, ctx, new_states)``: the indices
+        of the leaves taken, their payloads concatenated in leaf order
+        (``(values[K], indices[K])``, wire indices ``win_row*k + c``), the
+        decode ctx of the group and their new residuals; or None where no
+        leaf passes. Per leaf, bit-identical to the one-leaf path."""
+        taken, ks = [], []
+        for i, (x, state) in enumerate(zip(xs, states)):
+            k = self._fused_k(x.numel(), x.dtype)
+            if (k is not None and state is not None
+                    and state.dtype == torch.float32 and x.is_contiguous()
+                    and state.is_contiguous()):
+                taken.append(i)
+                ks.append(k)
+        if not taken:
+            return None
+        beta, gamma = coeffs
+        # The kernel selects over each leaf's flat order, whatever its shape:
+        # no per-leaf reshape (a view costs microseconds of host time).
+        grads = [xs[i] for i in taken]
+        values, indices, new_states = \
+            chunk_topk.chunk_compress_feedback_grouped(
+                grads, [states[i] for i in taken], ks, beta=float(beta),
+                gamma=float(gamma), wire_bf16=self.wire_dtype == "bfloat16")
+        ctx = (tuple(ks), tuple(g.numel() for g in grads),
+               tuple(g.shape for g in grads))
+        return taken, (values, indices), ctx, new_states
+
+    def fused_aggregate_decompress_leaves(self, gathered: Payload, ctx,
+                                          world: int):
+        """The grouped aggregate of the leaves of
+        :meth:`fused_feedback_compress_leaves`: ``(world, K)`` gathered
+        payloads → each leaf's aggregated (÷world with ``average``) dense
+        tensor, in one kernel launch. The leaves' outputs are views of one
+        buffer."""
+        ks, ns, shapes = ctx
+        values, indices = gathered
+        out = chunk_topk.chunk_aggregate_dense_grouped(
+            values, indices, ks, ns, average=self.average)
+        return [o if len(shape) == 1 else o.view(shape)
+                for o, shape in zip(out.split(ns), shapes)]
+
     def _chunk_compress(self, flat: torch.Tensor, k: int):
         """Staged chunk selection: argmax of |x| over each column of the
         zero-padded ``(rows, k)`` view (first max wins, so padding lanes

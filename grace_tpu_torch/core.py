@@ -255,6 +255,23 @@ class Communicator:
         """Exchange payloads across ranks; return the aggregated tensor."""
         raise NotImplementedError
 
+    def step_leaves(self, xs: Sequence[torch.Tensor],
+                    mem_states: Sequence[State], comp_states: Sequence[State],
+                    memory: Memory, compressor: Compressor,
+                    rngs: Sequence[LeafKey]
+                    ) -> tuple[list, list, list]:
+        """``fusion=None``'s per-leaf pipelines over every leaf at once:
+        ``(outs, mem_states, comp_states)`` in leaf order. The default runs
+        :meth:`step` leaf by leaf; a communicator may group leaves whose
+        results stay the same bit for bit."""
+        outs, mems, comps = [], [], []
+        for x, ms, cs, rng in zip(xs, mem_states, comp_states, rngs):
+            out, ms, cs = self.step(x, ms, cs, memory, compressor, rng)
+            outs.append(out)
+            mems.append(ms)
+            comps.append(cs)
+        return outs, mems, comps
+
     def step(self, x: torch.Tensor, mem_state: State, comp_state: State,
              memory: Memory, compressor: Compressor, rng: LeafKey
              ) -> tuple[torch.Tensor, State, State]:

@@ -14,8 +14,16 @@ comes three ways:
   adds one to where it launches its kernel, and nowhere else, so a run can
   show that its main path went through the kernel.
 
-The TPU kernels' VMEM block-column gate has no counterpart: a CUDA thread
-walks a column of any length.
+Each kernel also has a grouped wrapper over many leaves
+(``chunk_compress_feedback_grouped`` / ``chunk_aggregate_dense_grouped``,
+with their own ``*_plain`` versions and counters): one launch covers up to
+``MAX_LEAVES_PER_LAUNCH`` leaves, their payloads concatenated in leaf order
+(K-space) with wire indices ``win * k + c``. The one-leaf wrappers are the
+one-leaf case of the same kernels. A grouped launch is described by a
+:class:`LeafPlan`, which depends only on the leaves' sizes and is cached.
+
+The TPU kernels' VMEM block-column gate has no counterpart: the CUDA
+kernels walk columns of any length.
 
 Layout: the flat buffer is the ``(n // k, k)`` row-major view plus one
 zero-padded tail row; column ``c`` is chunk ``c`` of the wire format, and
@@ -24,14 +32,23 @@ wire indices are ``win * k + c``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Tuple
+import operator
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from grace_tpu_torch.core import mean_scale
 from grace_tpu_torch.ops import _build
+
+# The kernels' tile width and leaf table capacity (csrc/chunk_topk.cu
+# kTileCols and kMaxLeaves).
+TILE_COLS = 32
+MAX_LEAVES_PER_LAUNCH = 256
 
 
 def _views(buf: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,6 +170,122 @@ def _check_aggregate_args(vals, win, k, n):
                          f"n={n}, k={k}")
 
 
+# -- the grouped functions: many leaves, one concatenated payload -------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """Where each leaf of a grouped launch lives, from its size alone.
+
+    ``noff``/``koff``: offsets of leaf ``l`` in the concatenated dense
+    buffer (N-space) and payload (K-space), with totals at index ``L``;
+    ``tile0``: its first tile of ``TILE_COLS`` columns (a prefix sum of
+    ``ceil(k / TILE_COLS)``); ``launches``: the ``[lo, hi)`` leaf spans of
+    the kernel launches, at most ``MAX_LEAVES_PER_LAUNCH`` leaves each.
+    """
+
+    ns: Tuple[int, ...]
+    ks: Tuple[int, ...]
+    noff: np.ndarray
+    koff: np.ndarray
+    tile0: np.ndarray
+    launches: Tuple[Tuple[int, int], ...]
+    _tables: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
+
+    @property
+    def n_total(self) -> int:
+        return int(self.noff[-1])
+
+    @property
+    def k_total(self) -> int:
+        return int(self.koff[-1])
+
+    def table(self, lo: int, hi: int, pointers: int) -> np.ndarray:
+        """A fresh copy of the kernel's leaf table for the launch over
+        leaves ``[lo, hi)``: ``pointers`` zeroed pointer words a row, then
+        n, k, koff and the first tile counted from the launch's first
+        leaf. The template is built once per plan."""
+        key = (lo, hi, pointers)
+        if key not in self._tables:
+            rows = np.zeros((hi - lo, pointers + 4), dtype=np.int64)
+            rows[:, pointers] = self.ns[lo:hi]
+            rows[:, pointers + 1] = self.ks[lo:hi]
+            rows[:, pointers + 2] = self.koff[lo:hi]
+            rows[:, pointers + 3] = self.tile0[lo:hi] - self.tile0[lo]
+            self._tables[key] = rows
+        return self._tables[key].copy()
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_plan(ks: Tuple[int, ...], ns: Tuple[int, ...]) -> LeafPlan:
+    """The cached :class:`LeafPlan` of leaves of sizes ``ns`` keeping
+    ``ks`` elements each."""
+    if len(ks) != len(ns) or not ks:
+        raise ValueError(f"a leaf plan needs one k per leaf; got {len(ks)} "
+                         f"ks for {len(ns)} leaves")
+    if any(k < 1 or n < k for k, n in zip(ks, ns)):
+        raise ValueError("every leaf needs n >= k >= 1")
+
+    def prefix(xs):
+        return np.concatenate([[0], np.cumsum(xs, dtype=np.int64)])
+
+    tiles = [-(-k // TILE_COLS) for k in ks]
+    launches = tuple((lo, min(lo + MAX_LEAVES_PER_LAUNCH, len(ks)))
+                     for lo in range(0, len(ks), MAX_LEAVES_PER_LAUNCH))
+    return LeafPlan(tuple(ns), tuple(ks), prefix(ns), prefix(ks),
+                    prefix(tiles), launches)
+
+
+def chunk_compress_feedback_grouped_plain(
+        grads: Sequence[torch.Tensor],
+        residuals: Sequence[Optional[torch.Tensor]], ks: Sequence[int],
+        beta: float = 1.0, gamma: float = 1.0, wire_bf16: bool = False):
+    """The plain version of the grouped compress: the one-leaf plain
+    version over each leaf, wire indices ``win * k + c``, concatenated.
+    Returns ``(vals[K], indices[K], new_residuals)``."""
+    vals, idx, resids = [], [], []
+    for g, r, k in zip(grads, residuals, ks):
+        v, win, nr = chunk_compress_feedback_plain(g, r, k, beta, gamma,
+                                                   wire_bf16)
+        vals.append(v)
+        idx.append(win * k + torch.arange(k, dtype=torch.int32,
+                                          device=g.device))
+        resids.append(nr)
+    return torch.cat(vals), torch.cat(idx), resids
+
+
+def chunk_aggregate_dense_grouped_plain(vals: torch.Tensor,
+                                        indices: torch.Tensor,
+                                        ks: Sequence[int], ns: Sequence[int],
+                                        average: bool = True) -> torch.Tensor:
+    """The plain version of the grouped aggregate: ``(W, K)`` gathered
+    payloads of the leaves in K-space → the leaves' dense outputs
+    concatenated (N-space). Each leaf's rows are its indices floor-divided
+    by its k; the one-leaf plain version does the rest."""
+    plan = leaf_plan(tuple(ks), tuple(ns))
+    _check_grouped_aggregate_args(vals, indices, plan)
+    outs = []
+    for l, (k, n) in enumerate(zip(plan.ks, plan.ns)):
+        lo = int(plan.koff[l])
+        win = torch.div(indices[:, lo:lo + k], k,
+                        rounding_mode="floor").to(torch.int32)
+        outs.append(chunk_aggregate_dense_plain(vals[:, lo:lo + k], win, k,
+                                                n, average))
+    return torch.cat(outs)
+
+
+def _check_grouped_aggregate_args(vals, indices, plan: LeafPlan):
+    if (vals.dim() != 2 or vals.shape[1] != plan.k_total
+            or indices.shape != vals.shape):
+        raise ValueError(f"chunk_aggregate_dense_grouped takes (world, "
+                         f"K={plan.k_total}) vals and indices; got "
+                         f"{tuple(vals.shape)} and {tuple(indices.shape)}")
+    if vals.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"vals must be float32 or bfloat16; got {vals.dtype}")
+    if indices.dtype != torch.int32 or indices.device != vals.device:
+        raise ValueError("indices must be int32 on the device of vals")
+
+
 # -- CUDA wrappers -----------------------------------------------------------
 
 @functools.cache
@@ -163,18 +296,68 @@ def _lib() -> ctypes.CDLL:
     p, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                         ctypes.c_int)
     lib.grace_chunk_compress_feedback.argtypes = [
-        p, p, p, p, p, i64, i64, f32, f32, i32, p]
+        p, i32, p, p, f32, f32, i32, i32, p]
     lib.grace_chunk_compress_feedback.restype = ctypes.c_int
     lib.grace_chunk_aggregate_dense.argtypes = [
-        p, p, p, i64, i64, i64, i32, i32, p]
+        p, i32, p, p, i64, i64, i32, i32, i32, p]
     lib.grace_chunk_aggregate_dense.restype = ctypes.c_int
+    lib.grace_chunk_aggregate_max_world.argtypes = []
+    lib.grace_chunk_aggregate_max_world.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _aggregate_max_world() -> int:
+    return _lib().grace_chunk_aggregate_max_world()
 
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError_t {err}")
+
+
+def _on(dev):
+    """Run on ``dev``'s current stream: a device switch only when ``dev``
+    is not the current device (entering one costs microseconds a call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _launch_compress(rows: np.ndarray, vals, idx, beta, gamma, wire_bf16,
+                     wire_indices, dev) -> None:
+    with _on(dev):
+        err = _lib().grace_chunk_compress_feedback(
+            rows.ctypes.data, rows.shape[0], vals.data_ptr(), idx.data_ptr(),
+            float(beta), float(gamma), int(wire_bf16), int(wire_indices),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "chunk_compress_feedback")
+
+
+def _launch_aggregate(rows: np.ndarray, vals, idx, average, wire_indices,
+                      dev) -> None:
+    world = vals.shape[0]
+    if world > _aggregate_max_world():
+        raise ValueError(
+            f"chunk_aggregate_dense stages every rank's payload of a tile in "
+            f"shared memory, which holds {_aggregate_max_world()} ranks; got "
+            f"{world}")
+    with _on(dev):
+        err = _lib().grace_chunk_aggregate_dense(
+            rows.ctypes.data, rows.shape[0], vals.data_ptr(), idx.data_ptr(),
+            world, vals.shape[1], int(vals.dtype == torch.bfloat16),
+            int(wire_indices), int(average),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "chunk_aggregate_dense")
+
+
+_dtype = operator.attrgetter("dtype")
+
+
+def _check_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"no {name} for {t.device}")
 
 
 def chunk_compress_feedback(flat: torch.Tensor,
@@ -196,26 +379,21 @@ def chunk_compress_feedback(flat: torch.Tensor,
     if flat.device.type == "cpu":
         return chunk_compress_feedback_plain(flat, residual, k, beta, gamma,
                                              wire_bf16)
-    if flat.device.type != "cuda":
-        raise ValueError(f"no chunk_compress_feedback for {flat.device}")
+    _check_cuda(flat, "chunk_compress_feedback")
     _check_compress_args(flat, residual, k)
     if not flat.is_contiguous() or (residual is not None
                                     and not residual.is_contiguous()):
         raise ValueError("chunk_compress_feedback takes contiguous buffers")
-    lib = _lib()
     dev = flat.device
     vals = torch.empty(k, dtype=torch.bfloat16 if wire_bf16 else torch.float32,
                        device=dev)
     win = torch.empty(k, dtype=torch.int32, device=dev)
     new_resid = residual if residual is not None else torch.empty_like(flat)
-    with torch.cuda.device(dev):
-        err = lib.grace_chunk_compress_feedback(
-            flat.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            new_resid.data_ptr(), vals.data_ptr(), win.data_ptr(),
-            flat.numel(), k, float(beta), float(gamma), int(wire_bf16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "chunk_compress_feedback")
+    rows = np.array([[flat.data_ptr(),
+                      residual.data_ptr() if residual is not None else 0,
+                      new_resid.data_ptr(), flat.numel(), k, 0, 0]],
+                    dtype=np.int64)
+    _launch_compress(rows, vals, win, beta, gamma, wire_bf16, False, dev)
     chunk_compress_feedback.launches += 1
     return vals, win, new_resid
 
@@ -231,20 +409,13 @@ def chunk_aggregate_dense(vals: torch.Tensor, win: torch.Tensor, k: int,
     winning rows. Bit-identical to :func:`chunk_aggregate_dense_plain`."""
     if vals.device.type == "cpu":
         return chunk_aggregate_dense_plain(vals, win, k, n, average)
-    if vals.device.type != "cuda":
-        raise ValueError(f"no chunk_aggregate_dense for {vals.device}")
+    _check_cuda(vals, "chunk_aggregate_dense")
     _check_aggregate_args(vals, win, k, n)
     if not vals.is_contiguous() or not win.is_contiguous():
         raise ValueError("chunk_aggregate_dense takes contiguous payloads")
-    lib = _lib()
-    dev = vals.device
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.grace_chunk_aggregate_dense(
-            vals.data_ptr(), win.data_ptr(), out.data_ptr(), vals.shape[0], k,
-            n, int(vals.dtype == torch.bfloat16), int(average),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "chunk_aggregate_dense")
+    out = torch.empty(n, dtype=torch.float32, device=vals.device)
+    rows = np.array([[out.data_ptr(), n, k, 0, 0]], dtype=np.int64)
+    _launch_aggregate(rows, vals, win, average, False, vals.device)
     chunk_aggregate_dense.launches += 1
     return out
 
@@ -252,6 +423,125 @@ def chunk_aggregate_dense(vals: torch.Tensor, win: torch.Tensor, k: int,
 chunk_aggregate_dense.launches = 0
 
 
+def chunk_compress_feedback_grouped(
+        grads: Sequence[torch.Tensor],
+        residuals: Sequence[Optional[torch.Tensor]], ks: Sequence[int],
+        beta: float = 1.0, gamma: float = 1.0, wire_bf16: bool = False):
+    """:func:`chunk_compress_feedback` over many leaves in one launch (one
+    per ``MAX_LEAVES_PER_LAUNCH`` leaves).
+
+    ``grads``: contiguous float32 leaves (any shape; their flat order is
+    selected over); ``residuals``: a float32 residual like each, or None
+    for no feedback term; ``ks``: the kept elements of each. Returns
+    ``(vals[K], indices[K], new_residuals)``: the leaves' payloads
+    concatenated in leaf order, indices the wire indices ``win * k + c``.
+    Bit-identical to :func:`chunk_compress_feedback_grouped_plain`.
+
+    ``new_residuals[l]`` has the shape of ``residuals[l]`` (of ``grads[l]``
+    where that is None). On CUDA every new residual is written over its
+    residual IN PLACE, as the one-leaf wrapper does: ``new_residuals[l]`` is
+    ``residuals[l]`` itself (a fresh buffer where it is None). Clone the
+    residuals first to keep the old ones.
+    """
+    if grads[0].device.type == "cpu":
+        vals, idx, resids = chunk_compress_feedback_grouped_plain(
+            [g.reshape(-1) for g in grads],
+            [None if r is None else r.reshape(-1) for r in residuals], ks,
+            beta, gamma, wire_bf16)
+        return vals, idx, [nr.view((g if r is None else r).shape)
+                           for nr, g, r in zip(resids, grads, residuals)]
+    _check_cuda(grads[0], "chunk_compress_feedback_grouped")
+    dev = grads[0].device
+    # The checks the kernel relies on (the C side checks n >= 2k) and the
+    # table's pointers, read with map(): ~10 attribute reads a leaf are most
+    # of this call's host time, and a Python loop over them costs more.
+    ns = list(map(torch.Tensor.numel, grads))
+    plan = leaf_plan(tuple(ks), tuple(ns))
+    given = [r for r in residuals if r is not None]
+    tensors = list(grads) + given
+    dtypes = set(map(_dtype, tensors))
+    devices = set(map(torch.Tensor.get_device, tensors))
+    contiguous = all(map(torch.Tensor.is_contiguous, tensors))
+    sizes = list(map(torch.Tensor.numel, given)) == [
+        n for n, r in zip(ns, residuals) if r is not None]
+    if (dtypes != {torch.float32} or devices != {dev.index} or not contiguous
+            or not sizes):
+        raise ValueError(
+            "chunk_compress_feedback_grouped takes contiguous float32 "
+            f"leaves and residuals of their sizes on {dev}; got dtypes "
+            f"{sorted(map(str, dtypes))}, devices {sorted(devices)}, all "
+            f"contiguous {contiguous}, residual sizes matching {sizes}")
+    new_resids = [torch.empty_like(g) if r is None else r
+                  for g, r in zip(grads, residuals)]
+    gptr = list(map(torch.Tensor.data_ptr, grads))
+    optr = list(map(torch.Tensor.data_ptr, new_resids))
+    rptr = optr if len(given) == len(grads) else [
+        0 if r is None else p for r, p in zip(residuals, optr)]
+    vals = torch.empty(plan.k_total,
+                       dtype=torch.bfloat16 if wire_bf16 else torch.float32,
+                       device=dev)
+    idx = torch.empty(plan.k_total, dtype=torch.int32, device=dev)
+    for lo, hi in plan.launches:
+        rows = plan.table(lo, hi, 3)
+        rows[:, 0] = gptr[lo:hi]
+        rows[:, 1] = rptr[lo:hi]
+        rows[:, 2] = optr[lo:hi]
+        _launch_compress(rows, vals, idx, beta, gamma, wire_bf16, True, dev)
+        chunk_compress_feedback_grouped.launches += 1
+    return vals, idx, new_resids
+
+
+chunk_compress_feedback_grouped.launches = 0
+
+
+def chunk_aggregate_dense_grouped(vals: torch.Tensor, indices: torch.Tensor,
+                                  ks: Sequence[int], ns: Sequence[int],
+                                  average: bool = True) -> torch.Tensor:
+    """:func:`chunk_aggregate_dense` over many leaves in one launch (one per
+    ``MAX_LEAVES_PER_LAUNCH`` leaves).
+
+    ``vals``/``indices``: ``(W, K)`` gathered payloads of leaves of sizes
+    ``ns`` keeping ``ks`` elements each, concatenated in leaf order, with
+    wire indices ``win * k + c``. Returns one flat float32 tensor of the
+    leaves' dense outputs concatenated (N-space); slice it into views.
+    Every output element is written once. Bit-identical to
+    :func:`chunk_aggregate_dense_grouped_plain`.
+    """
+    if vals.device.type == "cpu":
+        return chunk_aggregate_dense_grouped_plain(vals, indices, ks, ns,
+                                                   average)
+    _check_cuda(vals, "chunk_aggregate_dense_grouped")
+    plan = leaf_plan(tuple(ks), tuple(ns))
+    _check_grouped_aggregate_args(vals, indices, plan)
+    if not vals.is_contiguous() or not indices.is_contiguous():
+        raise ValueError("chunk_aggregate_dense_grouped takes contiguous "
+                         "payloads")
+    out = torch.empty(plan.n_total, dtype=torch.float32, device=vals.device)
+    for lo, hi in plan.launches:
+        rows = plan.table(lo, hi, 1)
+        rows[:, 0] = out.data_ptr() + 4 * plan.noff[lo:hi]
+        _launch_aggregate(rows, vals, indices, average, True, vals.device)
+        chunk_aggregate_dense_grouped.launches += 1
+    return out
+
+
+chunk_aggregate_dense_grouped.launches = 0
+
+
 def reset_launch_counts() -> None:
-    chunk_compress_feedback.launches = 0
-    chunk_aggregate_dense.launches = 0
+    for f in _WRAPPERS:
+        f.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel, by kernel name: its one-leaf and grouped
+    wrappers launch the same kernel, so their counts add."""
+    return {
+        "chunk_compress_feedback": (chunk_compress_feedback.launches
+                                    + chunk_compress_feedback_grouped.launches),
+        "chunk_aggregate_dense": (chunk_aggregate_dense.launches
+                                  + chunk_aggregate_dense_grouped.launches)}
+
+
+_WRAPPERS = (chunk_compress_feedback, chunk_aggregate_dense,
+             chunk_compress_feedback_grouped, chunk_aggregate_dense_grouped)

@@ -76,8 +76,10 @@ class GraceTransform:
     def update(self, grads: Mapping[str, torch.Tensor], state: GraceState
                ) -> Tuple[Dict[str, torch.Tensor], GraceState]:
         """Local gradients → globally aggregated updates: one pipeline per
-        leaf (``communicator.step`` with that leaf's states and stream), or
-        with ``fusion='flat'`` one pipeline over the concatenated leaves."""
+        leaf (``communicator.step_leaves``: each leaf's ``step`` with its
+        states and stream, grouped where the communicator and codec allow),
+        or with ``fusion='flat'`` one pipeline over the concatenated
+        leaves."""
         names = leaf_order(grads)
         want = (1 if names else 0) if self.fusion == "flat" else len(names)
         if len(state.mem) != want:
@@ -88,17 +90,13 @@ class GraceTransform:
                 "parameter set or fusion setting. Re-init it.")
         if self.fusion == "flat":
             return self._update_flat(grads, names, state)
-        outs, new_mem, new_comp = {}, [], []
-        for i, name in enumerate(names):
-            rng = LeafKey(state.seed, state.count, i)
-            out, ms, cs = self.communicator.step(
-                grads[name], state.mem[i], state.comp[i], self.memory,
-                self.compressor, rng)
-            outs[name] = out
-            new_mem.append(ms)
-            new_comp.append(cs)
-        return outs, GraceState(count=state.count + 1, seed=state.seed,
-                                mem=new_mem, comp=new_comp)
+        outs, new_mem, new_comp = self.communicator.step_leaves(
+            [grads[n] for n in names], state.mem, state.comp, self.memory,
+            self.compressor,
+            [LeafKey(state.seed, state.count, i) for i in range(len(names))])
+        return dict(zip(names, outs)), GraceState(
+            count=state.count + 1, seed=state.seed, mem=new_mem,
+            comp=new_comp)
 
     def _update_flat(self, grads, names, state: GraceState):
         """Concatenate the leaves in leaf order at their common dtype, run
