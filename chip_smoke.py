@@ -14,7 +14,8 @@ non-zero exit; nothing is caught and allowed to continue.
    size at 1% and the edge cases, then grouped, all 161 ResNet-50 leaves
    and the edge-column leaf in one launch (the four compress variants; the
    aggregate at W in {1, 8} x {f32, bf16} with colliding and out-of-range
-   rows in the group).
+   rows in the group), and the aggregate at W=1000 on a few small leaves
+   (past one rank tile of its shared memory).
 3. Time the grouped chunk Top-K kernels at the main path's shapes (all 161
    ResNet-50 leaves in one launch), beside their byte bound, the kernel
    alone, their plain versions and a one-call library yardstick, and the
@@ -37,16 +38,24 @@ The quantized wire path:
    lengths around the kernels' hash block, every distinct ResNet-50 leaf
    size and the flat gradient; q in {1, 3, 7, 64, 127, 200}; a zero norm;
    a seed of 2^31 - 2; signs of +-0.0 and NaN in three float types; every
-   wire width, K in {1, 2, 8}, sign and vote.
+   wire width, K in {1, 2, 8}, sign and vote. Then the grouped sign-pack
+   over all 161 ResNet-50 leaves and the edge lengths in one launch, with
+   error feedback at two (beta, gamma) and pack only in three float types
+   and a mix (+-0.0, NaN and +-inf planted), and quantize-and-pack on shard
+   views at element offsets 0-3 at every width.
 7. The ring-hop phase: two ranks' real ResNet-50 flat gradients, split into
    W in {2, 8} shards and encoded by the QSGD (q=7 and q=1) and signSGD
    kernels, decoded as the ring hop decodes them
    (``Compressor.decode_accumulate((recv, own), ...)``), bit for bit
    against the plain version and against the staged decompress + add.
    A one-card group makes no hop, so this phase is where the kernel runs.
-8. Time the four kernels at the wire path's shapes, the kernel alone too.
+8. Time the four kernels at the wire path's shapes, the kernel alone too:
+   the grouped sign-pack over the 161 leaves with error feedback and pack
+   only, beside the 161 one-leaf calls; quantize-and-pack at widths 4, 2
+   and 3 and on a shard view that is not 16-byte aligned.
 9. Train full-width ResNet-50 under the three wire-path configurations
-   (bench_all.py) and assert their kernels' launches a step.
+   (bench_all.py) and assert their kernels' launches a step (the signSGD
+   vote: one grouped sign-pack and one decode a step).
 
 The homomorphic path:
 
@@ -114,7 +123,9 @@ WIRE_PATH = [
     {"name": "signsgd_vote_bs256", "per_device_bs": 256,
      "params": {"compressor": "signsgd", "memory": "residual",
                 "communicator": "sign_allreduce", "fusion": "none"},
-     "per_step": {"sign_pack": 161}},
+     # One grouped sign-pack over the 161 leaves and one decode of the
+     # concatenated payload a step.
+     "per_step": {"sign_pack": 1, "decode_accumulate": 1}},
 ]
 # The homomorphic path's configurations and their launches a step on one
 # card: bench_all.py's homoqsgd4_ring_bs256 (int16 wire: no kernel; one
@@ -231,6 +242,7 @@ def resnet50_leaves():
 # -- phase 2 -----------------------------------------------------------------
 
 EDGE_N, EDGE_K = 1000, 10
+BIG_WORLD = 1000          # past the aggregate's 840-rank tile
 
 
 def edge_columns(g, r, k):
@@ -406,6 +418,30 @@ def check_grouped_kernels(dev, leaves, errs):
                 one_launch(ck.chunk_aggregate_dense_grouped, label)
                 same("chunk_aggregate_dense", label, want, got)
                 cases += 1
+    # A world past one rank tile of the kernel's shared memory: the ranks'
+    # partial sums carry from tile to tile. Rows drawn over every real row
+    # of each leaf, the tail row and one past it (out of range), so that
+    # many ranks collide on a row.
+    big_ns = [64, 256, 2048, EDGE_N]
+    big_ks = [static_k(n, 0.01) for n in big_ns[:-1]] + [EDGE_K]
+    for bf16 in (False, True):
+        vals = torch.randn(BIG_WORLD, sum(big_ks), generator=gen, device=dev)
+        vals = vals.to(torch.bfloat16) if bf16 else vals
+        idx = torch.cat([
+            torch.randint(0, n // k + 2, (BIG_WORLD, k), generator=gen,
+                          device=dev, dtype=torch.int32) * k
+            + torch.arange(k, dtype=torch.int32, device=dev)
+            for n, k in zip(big_ns, big_ks)], dim=1)
+        for average in (True, False):
+            label = f"W={BIG_WORLD} bf16={bf16} average={average}"
+            want = ck.chunk_aggregate_dense_grouped_plain(vals, idx, big_ks,
+                                                          big_ns, average)
+            got = ck.chunk_aggregate_dense_grouped(vals, idx, big_ks, big_ns,
+                                                   average)
+            torch.cuda.synchronize()
+            one_launch(ck.chunk_aggregate_dense_grouped, label)
+            same("chunk_aggregate_dense", label, want, got)
+            cases += 1
     return cases
 
 
@@ -546,7 +582,9 @@ def check_reference(dev, group):
     # for the Top-K main path (through the grouped kernels, one launch each
     # a step) and the (deterministic) signSGD vote.
     from grace_tpu_torch.ops import chunk_topk as ck
+    from grace_tpu_torch.ops import quant as Q
     ck.reset_launch_counts()
+    Q.reset_launch_counts()
     for params in (HEADLINE[1]["params"], WIRE_PATH[2]["params"]):
         tx_c = grace_from_params(params, group=cpu_group).transform(SEED)
         tx_g = grace_from_params(params, group=group).transform(SEED)
@@ -574,6 +612,10 @@ def check_reference(dev, group):
         fail(f"reference: the Top-K exchange made {grouped} grouped launches "
              f"and {ck.chunk_compress_feedback.launches} one-leaf ones in two "
              "steps, expected (2, 2) and 0")
+    if (Q.sign_pack_grouped.launches, Q.sign_pack.launches) != (2, 0):
+        fail(f"reference: the signSGD vote made {Q.sign_pack_grouped.launches}"
+             f" grouped sign-pack launches and {Q.sign_pack.launches} one-leaf "
+             "ones in two steps, expected 2 and 0")
 
 
 def profile_step(step, state, batch, label):
@@ -732,6 +774,105 @@ def check_wire_kernels(dev, leaves, errs):
     return cases
 
 
+SIGN_EDGES = (1, 7, 8, 9, 31, 32, 33, 127, 4097)     # elements
+PACK_VIEW_EDGES = (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 127, 128, 129, 16385,
+                   1_000_003)                       # codes
+SIGN_FEEDBACK = ((1.0, 1.0), (0.9, 0.5))             # (beta, gamma)
+
+
+def plant_sign_edges(x):
+    """-0.0, +0.0, NaN, +inf and -inf at the head of ``x``, in place."""
+    import torch
+    edge = torch.tensor([-0.0, 0.0, float("nan"), float("inf"),
+                         float("-inf")], dtype=x.dtype, device=x.device)
+    x[:min(x.numel(), 5)] = edge[:min(x.numel(), 5)]
+
+
+def sign_leaves(dev, leaves, gen):
+    """Gradients and residuals of the 161 ResNet-50 leaves (their shapes
+    flattened) and the edge lengths, edge values planted in each."""
+    import torch
+    ns = [n for _, n in leaves] + list(SIGN_EDGES)
+    gs = [torch.randn(n, generator=gen, device=dev) for n in ns]
+    rs = [torch.randn(n, generator=gen, device=dev) * 0.5 for n in ns]
+    for g in gs:
+        plant_sign_edges(g)
+    return gs, rs
+
+
+def check_sign_grouped(dev, leaves, errs):
+    """Phase 6, grouped sign-pack: all 161 ResNet-50 leaves and the edge
+    lengths in one launch, with error feedback at two (beta, gamma) and
+    without (float32, bfloat16, float16 and a mix), against the grouped
+    plain version: the whole payload (every leaf's segment and its
+    padding) byte for byte, and each new residual bit for bit."""
+    import torch
+    from grace_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    gs, rs = sign_leaves(dev, leaves, gen)
+    cases = 0
+
+    def same(label, want, got):
+        nonlocal cases
+        torch.cuda.synchronize()
+        if Q.sign_pack_grouped.launches != 1:
+            fail(f"sign_pack grouped {label}: {Q.sign_pack_grouped.launches} "
+                 f"launches for {len(gs)} leaves, expected one")
+        Q.sign_pack_grouped.launches = 0
+        if not torch.equal(want[0], got[0]):
+            fail(f"sign_pack grouped {label}: the payload differs from the "
+                 "grouped plain version")
+        if want[1] is not None:
+            for i, (w, o) in enumerate(zip(want[1], got[1])):
+                if not same_bits(w, o):
+                    fail(f"sign_pack grouped {label}: residual of leaf {i} "
+                         f"differs (max abs err {max_abs_err(w, o)})")
+                errs["sign_pack"] = max(errs["sign_pack"], max_abs_err(w, o))
+        cases += 1
+
+    Q.reset_launch_counts()
+    for beta, gamma in SIGN_FEEDBACK:
+        want = Q.sign_pack_grouped_plain(gs, rs, beta, gamma)
+        got = Q.sign_pack_grouped(gs, [r.clone() for r in rs], beta, gamma)
+        same(f"feedback beta,gamma={beta},{gamma}", want, got)
+    mixed = [g.to((torch.float32, torch.bfloat16, torch.float16)[i % 3])
+             for i, g in enumerate(gs)]
+    for label, xs in (("float32", gs), ("mixed dtypes", mixed),
+                      ("bfloat16", [g.bfloat16() for g in gs]),
+                      ("float16", [g.half() for g in gs])):
+        same(f"pack only {label}", Q.sign_pack_grouped_plain(xs),
+             Q.sign_pack_grouped(xs))
+    return cases
+
+
+def check_pack_views(dev, errs):
+    """Phase 6, quantize-and-pack on ring-shard views at element offsets
+    0-3 (offsets 1-3 do not start on a 16-byte boundary) and lengths around
+    the word and row boundaries, at every width: byte for byte."""
+    import torch
+    from grace_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    cases = 0
+    for n in PACK_VIEW_EDGES:
+        base = torch.randn(n + 3, generator=gen, device=dev)
+        for off in range(4):
+            x = base[off:off + n]
+            norm = torch.linalg.vector_norm(x)
+            for width, q in ((2, 1), (3, 3), (4, 7), (4, 1)):
+                label = f"n={n} offset={off} width={width} q={q}"
+                want = Q.quantize_pack_stochastic_plain(x, norm, 777 + off, q,
+                                                        width)
+                got = Q.quantize_pack_stochastic(x, norm, 777 + off, q, width)
+                torch.cuda.synchronize()
+                if not torch.equal(want, got):
+                    fail(f"quantize_pack_stochastic {label}: differs from the "
+                         "plain version")
+                cases += 1
+    return cases
+
+
 def resnet50_flat_grads(dev, count=2, batch=32):
     """``count`` real ResNet-50 flat gradients (leaf order), one a batch of
     synthetic images each: the ranks' gradients of the ring-hop phase."""
@@ -819,25 +960,59 @@ def check_ring_hop(dev, flat_a, flat_b, errs):
 QUANT_OPS = 20          # 11 for the hash, 9 for the level and its sign
 PACK_OPS = 24           # the same plus clamp, fold, shift and or
 SIGN_OPS = 3            # convert, compare, or
+SIGN_FEEDBACK_OPS = 6   # two products, a sum, compare, or, the residual
 DECODE_OPS = 8          # a payload: extract, sign-extend, convert, mul, add
+
+
+def timed(kern, plain, nbytes, nops, kname, per_call=1, library=None):
+    """Event ms and host ms of one call of ``kern``, the kernel alone, the
+    plain version's ms, a library call's ms, and the bound of ``nbytes``
+    bytes and ``nops`` operations."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / FP32_FLOP_PER_S * 1e3
+    ms, host_ms = cuda_time_ms(kern, host=True)
+    return {"ms": ms, "host_ms": host_ms,
+            "kernel_ms": kernel_device_ms(kern, kname,
+                                          launches_per_call=per_call),
+            "plain_ms": cuda_time_ms(plain) if plain is not None else None,
+            "library_ms": cuda_time_ms(library) if library else None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "mb": nbytes / 1e6}
+
+
+def log_timed(name, unit, t):
+    plain = "-" if t["plain_ms"] is None else f"{t['plain_ms']:.4f}"
+    log(f"  {name}: {t['ms']:.4f} ms {unit}, {t['host_ms']:.4f} ms of it to "
+        f"enqueue, the kernel alone {t['kernel_ms']:.4f} ms (bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}: {t['mb']:.2f} MB), "
+        f"plain {plain} ms, library {t['library_ms']} ms")
 
 
 def time_wire_kernels(dev, leaves, flat):
     """Phase 8: the four kernels at the wire path's shapes. Per launch for
     the flat-buffer kernels (the flat path calls each once or twice a
-    step), per step over the 161 leaves for sign_pack, per hop for
-    decode_accumulate."""
+    step), per step over the 161 leaves for sign_pack (one grouped launch
+    with error feedback, as signsgd_vote_bs256 makes it; beside it without
+    feedback, and the 161 one-leaf calls of the per-leaf path before it was
+    grouped), per hop for decode_accumulate. Quantize-and-pack also at
+    widths 2 and 3 and on a shard view that does not start on a 16-byte
+    boundary."""
     import torch
     from grace_tpu_torch.ops import quant as Q
     from grace_tpu_torch.ops import wire as Wr
 
     n = flat.numel()
     norm = torch.linalg.vector_norm(flat)
-    views, off = [], 0
-    for _, size in leaves:                 # the 161 leaves, as flat views
-        views.append(flat[off:off + size])
+    gs, off = [], 0
+    for _, size in leaves:                 # the 161 leaves, as the step has them
+        gs.append(flat[off:off + size].clone())
         off += size
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rs = [torch.randn(g.numel(), generator=gen, device=dev) * 0.01
+          for g in gs]
+    shard = torch.cat([flat[:1], flat])[1:]      # element offset 1 of a buffer
+    shard_norm = torch.linalg.vector_norm(shard)
 
     def hop_inputs(w):
         m = -(-n // w)
@@ -845,49 +1020,62 @@ def time_wire_kernels(dev, leaves, flat):
                            device=dev, dtype=torch.uint8)
         return st, torch.rand(2, generator=gen, device=dev), m
 
+    def packed(width):
+        return -(-n * width // 8)
+
     st2, sc2, m2 = hop_inputs(2)
     st8, sc8, m8 = hop_inputs(8)
-    sign_bytes = sum(4 * v.numel() + -(-v.numel() // 8) for v in views)
-    specs = {   # kernel, plain, bytes, ops, unit, CUDA kernel, its launches
-        "quantize_pack_stochastic": (
+    seg = sum(-(-g.numel() // 8) for g in gs)
+    out = {
+        "quantize_pack_stochastic": timed(
             lambda: Q.quantize_pack_stochastic(flat, norm, 1, 7, 4),
             lambda: Q.quantize_pack_stochastic_plain(flat, norm, 1, 7, 4),
-            4 * n + -(-n * 4 // 8), PACK_OPS * n, "a launch, flat n",
-            "quantize_pack_kernel", 1),
-        "quantize_stochastic": (
+            4 * n + packed(4), PACK_OPS * n, "quantize_pack_kernel"),
+        "quantize_stochastic": timed(
             lambda: Q.quantize_stochastic(flat, norm, 1, 64),
             lambda: Q.quantize_stochastic_plain(flat, norm, 1, 64),
-            5 * n, QUANT_OPS * n, "a launch, flat n",
-            "quantize_stochastic_kernel", 1),
-        "sign_pack": (
-            lambda: [Q.sign_pack(v) for v in views],
-            lambda: [Q.sign_pack_plain(v) for v in views],
-            sign_bytes, SIGN_OPS * n, "a step, 161 leaves",
-            "sign_pack_kernel", len(views)),
-        "decode_accumulate": (
+            5 * n, QUANT_OPS * n, "quantize_stochastic_kernel"),
+        "sign_pack": timed(                  # residuals written in place
+            lambda: Q.sign_pack_grouped(gs, rs),
+            lambda: Q.sign_pack_grouped_plain(gs, rs),
+            12 * n + seg, SIGN_FEEDBACK_OPS * n, "sign_pack_kernel"),
+        "decode_accumulate": timed(
             lambda: Wr.decode_accumulate(st2, sc2, m2, 4),
             lambda: Wr.decode_accumulate_plain(st2, sc2, m2, 4),
             2 * st2.shape[1] + 4 * m2, 2 * DECODE_OPS * m2,
-            "a hop, K=2 w=4 at W=2", "decode_accumulate_kernel", 1),
+            "decode_accumulate_kernel"),
     }
-    out = {}
-    for name, (kern, plain, nbytes, nops, unit, kname, per_call) in \
-            specs.items():
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / FP32_FLOP_PER_S * 1e3
-        ms, host_ms = cuda_time_ms(kern, host=True)
-        out[name] = {"ms": ms, "host_ms": host_ms,
-                     "kernel_ms": kernel_device_ms(
-                         kern, kname, launches_per_call=per_call),
-                     "plain_ms": cuda_time_ms(plain), "library_ms": None,
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations"}
-        log(f"  {name}: {ms:.4f} ms {unit}, {host_ms:.4f} ms of it to "
-            f"enqueue, the kernel alone {out[name]['kernel_ms']:.4f} ms "
-            f"(bound {out[name]['bound_ms']:.4f} ms by "
-            f"{out[name]['bound_by']}: {nbytes / 1e6:.2f} MB), plain "
-            f"{out[name]['plain_ms']:.4f} ms, library none")
+    units = {"quantize_pack_stochastic": "a launch, flat n, width 4",
+             "quantize_stochastic": "a launch, flat n",
+             "sign_pack": "a step, 161 leaves in one launch, error feedback",
+             "decode_accumulate": "a hop, K=2 w=4 at W=2"}
+    for name, unit in units.items():
+        log_timed(name, unit, out[name])
+    sp, qp = out["sign_pack"], out["quantize_pack_stochastic"]
+    sp["pack_only"] = timed(
+        lambda: Q.sign_pack_grouped(gs), lambda: Q.sign_pack_grouped_plain(gs),
+        4 * n + seg, SIGN_OPS * n, "sign_pack_kernel")
+    log_timed("sign_pack", "a step, 161 leaves in one launch, pack only",
+              sp["pack_only"])
+    sp["one_leaf"] = timed(
+        lambda: [Q.sign_pack(g) for g in gs],
+        lambda: [Q.sign_pack_plain(g) for g in gs],
+        4 * n + seg, SIGN_OPS * n, "sign_pack_kernel", per_call=len(gs))
+    log_timed("sign_pack", "a step, the 161 one-leaf calls, pack only",
+              sp["one_leaf"])
+    for label, width, q in (("width2", 2, 1), ("width3", 3, 3)):
+        qp[label] = timed(
+            lambda: Q.quantize_pack_stochastic(flat, norm, 1, q, width),
+            lambda: Q.quantize_pack_stochastic_plain(flat, norm, 1, q, width),
+            4 * n + packed(width), PACK_OPS * n, "quantize_pack_kernel")
+        log_timed("quantize_pack_stochastic", f"a launch, flat n, {label}",
+                  qp[label])
+    qp["unaligned"] = timed(
+        lambda: Q.quantize_pack_stochastic(shard, shard_norm, 1, 7, 4),
+        lambda: Q.quantize_pack_stochastic_plain(shard, shard_norm, 1, 7, 4),
+        4 * n + packed(4), PACK_OPS * n, "quantize_pack_kernel")
+    log_timed("quantize_pack_stochastic", "a launch, flat n at element "
+              "offset 1 (not 16-byte aligned), width 4", qp["unaligned"])
     ms8, host8 = cuda_time_ms(lambda: Wr.decode_accumulate(st8, sc8, m8, 4),
                               host=True)
     bound8 = (2 * st8.shape[1] + 4 * m8) / HBM_BYTES_PER_S * 1e3
@@ -1202,8 +1390,15 @@ def main() -> int:
         # -- 6. wire-path kernels against their plain versions -------------
         wire_errs = {k: 0.0 for k in WIRE_KERNELS}
         cases = check_wire_kernels(dev, leaves, wire_errs)
+        sign_cases = check_sign_grouped(dev, leaves, wire_errs)
+        view_cases = check_pack_views(dev, wire_errs)
         log(f"[6] wire-path kernels bit-identical to their plain versions in "
-            f"{cases} cases on the card")
+            f"{cases} cases on the card; the grouped sign-pack in "
+            f"{sign_cases} one-launch cases over {len(leaves)} ResNet-50 "
+            f"leaves and {len(SIGN_EDGES)} edge lengths (error feedback at "
+            f"two beta,gamma; pack only in three float types and a mix); "
+            f"quantize-and-pack on {view_cases} shard views at element "
+            f"offsets 0-3")
         # -- 7. the ring hop -------------------------------------------------
         flat_a, flat_b = resnet50_flat_grads(dev)
         cases, hop_launches = check_ring_hop(dev, flat_a, flat_b, wire_errs)
@@ -1261,24 +1456,27 @@ def main() -> int:
                 ("quantize_pack_stochastic", "pallas_quant.py", 247,
                  "qsgd4_ring"),
                 ("sign_pack", "pallas_quant.py", 316, "signsgd_vote_bs256"),
-                ("decode_accumulate", "pallas_wire.py", 180, None),
+                ("decode_accumulate", "pallas_wire.py", 180,
+                 "signsgd_vote_bs256"),
                 ("packed_int_accumulate", "pallas_wire.py", 254,
                  "homoqsgd4_rscatter_fused")):
             t = times[kname] if kname in times else wire_times[kname]
+            extra = {key: t[key] for key in ("pack_only", "one_leaf",
+                                             "width2", "width3", "unaligned")
+                     if key in t}
             kernels.append({
                 "name": kname, "route": "cuda",
                 "source": "grace_tpu_torch/csrc/" + (
                     "chunk_topk.cu" if src == "pallas_topk.py" else
                     "quant.cu" if src == "pallas_quant.py" else "wire.cu"),
                 "replaces": f"grace_tpu/ops/{src}:{line}",
-                "launches": (runs[run]["launches"][kname] if run
-                             else hop_launches),
-                "launches_from": (f"the {run} run" if run
-                                  else "the ring-hop phase [7]"),
+                "launches": runs[run]["launches"][kname],
+                "launches_from": f"the {run} run",
                 "max_abs_err": {**errs, **wire_errs}[kname], "ms": t["ms"],
                 "host_ms": t["host_ms"], "kernel_ms": t["kernel_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                **extra})
         log(json.dumps({"runs": runs}))
         print(json.dumps({"kernels": kernels}))
         print(smi)

@@ -26,7 +26,7 @@ import torch
 import torch.distributed as dist
 
 from grace_tpu_torch.core import (Communicator, Compressor, Ctx, LeafKey,
-                                  Payload, mean_scale)
+                                  Memory, Payload, mean_scale)
 
 __all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
            "SignAllreduce", "RingAllreduce", "ReduceScatterAllreduce",
@@ -97,11 +97,14 @@ def vote_exact_max_world(vote_dtype) -> int:
     return 2 ** (nmant + 1)
 
 
-def _psum_majority_vote(payload: Payload, ctx: Ctx, compressor: Compressor,
-                        group, vote_dtype: str) -> torch.Tensor:
-    """Decompress this rank's ±1 signs, all-reduce, re-sign: the exact
+def _psum_majority_vote(dec: torch.Tensor, group,
+                        vote_dtype: str) -> torch.Tensor:
+    """All-reduce this rank's decoded ±1 signs and re-sign: the exact
     majority vote at a collective cost that does not grow with the world.
-    Shared by SignAllreduce and the Allreduce vote routing."""
+    Shared by SignAllreduce and the Allreduce vote routing, per leaf and
+    over a grouped payload's concatenated decode (±1 tallies below
+    ``vote_exact_max_world`` are exact in any summation order, so the two
+    agree bit for bit)."""
     w = dist.get_world_size(group)
     bound = vote_exact_max_world(vote_dtype)
     if w > bound:
@@ -110,11 +113,60 @@ def _psum_majority_vote(payload: Payload, ctx: Ctx, compressor: Compressor,
             f"size {bound} (comm.vote_exact_max_world: 2^(mantissa+1)); "
             f"this group has {w}: use vote_dtype='float32'.")
     vdt = _torch_dtype(vote_dtype)
-    dec = compressor.decompress(payload, ctx)
     summed = dec.to(vdt, copy=True)
     dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
     out = (summed >= 0).to(vdt) * 2 - 1
     return out.to(dec.dtype)
+
+
+def _is_identity_memory(memory) -> bool:
+    """A memory whose compensate and update are the base no-ops (none)."""
+    return (type(memory).compensate is Memory.compensate
+            and type(memory).update is Memory.update)
+
+
+def _vote_step_leaves(comm: Communicator, xs, mem_states, comp_states,
+                      memory, compressor, rngs, vote_dtype: str):
+    """``step_leaves`` of the all-reduce vote: the leaves that the codec's
+    grouped compress takes (signsgd under linear error feedback or no
+    memory) go through one grouped sign-pack, one decode of the
+    concatenated payload, one all-reduce and one re-sign; the other leaves
+    run ``comm.step``. Bit-identical to ``step`` leaf by leaf."""
+    compress = getattr(compressor, "fused_feedback_compress_leaves", None)
+    coeffs = getattr(memory, "linear_feedback_coeffs", None)
+    grouped = None
+    if (getattr(compressor, "vote_aggregate", False) and compress is not None
+            and (coeffs is not None or _is_identity_memory(memory))):
+        grouped = compress(xs, mem_states, coeffs, rngs)
+    if grouped is None:
+        return Communicator.step_leaves(comm, xs, mem_states, comp_states,
+                                        memory, compressor, rngs)
+    taken, payload, ctx, new_mem = grouped
+    # Every rank takes the same leaves (the gates read shapes and dtypes
+    # only), so the collectives line up.
+    voted = _psum_majority_vote(compressor.decompress_leaves(payload, ctx),
+                                comm.group, vote_dtype)
+    return _merge_leaves(comm, xs, mem_states, comp_states, memory,
+                         compressor, rngs, taken,
+                         compressor.leaf_views(voted, ctx), new_mem)
+
+
+def _merge_leaves(comm: Communicator, xs, mem_states, comp_states, memory,
+                  compressor, rngs, taken, taken_outs, taken_mems):
+    """``step_leaves``'s results in leaf order: the grouped leaves
+    ``taken`` with their outputs and new memory states, and ``comm.step``
+    run on every other leaf."""
+    outs = [None] * len(xs)
+    mems, comps = list(mem_states), list(comp_states)
+    for i, out, ms in zip(taken, taken_outs, taken_mems):
+        outs[i], mems[i] = out, ms
+    grouped_leaves = set(taken)
+    for i in range(len(xs)):
+        if i not in grouped_leaves:
+            outs[i], mems[i], comps[i] = comm.step(
+                xs[i], mem_states[i], comp_states[i], memory, compressor,
+                rngs[i])
+    return outs, mems, comps
 
 
 def _gather(payload: Payload, group) -> Payload:
@@ -173,11 +225,18 @@ class Allreduce(Communicator):
 
     vote_dtype: str = "bfloat16"
 
+    def step_leaves(self, xs, mem_states, comp_states, memory, compressor,
+                    rngs):
+        """The vote routing groups leaves as :class:`SignAllreduce` does;
+        every other codec runs :meth:`step` leaf by leaf."""
+        return _vote_step_leaves(self, xs, mem_states, comp_states, memory,
+                                 compressor, rngs, self.vote_dtype)
+
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         if getattr(compressor, "vote_aggregate", False):
-            return _psum_majority_vote(payload, ctx, compressor, self.group,
-                                       self.vote_dtype)
+            return _psum_majority_vote(compressor.decompress(payload, ctx),
+                                       self.group, self.vote_dtype)
         if not getattr(compressor, "summable_payload", False):
             raise TypeError(
                 f"Allreduce requires a payload that sums meaningfully across "
@@ -247,19 +306,9 @@ class Allgather(Communicator):
         # Concatenated payloads gather as one tensor each; every rank takes
         # the same leaves (the gates read shapes and dtypes only), so the
         # collectives line up.
-        outs = [None] * len(xs)
-        mems, comps = list(mem_states), list(comp_states)
-        for i, out, ms in zip(taken, aggregate(_gather(payload, self.group),
-                                               ctx, self.world_size()),
-                              new_mem):
-            outs[i], mems[i] = out, ms
-        grouped_leaves = set(taken)
-        for i in range(len(xs)):
-            if i not in grouped_leaves:
-                outs[i], mems[i], comps[i] = self.step(
-                    xs[i], mem_states[i], comp_states[i], memory, compressor,
-                    rngs[i])
-        return outs, mems, comps
+        outs = aggregate(_gather(payload, self.group), ctx, self.world_size())
+        return _merge_leaves(self, xs, mem_states, comp_states, memory,
+                             compressor, rngs, taken, outs, new_mem)
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
@@ -302,9 +351,19 @@ class SignAllreduce(Communicator):
     codecs' vote ``aggregate``, at a collective cost that does not grow
     with the world. Only for ``vote_aggregate`` codecs (signsgd, signum).
     ``'bfloat16'`` is integer-exact up to 256 ranks
-    (:func:`vote_exact_max_world`); pick ``'float32'`` beyond."""
+    (:func:`vote_exact_max_world`); pick ``'float32'`` beyond.
+
+    Over many leaves (:meth:`step_leaves`), signsgd under linear error
+    feedback or no memory takes every leaf its gates pass through one
+    grouped sign-pack launch, one all-reduce of the concatenated tallies
+    and one re-sign; the other leaves run :meth:`step`."""
 
     vote_dtype: str = "bfloat16"
+
+    def step_leaves(self, xs, mem_states, comp_states, memory, compressor,
+                    rngs):
+        return _vote_step_leaves(self, xs, mem_states, comp_states, memory,
+                                 compressor, rngs, self.vote_dtype)
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
@@ -314,8 +373,8 @@ class SignAllreduce(Communicator):
                 f"{type(compressor).__name__} does not declare "
                 "vote_aggregate=True (its aggregate carries scaling the "
                 "re-sign would drop): use Allreduce/Allgather instead.")
-        return _psum_majority_vote(payload, ctx, compressor, self.group,
-                                   self.vote_dtype)
+        return _psum_majority_vote(compressor.decompress(payload, ctx),
+                                   self.group, self.vote_dtype)
 
 
 # -- the compressed ring -----------------------------------------------------

@@ -7,6 +7,12 @@ The wire is the sign mask ``x >= 0`` packed 8 per byte; decode is ``±1``;
 (``use_pallas`` True or ``'auto'``: ``ops/quant.sign_pack`` and the sign
 branch of ``ops/wire.decode_accumulate``) and the staged path
 (``use_pallas=False``) agree bit for bit everywhere.
+
+Over many leaves (``fusion="none"`` under the all-reduce vote), the kernel
+path packs every leaf whose gates pass in one grouped sign-pack launch
+with the error feedback folded in (:meth:`SignSGDCompressor.
+fused_feedback_compress_leaves`), and the vote decodes the concatenated
+payload in one pass (:meth:`SignSGDCompressor.decompress_leaves`).
 """
 
 from __future__ import annotations
@@ -66,6 +72,62 @@ class SignSGDCompressor(Compressor):
     def wire_fused(self) -> bool:
         return self._kernels()
 
+    def fused_feedback_compress_leaves(self, xs, states, coeffs, rngs):
+        """The grouped compress of the vote's per-leaf path: every leaf
+        whose gates pass (float32 and contiguous, with a float32 residual
+        of its size under linear feedback ``coeffs = (beta, gamma)``, or no
+        state at all when ``coeffs`` is None) in one sign-pack launch that
+        compensates, packs and writes the new residual (in place on CUDA).
+        The gates read shapes and dtypes only, so every rank takes the same
+        leaves. Returns ``(taken, (payload,), ctx, new_states)`` or None
+        where no leaf passes; per leaf, bit-identical to ``compensate →
+        compress → update``."""
+        if not self._kernels():
+            return None
+        taken = []
+        for i, (x, state) in enumerate(zip(xs, states)):
+            if x.dtype != torch.float32 or not x.is_contiguous():
+                continue
+            if coeffs is None:
+                ok = state is None
+            else:
+                ok = (isinstance(state, torch.Tensor)
+                      and state.dtype == torch.float32
+                      and state.numel() == x.numel()
+                      and state.device == x.device and state.is_contiguous())
+            if ok:
+                taken.append(i)
+        if not taken:
+            return None
+        grads = [xs[i] for i in taken]
+        if coeffs is None:
+            payload, _ = quant.sign_pack_grouped(grads)
+            new_states = [None] * len(taken)
+        else:
+            beta, gamma = coeffs
+            payload, new_states = quant.sign_pack_grouped(
+                grads, [states[i] for i in taken], float(beta), float(gamma))
+        plan = quant.sign_plan(tuple(g.numel() for g in grads))
+        ctx = (plan, tuple(g.shape for g in grads))
+        return taken, (payload,), ctx, new_states
+
+    def decompress_leaves(self, payload, ctx) -> torch.Tensor:
+        """The ±1 float32 decode of a grouped payload, one pass over all of
+        it (padding lanes included: they decode to -1): leaf ``l`` sits at
+        element ``8 * plan.boff[l]``. :meth:`leaf_views` cuts it up."""
+        (packed,) = payload
+        ones = torch.ones(1, dtype=torch.float32, device=packed.device)
+        return wire.decode_accumulate(packed[None], ones, packed.numel() * 8,
+                                      1, sign=True)
+
+    @staticmethod
+    def leaf_views(flat: torch.Tensor, ctx) -> list:
+        """Each leaf's tensor of a flat buffer laid out as
+        :meth:`decompress_leaves` decodes: views, no copy."""
+        plan, shapes = ctx
+        return [flat[8 * o:8 * o + n].view(shape) for o, n, shape in
+                zip(plan.boff.tolist(), plan.ns, shapes)]
+
     def decode_accumulate(self, payloads, ctxs):
         """The sign hop's decode: K packed masks → the sum of their ±1 in
         one kernel, bit-identical to the staged ``decompress +
@@ -88,9 +150,11 @@ class SignumCompressor(SignSGDCompressor):
     JAX package; the first step sends the raw gradient's sign."""
 
     # Stateful: the shard-parallel communicators reject it, so it does not
-    # advertise hop requant; sign bytes have no algebra.
+    # advertise hop requant; sign bytes have no algebra. Its momentum state
+    # stays per leaf: no grouped compress.
     payload_algebra = None
     supports_hop_requant = False
+    fused_feedback_compress_leaves = None
 
     momentum: float = 0.9
 

@@ -45,7 +45,11 @@
 //   * The aggregate stages the W ranks' (row, value) pairs of its tile in
 //     shared memory, sums each distinct winning row once into a shared
 //     output tile of kAggRows rows, and writes every output element exactly
-//     once: no zero-fill followed by a second write of the winners.
+//     once: no zero-fill followed by a second write of the winners. Ranks
+//     are staged kAggRankTile at a time (every world up to that in one
+//     tile, staged once); past it, each rank tile adds onto the partial
+//     sums the previous tiles left in the output tile, so any W is summed
+//     in rank order in one launch.
 //
 // Bit-exactness rules (see the plain versions):
 //   * comp = g*gamma + r*beta with each product rounded before the add:
@@ -85,6 +89,10 @@ constexpr int kAggRowGroups = 8;              // aggregate: warps a block
 constexpr int kAggRows = 136;                 // aggregate: output tile rows
 constexpr int kMaxLeaves = 256;               // leaves a launch
 constexpr int kMaxSmem = 232448;              // a block's shared memory
+// Aggregate: ranks staged at once, as many as the shared memory beside the
+// output tile holds (8 bytes a rank and column).
+constexpr int kAggRankTile = (kMaxSmem - kAggRows * kTileCols * 4) /
+                             (kTileCols * 8);
 
 // Host table rows (int64 words), as the wrappers fill them.
 constexpr int kCompressWords = 7;   // g, r, out_r, n, k, koff, tile0
@@ -276,7 +284,8 @@ __device__ __forceinline__ float load_val(const void* vals, int64_t i) {
 }
 
 // vals/idx: (world, stride) row-major; leaf l's columns at koff of a row.
-// Dynamic shared memory: the output tile, then each rank's rows and values.
+// Dynamic shared memory: the output tile, then each staged rank's rows and
+// values (min(world, kAggRankTile) ranks).
 template <bool BF16>
 __global__ void __launch_bounds__(kTileCols * kAggRowGroups)
 chunk_aggregate_dense_kernel(const __grid_constant__ AggregateTable tab,
@@ -286,7 +295,8 @@ chunk_aggregate_dense_kernel(const __grid_constant__ AggregateTable tab,
   extern __shared__ float smem[];
   float (*s_tile)[kTileCols] = reinterpret_cast<float (*)[kTileCols]>(smem);
   int32_t* s_row = reinterpret_cast<int32_t*>(smem + kAggRows * kTileCols);
-  float* s_val = reinterpret_cast<float*>(s_row + world * kTileCols);
+  const int64_t rank_tile = world < kAggRankTile ? world : kAggRankTile;
+  float* s_val = reinterpret_cast<float*>(s_row + rank_tile * kTileCols);
 
   const int tile = blockIdx.x;
   const int li = find_leaf(tab.tile0, tab.num_leaves, tile);
@@ -298,48 +308,59 @@ chunk_aggregate_dense_kernel(const __grid_constant__ AggregateTable tab,
   const int32_t rows = main_rows + (c < rem ? 1 : 0);   // real rows of column c
   const int32_t tile_rows = main_rows + (rem > 0 ? 1 : 0);
 
-  // Stage: rank i's winning row of column c (-1 when out of range) and value.
-  for (int64_t i = rg; i < world; i += kAggRowGroups) {
-    int32_t row = -1;
-    float v = 0.0f;
-    if (live) {
-      const int64_t e = i * stride + L.s.koff + c;
-      const int32_t x = idx[e];
-      const int32_t rr = wire_indices ? (x < 0 ? -1 : x / k) : x;
-      if (rr >= 0 && rr < rows) row = rr;
-      v = load_val<BF16>(vals, e);
+  // Stage ranks [t0, t1): rank i's winning row of column c (-1 when out of
+  // range) and value, at slot i - t0.
+  auto stage = [&](int64_t t0, int64_t t1) {
+    for (int64_t i = t0 + rg; i < t1; i += kAggRowGroups) {
+      int32_t row = -1;
+      float v = 0.0f;
+      if (live) {
+        const int64_t e = i * stride + L.s.koff + c;
+        const int32_t x = idx[e];
+        const int32_t rr = wire_indices ? (x < 0 ? -1 : x / k) : x;
+        if (rr >= 0 && rr < rows) row = rr;
+        v = load_val<BF16>(vals, e);
+      }
+      s_row[(i - t0) * kTileCols + tx] = row;
+      s_val[(i - t0) * kTileCols + tx] = v;
     }
-    s_row[i * kTileCols + tx] = row;
-    s_val[i * kTileCols + tx] = v;
-  }
+  };
+  const bool one_rank_tile = world <= kAggRankTile;
+  if (one_rank_tile) stage(0, world);   // once for every output chunk
   // The mean multiplies by the correctly rounded float reciprocal of W:
   // that is what XLA compiles the reference's `acc / world` to.
   const float inv_world = __fdiv_rn(1.0f, static_cast<float>(world));
   float* out = L.out;
   for (int32_t r0 = 0; r0 < tile_rows; r0 += kAggRows) {
     for (int j = rg; j < kAggRows; j += kAggRowGroups) s_tile[j][tx] = 0.0f;
-    __syncthreads();
-    // Each distinct winning row is summed once, by its first rank, over the
-    // ranks that chose it, in rank order. Ranks that did not choose it add
-    // +0.0 in the reference, which changes no partial sum that starts at
-    // +0.0, so skipping them is exact.
-    for (int64_t i = rg; i < world; i += kAggRowGroups) {
-      const int32_t row = s_row[i * kTileCols + tx];
-      if (row < r0 || row >= r0 + kAggRows) continue;   // -1 included
-      bool seen = false;
-      for (int64_t j = 0; j < i; ++j) {
-        if (s_row[j * kTileCols + tx] == row) { seen = true; break; }
-      }
-      if (seen) continue;
-      float acc = 0.0f;
-      for (int64_t j = i; j < world; ++j) {
-        if (s_row[j * kTileCols + tx] == row) {
-          acc = __fadd_rn(acc, s_val[j * kTileCols + tx]);
+    for (int64_t t0 = 0; t0 < world; t0 += rank_tile) {
+      const int64_t t1 = t0 + rank_tile < world ? t0 + rank_tile : world;
+      if (!one_rank_tile) stage(t0, t1);
+      __syncthreads();
+      // Each distinct winning row of the rank tile is summed once, by its
+      // first rank there, over the tile's ranks that chose it, in rank
+      // order, onto the partial sum that the earlier tiles left (+0.0 at
+      // first). Ranks that did not choose it add +0.0 in the reference,
+      // which changes no partial sum that starts at +0.0, so skipping them
+      // is exact.
+      for (int64_t i = t0 + rg; i < t1; i += kAggRowGroups) {
+        const int32_t row = s_row[(i - t0) * kTileCols + tx];
+        if (row < r0 || row >= r0 + kAggRows) continue;   // -1 included
+        bool seen = false;
+        for (int64_t j = t0; j < i; ++j) {
+          if (s_row[(j - t0) * kTileCols + tx] == row) { seen = true; break; }
         }
+        if (seen) continue;
+        float acc = s_tile[row - r0][tx];
+        for (int64_t j = i; j < t1; ++j) {
+          if (s_row[(j - t0) * kTileCols + tx] == row) {
+            acc = __fadd_rn(acc, s_val[(j - t0) * kTileCols + tx]);
+          }
+        }
+        s_tile[row - r0][tx] = acc;
       }
-      s_tile[row - r0][tx] = acc;
+      __syncthreads();         // the tile is summed; the slots may be restaged
     }
-    __syncthreads();
     if (live) {
       for (int j = rg; j < kAggRows && r0 + j < rows; j += kAggRowGroups) {
         const float v = s_tile[j][tx];
@@ -437,11 +458,6 @@ int grace_chunk_compress_feedback(const int64_t* leaves, int num_leaves,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The largest world the aggregate's shared memory stages.
-int grace_chunk_aggregate_max_world(void) {
-  return (kMaxSmem - kAggRows * kTileCols * 4) / (kTileCols * 8);
-}
-
 // leaves: num_leaves rows of kAggregateWords int64 words
 //   (out, n, k, koff, first tile). vals/idx: (world, stride) row-major,
 // idx holding wire indices when wire_indices, else winning rows.
@@ -450,9 +466,7 @@ int grace_chunk_aggregate_dense(const int64_t* leaves, int num_leaves,
                                 int64_t world, int64_t stride, int vals_bf16,
                                 int wire_indices, int average, void* stream) {
   AggregateTable tab;
-  if (world < 1 || world > grace_chunk_aggregate_max_world()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (world < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles = fill_table(
       tab, leaves, num_leaves, kAggregateWords,
       [](AggregateLeaf& leaf, const int64_t* w) {
@@ -460,8 +474,9 @@ int grace_chunk_aggregate_dense(const int64_t* leaves, int num_leaves,
         leaf.s = leaf_shape(w[1], w[2], w[3]);
       });
   if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t staged = world < kAggRankTile ? world : kAggRankTile;
   const size_t smem = static_cast<size_t>(kAggRows) * kTileCols * 4 +
-                      static_cast<size_t>(world) * kTileCols * 8;
+                      static_cast<size_t>(staged) * kTileCols * 8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned int grid = static_cast<unsigned int>(tiles);
   const cudaError_t err =

@@ -19,8 +19,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches, by kernel name (a chunk Top-K kernel's
-    one-leaf and grouped wrappers add up)."""
-    return {**chunk_topk.launch_counts(), **{f.__name__: f.launches for f in (
-        quant.quantize_stochastic, quant.quantize_pack_stochastic,
-        quant.sign_pack, wire.decode_accumulate, wire.packed_int_accumulate)}}
+    """Every kernel's launches, by kernel name (a kernel's one-leaf and
+    grouped wrappers add up)."""
+    return {**chunk_topk.launch_counts(), **quant.launch_counts(),
+            **{f.__name__: f.launches for f in (
+                wire.decode_accumulate, wire.packed_int_accumulate)}}

@@ -23,7 +23,8 @@ one-leaf case of the same kernels. A grouped launch is described by a
 :class:`LeafPlan`, which depends only on the leaves' sizes and is cached.
 
 The TPU kernels' VMEM block-column gate has no counterpart: the CUDA
-kernels walk columns of any length.
+kernels walk columns of any length, and the aggregate walks any number of
+ranks (in tiles of ranks that its shared memory stages).
 
 Layout: the flat buffer is the ``(n // k, k)`` row-major view plus one
 zero-padded tail row; column ``c`` is chunk ``c`` of the wire format, and
@@ -301,14 +302,7 @@ def _lib() -> ctypes.CDLL:
     lib.grace_chunk_aggregate_dense.argtypes = [
         p, i32, p, p, i64, i64, i32, i32, i32, p]
     lib.grace_chunk_aggregate_dense.restype = ctypes.c_int
-    lib.grace_chunk_aggregate_max_world.argtypes = []
-    lib.grace_chunk_aggregate_max_world.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def _aggregate_max_world() -> int:
-    return _lib().grace_chunk_aggregate_max_world()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -337,16 +331,10 @@ def _launch_compress(rows: np.ndarray, vals, idx, beta, gamma, wire_bf16,
 
 def _launch_aggregate(rows: np.ndarray, vals, idx, average, wire_indices,
                       dev) -> None:
-    world = vals.shape[0]
-    if world > _aggregate_max_world():
-        raise ValueError(
-            f"chunk_aggregate_dense stages every rank's payload of a tile in "
-            f"shared memory, which holds {_aggregate_max_world()} ranks; got "
-            f"{world}")
     with _on(dev):
         err = _lib().grace_chunk_aggregate_dense(
             rows.ctypes.data, rows.shape[0], vals.data_ptr(), idx.data_ptr(),
-            world, vals.shape[1], int(vals.dtype == torch.bfloat16),
+            vals.shape[0], vals.shape[1], int(vals.dtype == torch.bfloat16),
             int(wire_indices), int(average),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "chunk_aggregate_dense")

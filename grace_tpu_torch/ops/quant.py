@@ -13,6 +13,13 @@ comes three ways, in the pattern of ``ops/chunk_topk.py``:
 * a launch counter, ``<wrapper>.launches``, that the wrapper adds one to
   where it launches its kernel, and nowhere else.
 
+The sign-pack kernel also has a grouped wrapper, :func:`sign_pack_grouped`
+(with :func:`sign_pack_grouped_plain` and its own counter): one launch over
+up to ``MAX_LEAVES_PER_LAUNCH`` leaves, with linear error feedback folded
+in, into one payload whose leaf segments start on 16-byte boundaries
+(:class:`SignPlan`). The one-leaf :func:`sign_pack` is its one-leaf case
+without feedback.
+
 The random bits are :func:`hash_bits_plain`, the counter hash that the
 Pallas kernels run off-TPU: the TPU's hardware PRNG stream is not
 reproducible anywhere else. The Pallas kernels hash over ``(64, 256)``
@@ -28,13 +35,18 @@ call here waits on the device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
+import operator
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from grace_tpu_torch.ops import _build
-from grace_tpu_torch.ops.packing import PACKERS, pack_bits
+from grace_tpu_torch.ops.packing import PACKERS, pack_bits, unpack_bits
 
 # The Pallas kernels' hash block: (ROWS_PER_BLOCK, LANES) = (64, 256).
 HASH_BLOCK = 64 * 256
@@ -42,6 +54,14 @@ _M32 = 0xFFFFFFFF
 _LEVEL_DTYPES = (torch.int8, torch.int16)
 PACK_WIDTHS = (2, 3, 4)
 SIGN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The sign-pack kernel's leaf table capacity, words a block and the
+# alignment of each leaf's payload segment (csrc/quant.cu kMaxLeaves,
+# kSignTileWords).
+MAX_LEAVES_PER_LAUNCH = 256
+SIGN_TILE_WORDS = 128
+SIGN_ALIGN = 16
+# quantize-and-pack writes whole rows of 128 codes: 16 * width bytes each.
+PACK_ROW = 128
 
 
 def hash_bits_plain(seed: int, n: int, device) -> torch.Tensor:
@@ -156,11 +176,107 @@ def quantize_pack_stochastic_plain(flat: torch.Tensor, norm: torch.Tensor,
 def sign_pack_plain(flat: torch.Tensor) -> torch.Tensor:
     """``flat >= 0`` packed 8 per byte, LSB-first (−0.0 gives 1, NaN 0);
     the plain version of the kernel."""
+    _sign_check(flat)
+    return pack_bits(flat >= 0)
+
+
+def _sign_check(flat: torch.Tensor) -> None:
     if flat.dim() != 1 or flat.dtype not in SIGN_DTYPES:
         raise ValueError(f"sign_pack takes a flat float32/bfloat16/float16 "
                          f"tensor; got {flat.dtype} of shape "
                          f"{tuple(flat.shape)}")
-    return pack_bits(flat >= 0)
+
+
+# -- the grouped sign-pack: many leaves, one payload -------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SignPlan:
+    """Where each leaf of a grouped sign-pack lives, from its size alone.
+
+    ``boff``: leaf ``l``'s byte offset in the concatenated payload, a
+    multiple of ``SIGN_ALIGN``, with the total at index ``L``; its segment
+    holds ``ceil(n/128) * 16`` bytes, of which its wire payload is the
+    first ``ceil(n/8)``. ``tile0``: its first tile of ``SIGN_TILE_WORDS``
+    words. ``launches``: the ``[lo, hi)`` leaf spans of the kernel
+    launches, at most ``MAX_LEAVES_PER_LAUNCH`` leaves each.
+    """
+
+    ns: Tuple[int, ...]
+    boff: np.ndarray
+    tile0: np.ndarray
+    launches: Tuple[Tuple[int, int], ...]
+    _tables: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.boff[-1])
+
+    def table(self, lo: int, hi: int) -> np.ndarray:
+        """A fresh copy of the kernel's leaf table for the launch over
+        leaves ``[lo, hi)``: three zeroed pointer words and a zeroed dtype
+        a row, then n, the byte offset and the first tile counted from the
+        launch's first leaf (byte offsets stay global: the payload pointer
+        is the whole buffer's)."""
+        key = (lo, hi)
+        if key not in self._tables:
+            rows = np.zeros((hi - lo, 7), dtype=np.int64)
+            rows[:, 3] = self.ns[lo:hi]
+            rows[:, 5] = self.boff[lo:hi]
+            rows[:, 6] = self.tile0[lo:hi] - self.tile0[lo]
+            self._tables[key] = rows
+        return self._tables[key].copy()
+
+    def views(self, payload: torch.Tensor) -> list:
+        """Each leaf's wire payload: its first ``ceil(n/8)`` bytes."""
+        return [payload[o:o + -(-n // 8)]
+                for o, n in zip(self.boff.tolist(), self.ns)]
+
+
+@functools.lru_cache(maxsize=64)
+def sign_plan(ns: Tuple[int, ...]) -> SignPlan:
+    """The cached :class:`SignPlan` of leaves of sizes ``ns``."""
+    if not ns or any(n < 1 for n in ns):
+        raise ValueError(f"a sign plan needs leaves of at least one element; "
+                         f"got sizes {ns[:8]}")
+    seg = [-(-n // PACK_ROW) * SIGN_ALIGN for n in ns]      # bytes
+    tiles = [-(-(s // 4) // SIGN_TILE_WORDS) for s in seg]
+    launches = tuple((lo, min(lo + MAX_LEAVES_PER_LAUNCH, len(ns)))
+                     for lo in range(0, len(ns), MAX_LEAVES_PER_LAUNCH))
+    return SignPlan(tuple(ns), _prefix(seg), _prefix(tiles), launches)
+
+
+def _prefix(xs) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(xs, dtype=np.int64)])
+
+
+def sign_pack_grouped_plain(grads: Sequence[torch.Tensor],
+                            residuals: Optional[Sequence[torch.Tensor]] = None,
+                            beta: float = 1.0, gamma: float = 1.0):
+    """The plain version of the grouped sign-pack: per leaf, the staged
+    error-feedback pipeline of ``ResidualMemory`` around signSGD's pack —
+    ``comp = beta*residual + gamma*grad`` (``comp = grad`` without
+    residuals), ``pack_bits(comp >= 0)``, and the new residual ``comp -
+    (±1)`` — into one zero-padded payload laid out by :func:`sign_plan`.
+    Returns ``(payload, new residuals or None)``."""
+    plan = sign_plan(tuple(g.numel() for g in grads))
+    dev = grads[0].device
+    payload = torch.zeros(plan.nbytes, dtype=torch.uint8, device=dev)
+    views = plan.views(payload)
+    new_resids = None if residuals is None else []
+    for l, g in enumerate(grads):
+        flat = g.reshape(-1)
+        _sign_check(flat)
+        if residuals is None:
+            comp = flat
+        else:
+            comp = beta * residuals[l].reshape(-1) + gamma * flat
+        packed = pack_bits(comp >= 0)
+        views[l].copy_(packed)
+        if residuals is not None:
+            signs = unpack_bits(packed, flat.numel()).to(comp.dtype) * 2 - 1
+            new_resids.append((comp - signs).view(residuals[l].shape))
+    return payload, new_resids
 
 
 # -- CUDA wrappers -----------------------------------------------------------
@@ -177,7 +293,8 @@ def _lib() -> ctypes.CDLL:
     lib.grace_quantize_pack_stochastic.argtypes = [p, p, p, i64, i32, u32,
                                                    i32, p]
     lib.grace_quantize_pack_stochastic.restype = ctypes.c_int
-    lib.grace_sign_pack.argtypes = [p, p, i64, i32, p]
+    lib.grace_sign_pack.argtypes = [p, i32, p, ctypes.c_float,
+                                    ctypes.c_float, p]
     lib.grace_sign_pack.restype = ctypes.c_int
     return lib
 
@@ -232,14 +349,19 @@ def quantize_pack_stochastic(flat: torch.Tensor, norm: torch.Tensor,
                              ) -> torch.Tensor:
     """Fused QSGD compress-and-pack: the packed ``width``-bit wire bytes
     (``ceil(n·width/8)`` uint8) in one pass, with no full-width
-    intermediate. Bit-identical to :func:`quantize_pack_stochastic_plain`."""
+    intermediate. ``flat`` may be a view at any element offset (a ring
+    shard): the kernel reads it in place. On CUDA the bytes are the head of
+    a buffer of whole 128-code rows. Bit-identical to
+    :func:`quantize_pack_stochastic_plain`."""
     if flat.device.type == "cpu":
         return quantize_pack_stochastic_plain(flat, norm, seed, quantum_num,
                                               width)
     flat, norm = _cuda_inputs("quantize_pack_stochastic", flat, norm)
     _check_pack(quantum_num, width)
     n = flat.numel()
-    out = torch.empty(-(-n * width // 8), dtype=torch.uint8,
+    # The kernel stores whole 32-bit words of whole 128-code rows; the wire
+    # payload is the first ceil(n * width / 8) bytes.
+    out = torch.empty(-(-n // PACK_ROW) * 16 * width, dtype=torch.uint8,
                       device=flat.device)
     if n:
         with torch.cuda.device(flat.device):
@@ -249,42 +371,129 @@ def quantize_pack_stochastic(flat: torch.Tensor, norm: torch.Tensor,
                 torch.cuda.current_stream(flat.device).cuda_stream)
         _raise_on(err, "quantize_pack_stochastic")
         quantize_pack_stochastic.launches += 1
-    return out
+    return out[:-(-n * width // 8)]
 
 
 quantize_pack_stochastic.launches = 0
 
 
+def _launch_sign(rows: np.ndarray, payload: torch.Tensor, beta: float,
+                 gamma: float) -> None:
+    dev = payload.device
+    # A device switch only where dev is not current: entering one costs
+    # microseconds a call.
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        err = _lib().grace_sign_pack(
+            rows.ctypes.data, rows.shape[0], payload.data_ptr(), float(beta),
+            float(gamma), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "sign_pack")
+
+
 def sign_pack(flat: torch.Tensor) -> torch.Tensor:
     """The sign mask ``flat >= 0`` packed 8 per byte, LSB-first, read
-    straight from float32, bfloat16 or float16 (no cast pass).
+    straight from float32, bfloat16 or float16 (no cast pass): the
+    grouped kernel over a one-leaf table, without feedback.
     Bit-identical to :func:`sign_pack_plain`."""
     if flat.device.type == "cpu":
         return sign_pack_plain(flat)
     if flat.device.type != "cuda":
         raise ValueError(f"no sign_pack for {flat.device}")
-    if flat.dim() != 1 or flat.dtype not in SIGN_DTYPES:
-        raise ValueError(f"sign_pack takes a flat float32/bfloat16/float16 "
-                         f"tensor; got {flat.dtype} of shape "
-                         f"{tuple(flat.shape)}")
+    _sign_check(flat)
     flat = flat.contiguous()
     n = flat.numel()
-    out = torch.empty(-(-n // 8), dtype=torch.uint8, device=flat.device)
-    if n:
-        with torch.cuda.device(flat.device):
-            err = _lib().grace_sign_pack(
-                flat.data_ptr(), out.data_ptr(), n,
-                SIGN_DTYPES.index(flat.dtype),
-                torch.cuda.current_stream(flat.device).cuda_stream)
-        _raise_on(err, "sign_pack")
-        sign_pack.launches += 1
-    return out
+    if not n:
+        return torch.empty(0, dtype=torch.uint8, device=flat.device)
+    plan = sign_plan((n,))
+    payload = torch.empty(plan.nbytes, dtype=torch.uint8, device=flat.device)
+    rows = plan.table(0, 1)
+    rows[0, 0] = flat.data_ptr()
+    rows[0, 4] = SIGN_DTYPES.index(flat.dtype)
+    _launch_sign(rows, payload, 1.0, 1.0)
+    sign_pack.launches += 1
+    return payload[:-(-n // 8)]
 
 
 sign_pack.launches = 0
 
+_dtype = operator.attrgetter("dtype")
+
+
+def sign_pack_grouped(grads: Sequence[torch.Tensor],
+                      residuals: Optional[Sequence[torch.Tensor]] = None,
+                      beta: float = 1.0, gamma: float = 1.0):
+    """signSGD's sign-pack over many leaves in one launch (one per
+    ``MAX_LEAVES_PER_LAUNCH`` leaves), with linear error feedback folded in.
+
+    ``grads``: contiguous leaves of any shape (their flat order is packed),
+    float32, bfloat16 or float16 without residuals, float32 with them;
+    ``residuals``: None (``comp = grad``), or a contiguous float32 residual
+    of each leaf's size (``comp = beta*residual + gamma*grad``, and the new
+    residual ``comp - (±1)``). Returns ``(payload, new_residuals)``: the
+    concatenated uint8 payload laid out by :func:`sign_plan` (every leaf's
+    segment starts on a 16-byte boundary, padding bits 0; each leaf's wire
+    payload, in the one-leaf format, is the view ``SignPlan.views`` gives),
+    and the new residuals (None without residuals). Bit-identical to
+    :func:`sign_pack_grouped_plain`.
+
+    On CUDA every new residual is written over its residual IN PLACE, as
+    ``chunk_compress_feedback_grouped`` does: ``new_residuals[l]`` is
+    ``residuals[l]`` itself. Clone the residuals first to keep the old ones.
+    """
+    if grads[0].device.type == "cpu":
+        return sign_pack_grouped_plain(grads, residuals, beta, gamma)
+    if grads[0].device.type != "cuda":
+        raise ValueError(f"no sign_pack_grouped for {grads[0].device}")
+    dev = grads[0].device
+    ns = tuple(map(torch.Tensor.numel, grads))
+    plan = sign_plan(ns)
+    tensors = list(grads) + list(residuals or ())
+    dtypes = set(map(_dtype, tensors))
+    devices = set(map(torch.Tensor.get_device, tensors))
+    contiguous = all(map(torch.Tensor.is_contiguous, tensors))
+    sizes = residuals is None or tuple(map(torch.Tensor.numel,
+                                           residuals)) == ns
+    allowed = {torch.float32} if residuals is not None else set(SIGN_DTYPES)
+    if (not dtypes <= allowed or devices != {dev.index} or not contiguous
+            or not sizes):
+        raise ValueError(
+            "sign_pack_grouped takes contiguous float32/bfloat16/float16 "
+            "leaves (float32 with residuals) and float32 residuals of their "
+            f"sizes on {dev}; got dtypes {sorted(map(str, dtypes))}, devices "
+            f"{sorted(devices)}, all contiguous {contiguous}, residual sizes "
+            f"matching {sizes}")
+    payload = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+    gptr = list(map(torch.Tensor.data_ptr, grads))
+    # The table's dtype column is 0 (float32) unless a leaf is narrower.
+    kinds = (None if dtypes == {torch.float32} else
+             [SIGN_DTYPES.index(g.dtype) for g in grads])
+    rptr = (list(map(torch.Tensor.data_ptr, residuals))
+            if residuals is not None else None)
+    for lo, hi in plan.launches:
+        rows = plan.table(lo, hi)
+        rows[:, 0] = gptr[lo:hi]
+        if rptr is not None:
+            rows[:, 1] = rptr[lo:hi]
+            rows[:, 2] = rptr[lo:hi]
+        if kinds is not None:
+            rows[:, 4] = kinds[lo:hi]
+        _launch_sign(rows, payload, beta, gamma)
+        sign_pack_grouped.launches += 1
+    return payload, None if residuals is None else list(residuals)
+
+
+sign_pack_grouped.launches = 0
+
 
 def reset_launch_counts() -> None:
-    quantize_stochastic.launches = 0
-    quantize_pack_stochastic.launches = 0
-    sign_pack.launches = 0
+    for f in (quantize_stochastic, quantize_pack_stochastic, sign_pack,
+              sign_pack_grouped):
+        f.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel, by kernel name: the one-leaf and grouped
+    sign-pack wrappers launch the same kernel, so their counts add."""
+    return {"quantize_stochastic": quantize_stochastic.launches,
+            "quantize_pack_stochastic": quantize_pack_stochastic.launches,
+            "sign_pack": sign_pack.launches + sign_pack_grouped.launches}

@@ -116,6 +116,38 @@ def test_grouped_aggregate_matches_pallas_leaf_by_leaf(world, average):
         off += n
 
 
+@pytest.mark.parametrize("average", [True, False])
+def test_grouped_aggregate_at_a_thousand_ranks_matches_pallas(average):
+    # Past the CUDA kernel's 840-rank tile: the partial sums carry from one
+    # rank tile to the next, in rank order. Rows are drawn over every real
+    # row, the tail row and one past it, so that many ranks collide.
+    world = 1000
+    leaves = [(64, 4), (300, 7)]
+    rng = np.random.default_rng(7)
+    ks = [k for _, k in leaves]
+    ns = [n for n, _ in leaves]
+    vals = rng.standard_normal((world, sum(ks))).astype(np.float32)
+    wins = [rng.integers(0, n // k + 2, (world, k)).astype(np.int32)
+            for n, k in leaves]
+    idx = np.concatenate([w * k + np.arange(k, dtype=np.int32)
+                          for w, k in zip(wins, ks)], axis=1)
+    out = ck.chunk_aggregate_dense_grouped(torch.from_numpy(vals),
+                                           torch.from_numpy(idx), ks, ns,
+                                           average=average)
+    koff = noff = 0
+    for (n, k), w in zip(leaves, wins):
+        v = vals[:, koff:koff + k]
+        # The Pallas kernel reads the tail row as win == n // k; its caller
+        # never sends a row past it, so those are dropped here first.
+        v = np.where(w <= n // k, v, np.float32(0.0))
+        want = pallas_topk.chunk_aggregate_dense(
+            jnp.asarray(v), jnp.asarray(np.minimum(w, n // k)), k, n,
+            average=average, interpret=True)
+        assert_same_bits(out[noff:noff + n], want)
+        koff += k
+        noff += n
+
+
 def _random_sizes(count, seed):
     rng = np.random.default_rng(seed)
     ns = rng.integers(2, 40_000, count)

@@ -120,6 +120,34 @@ def test_quantize_pack_edge_cases_match_pallas(width):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+# Codes around the CUDA kernel's 32-bit words (16 codes at width 2, 8 at
+# width 4, 32 codes = 3 words at width 3) and its 128-code rows.
+VIEW_LENGTHS = [7, 8, 9, 15, 16, 17, 31, 32, 33, 127, 129]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_quantize_pack_of_shard_views_matches_pallas(width, offset):
+    # A ring shard is a view at any element offset of its buffer: offsets
+    # 1-3 do not start on the 16-byte boundary that the card's vector loads
+    # need, so the kernel reads their head with scalar loads.
+    q = (1 << (width - 1)) - 1
+    for n in VIEW_LENGTHS:
+        base = torch.from_numpy(_x(n + offset, seed=100 * width + n))
+        view = base[offset:]
+        assert view.storage_offset() == offset
+        x = view.numpy()
+        norm = np.float32(np.linalg.norm(x))
+        seed = 31 * n + offset
+        want = np.asarray(pallas_quant.quantize_pack_stochastic(
+            jnp.asarray(x), jnp.asarray(norm), jnp.asarray(seed, jnp.int32),
+            q, width=width, interpret=True))
+        got = quant.quantize_pack_stochastic(view, torch.tensor(norm), seed,
+                                             q, width)
+        assert got.shape[0] == -(-n * width // 8)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_quantize_pack_is_quantize_then_pack():
     # The fused pack equals the plain levels clamped, folded and packed.
     from grace_tpu_torch.ops.packing import PACKERS
