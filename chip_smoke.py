@@ -2,10 +2,16 @@
 """Drive grace_tpu_torch's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times-from ROOT
 
 Runs as one process on one card, in a world-size-1 NCCL group (the
 collectives are real calls). Every phase passes or ends the script with a
-non-zero exit; nothing is caught and allowed to continue.
+non-zero exit; nothing is caught and allowed to continue. It refuses to
+start while any GRACE_DISABLE_PALLAS* variable is set: a kernel family
+turned off would make its checks compare plain versions with themselves.
+With ``--times-from ROOT`` it runs phase 8's timings alone, of the
+kernels of the checkout at ROOT (an earlier commit, unpacked with
+``git archive``), so that two versions compare within one call.
 
 1. Identify the card and build the CUDA kernels from grace_tpu_torch/csrc
    (one nvcc process per source, all started together).
@@ -41,8 +47,13 @@ The quantized wire path:
    wire width, K in {1, 2, 8}, sign and vote. Then the grouped sign-pack
    over all 161 ResNet-50 leaves and the edge lengths in one launch, with
    error feedback at two (beta, gamma) and pack only in three float types
-   and a mix (+-0.0, NaN and +-inf planted), and quantize-and-pack on shard
-   views at element offsets 0-3 at every width.
+   and a mix (+-0.0, NaN and +-inf planted); quantize-and-pack (every
+   width) and quantize (int8 and int16) on shard views at element offsets
+   0-3; decode-accumulate over five row layouts (contiguous rows off the
+   16-byte grid, an extra byte a row, rows padded to 16 bytes, a base off
+   the grid, rows 17 bytes apart) at K in {1, 2, 3, 8} and every mode, and
+   at K=40 (the staged scales run in tiles); and the signSGD vote's decode
+   of the grouped 161-leaf sign payload.
 7. The ring-hop phase: two ranks' real ResNet-50 flat gradients, split into
    W in {2, 8} shards and encoded by the QSGD (q=7 and q=1) and signSGD
    kernels, decoded as the ring hop decodes them
@@ -52,7 +63,10 @@ The quantized wire path:
 8. Time the four kernels at the wire path's shapes, the kernel alone too:
    the grouped sign-pack over the 161 leaves with error feedback and pack
    only, beside the 161 one-leaf calls; quantize-and-pack at widths 4, 2
-   and 3 and on a shard view that is not 16-byte aligned.
+   and 3 and on a shard view that is not 16-byte aligned; quantize at int8,
+   int16 and on that view; decode-accumulate on the W=2 ring hop (rows
+   padded to 16 bytes, as the codecs stack them, and contiguous), the W=8
+   hop and the grouped vote's decode.
 9. Train full-width ResNet-50 under the three wire-path configurations
    (bench_all.py) and assert their kernels' launches a step (the signSGD
    vote: one grouped sign-pack and one decode a step).
@@ -87,10 +101,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # The benchmark pair, verbatim (bench.py HEADLINE).
 HEADLINE = [
@@ -847,9 +863,10 @@ def check_sign_grouped(dev, leaves, errs):
 
 
 def check_pack_views(dev, errs):
-    """Phase 6, quantize-and-pack on ring-shard views at element offsets
-    0-3 (offsets 1-3 do not start on a 16-byte boundary) and lengths around
-    the word and row boundaries, at every width: byte for byte."""
+    """Phase 6, quantize-and-pack and quantize on ring-shard views at
+    element offsets 0-3 (offsets 1-3 do not start on a 16-byte boundary)
+    and lengths around the word and row boundaries, at every width and
+    both level types: bit for bit."""
     import torch
     from grace_tpu_torch.ops import quant as Q
 
@@ -870,7 +887,108 @@ def check_pack_views(dev, errs):
                     fail(f"quantize_pack_stochastic {label}: differs from the "
                          "plain version")
                 cases += 1
+            for q, dt in ((64, torch.int8), (200, torch.int16)):
+                label = f"n={n} offset={off} q={q} {dt}"
+                want = Q.quantize_stochastic_plain(x, norm, 555 + off, q, dt)
+                got = Q.quantize_stochastic(x, norm, 555 + off, q, dt)
+                torch.cuda.synchronize()
+                if not same_bits(want, got):
+                    fail(f"quantize_stochastic {label}: differs from the "
+                         "plain version")
+                cases += 1
     return cases
+
+
+DECODE_VIEW_EDGES = (1, 7, 127, 128, 129, 1000, 16385)      # outputs
+DECODE_KS = (1, 2, 3, 8)
+BIG_K = 40                  # past the decode kernel's tile of 32 scales
+
+
+def decode_layouts(buf, k, nbytes):
+    """``(k, nbytes)`` payload stacks over the bytes of ``buf`` in every
+    row layout a caller can give decode_accumulate: contiguous (rows off
+    the 16-byte grid where nbytes is not a multiple of 16), one extra byte
+    a row, the padded rows of ``wire.stack_payloads``, a base off the
+    16-byte grid, and rows 17 bytes apart."""
+    from grace_tpu_torch.ops import wire as Wr
+    padded = Wr.stack_payloads([buf[i * nbytes:(i + 1) * nbytes]
+                                for i in range(k)])
+    if padded.data_ptr() % 16 or padded.stride(0) % 16:
+        fail(f"stack_payloads: rows at {padded.data_ptr()} + "
+             f"{padded.stride(0)}*i are not on 16-byte boundaries")
+    return {"contiguous": buf[:k * nbytes].view(k, nbytes),
+            "extra byte": buf[:k * (nbytes + 1)].view(k, nbytes + 1),
+            "padded rows": padded,
+            "unaligned base": buf[1:1 + k * nbytes].view(k, nbytes),
+            "stride +17": buf[:k * (nbytes + 17)].view(k, nbytes + 17)[
+                :, :nbytes]}
+
+
+def check_decode_layouts(dev, errs):
+    """Phase 6, decode_accumulate over every row layout (decode_layouts),
+    at every mode, K in {1, 2, 3, 8} and, at two lengths, K=40 (the
+    staged scales run in tiles): bit for bit against the plain version."""
+    import torch
+    from grace_tpu_torch.ops import wire as Wr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cases = 0
+    for n in DECODE_VIEW_EDGES:
+        for w, sign, vote in DECODE_MODES:
+            nbytes = -(-n * w // 8)
+            for k in DECODE_KS + ((BIG_K,) if n in (129, 16385) else ()):
+                buf = torch.randint(0, 256, (k * (nbytes + 17) + 1,),
+                                    generator=gen, device=dev,
+                                    dtype=torch.uint8)
+                sc = torch.rand(k, generator=gen, device=dev) * 3
+                for layout, st in decode_layouts(buf, k, nbytes).items():
+                    label = (f"n={n} width={w} K={k} sign={sign} vote={vote} "
+                             f"{layout}")
+                    want = Wr.decode_accumulate_plain(st, sc, n, w, sign, vote)
+                    got = Wr.decode_accumulate(st, sc, n, w, sign, vote)
+                    torch.cuda.synchronize()
+                    if not same_bits(want, got):
+                        fail(f"decode_accumulate {label}: differs from the "
+                             f"plain version (max abs err "
+                             f"{max_abs_err(want, got)})")
+                    errs["decode_accumulate"] = max(
+                        errs["decode_accumulate"], max_abs_err(want, got))
+                    cases += 1
+    return cases
+
+
+def check_vote_decode(dev, leaves, errs):
+    """Phase 6, the grouped vote's decode: the signSGD codec's one K=1
+    sign decode over the grouped sign-pack payload of the 161 ResNet-50
+    leaves and the edge lengths (padding lanes included), and its vote
+    re-sign, bit for bit against the plain version."""
+    import torch
+    from grace_tpu_torch.compressors import SignSGDCompressor
+    from grace_tpu_torch.ops import wire as Wr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    gs, _ = sign_leaves(dev, leaves, gen)
+    codec = SignSGDCompressor(use_pallas=True)
+    _, (payload,), ctx, _ = codec.fused_feedback_compress_leaves(
+        gs, [None] * len(gs), None, [None] * len(gs))
+    numel = payload.numel() * 8
+    ones = torch.ones(1, device=dev)
+    Wr.reset_launch_counts()
+    got = codec.decompress_leaves((payload,), ctx)
+    if Wr.decode_accumulate.launches != 1:
+        fail(f"vote decode: {Wr.decode_accumulate.launches} launches for the "
+             "grouped payload, expected one")
+    cases = 0
+    for vote, out in ((False, got), (True, Wr.decode_accumulate(
+            payload[None], ones, numel, 1, sign=True, vote=True))):
+        want = Wr.decode_accumulate_plain(payload[None], ones, numel, 1,
+                                          sign=True, vote=vote)
+        torch.cuda.synchronize()
+        if not same_bits(want, out):
+            fail(f"vote decode vote={vote} over {numel} lanes: differs from "
+                 f"the plain version (max abs err {max_abs_err(want, out)})")
+        cases += 1
+    return cases, numel
 
 
 def resnet50_flat_grads(dev, count=2, batch=32):
@@ -997,7 +1115,13 @@ def time_wire_kernels(dev, leaves, flat):
     feedback, and the 161 one-leaf calls of the per-leaf path before it was
     grouped), per hop for decode_accumulate. Quantize-and-pack also at
     widths 2 and 3 and on a shard view that does not start on a 16-byte
-    boundary."""
+    boundary; quantize at int16 and on that view; decode_accumulate on the
+    W=2 hop's rows as torch.stack lays them out (row 1 off the 16-byte
+    grid) and as wire.stack_payloads pads them, at W=8, and at the grouped
+    vote's unit (one K=1 sign decode over the 161 leaves' payload).
+
+    Uses only wrapper calls that every slice of the port has, so that it
+    also times an earlier checkout's kernels (``--times-from``)."""
     import torch
     from grace_tpu_torch.ops import quant as Q
     from grace_tpu_torch.ops import wire as Wr
@@ -1014,17 +1138,28 @@ def time_wire_kernels(dev, leaves, flat):
     shard = torch.cat([flat[:1], flat])[1:]      # element offset 1 of a buffer
     shard_norm = torch.linalg.vector_norm(shard)
 
-    def hop_inputs(w):
+    def hop_inputs(w, padded):
+        """The K=2 w=4 payload stack of a hop on a W=w shard: contiguous
+        (torch.stack's layout) or in rows padded to 16 bytes."""
         m = -(-n // w)
-        st = torch.randint(0, 256, (2, -(-m * 4 // 8)), generator=gen,
-                           device=dev, dtype=torch.uint8)
+        nbytes = -(-m * 4 // 8)
+        pitch = -(-nbytes // 16) * 16 if padded else nbytes
+        st = torch.randint(0, 256, (2, pitch), generator=gen, device=dev,
+                           dtype=torch.uint8)[:, :nbytes]
         return st, torch.rand(2, generator=gen, device=dev), m
 
     def packed(width):
         return -(-n * width // 8)
 
-    st2, sc2, m2 = hop_inputs(2)
-    st8, sc8, m8 = hop_inputs(8)
+    def decode_timed(st, sc, m, sign=False):
+        k, nbytes = st.shape
+        return timed(lambda: Wr.decode_accumulate(st, sc, m, 1 if sign else 4,
+                                                  sign),
+                     lambda: Wr.decode_accumulate_plain(
+                         st, sc, m, 1 if sign else 4, sign),
+                     k * nbytes + 4 * m, k * DECODE_OPS * m,
+                     "decode_accumulate_kernel")
+
     seg = sum(-(-g.numel() // 8) for g in gs)
     out = {
         "quantize_pack_stochastic": timed(
@@ -1039,19 +1174,17 @@ def time_wire_kernels(dev, leaves, flat):
             lambda: Q.sign_pack_grouped(gs, rs),
             lambda: Q.sign_pack_grouped_plain(gs, rs),
             12 * n + seg, SIGN_FEEDBACK_OPS * n, "sign_pack_kernel"),
-        "decode_accumulate": timed(
-            lambda: Wr.decode_accumulate(st2, sc2, m2, 4),
-            lambda: Wr.decode_accumulate_plain(st2, sc2, m2, 4),
-            2 * st2.shape[1] + 4 * m2, 2 * DECODE_OPS * m2,
-            "decode_accumulate_kernel"),
+        "decode_accumulate": decode_timed(*hop_inputs(2, padded=True)),
     }
     units = {"quantize_pack_stochastic": "a launch, flat n, width 4",
-             "quantize_stochastic": "a launch, flat n",
+             "quantize_stochastic": "a launch, flat n, int8 (q=64)",
              "sign_pack": "a step, 161 leaves in one launch, error feedback",
-             "decode_accumulate": "a hop, K=2 w=4 at W=2"}
+             "decode_accumulate": "a hop, K=2 w=4 at W=2, rows padded to 16 "
+                                  "bytes"}
     for name, unit in units.items():
         log_timed(name, unit, out[name])
     sp, qp = out["sign_pack"], out["quantize_pack_stochastic"]
+    qs, da = out["quantize_stochastic"], out["decode_accumulate"]
     sp["pack_only"] = timed(
         lambda: Q.sign_pack_grouped(gs), lambda: Q.sign_pack_grouped_plain(gs),
         4 * n + seg, SIGN_OPS * n, "sign_pack_kernel")
@@ -1076,13 +1209,29 @@ def time_wire_kernels(dev, leaves, flat):
         4 * n + packed(4), PACK_OPS * n, "quantize_pack_kernel")
     log_timed("quantize_pack_stochastic", "a launch, flat n at element "
               "offset 1 (not 16-byte aligned), width 4", qp["unaligned"])
-    ms8, host8 = cuda_time_ms(lambda: Wr.decode_accumulate(st8, sc8, m8, 4),
-                              host=True)
-    bound8 = (2 * st8.shape[1] + 4 * m8) / HBM_BYTES_PER_S * 1e3
-    out["decode_accumulate"]["w8"] = {"ms": ms8, "host_ms": host8,
-                                      "bound_ms": bound8}
-    log(f"  decode_accumulate at W=8 (a hop, n/8): {ms8:.4f} ms, "
-        f"{host8:.4f} ms to enqueue (bound {bound8:.4f} ms by bytes)")
+    qs["int16"] = timed(
+        lambda: Q.quantize_stochastic(flat, norm, 1, 200, torch.int16),
+        lambda: Q.quantize_stochastic_plain(flat, norm, 1, 200, torch.int16),
+        6 * n, QUANT_OPS * n, "quantize_stochastic_kernel")
+    log_timed("quantize_stochastic", "a launch, flat n, int16 (q=200)",
+              qs["int16"])
+    qs["unaligned"] = timed(
+        lambda: Q.quantize_stochastic(shard, shard_norm, 1, 64),
+        lambda: Q.quantize_stochastic_plain(shard, shard_norm, 1, 64),
+        5 * n, QUANT_OPS * n, "quantize_stochastic_kernel")
+    log_timed("quantize_stochastic", "a launch, flat n at element offset 1 "
+              "(not 16-byte aligned), int8", qs["unaligned"])
+    da["contiguous"] = decode_timed(*hop_inputs(2, padded=False))
+    log_timed("decode_accumulate", "a hop, K=2 w=4 at W=2, contiguous rows "
+              "(row 1 off the 16-byte grid)", da["contiguous"])
+    da["w8"] = decode_timed(*hop_inputs(8, padded=True))
+    log_timed("decode_accumulate", "a hop, K=2 w=4 at W=8, rows padded to 16 "
+              "bytes", da["w8"])
+    payload, _ = Q.sign_pack_grouped(gs)
+    da["vote"] = decode_timed(payload[None], torch.ones(1, device=dev),
+                              payload.numel() * 8, sign=True)
+    log_timed("decode_accumulate", f"a step, the grouped vote's K=1 sign "
+              f"decode of {payload.numel()} bytes", da["vote"])
     return out
 
 
@@ -1296,28 +1445,75 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel_name in e.key]
-    seen = sum(e.count for e in hits)
     want = runs * launches_per_call
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+        seen = sum(e.count for e in hits)
+        if seen:
+            break
+        # A profiler session now and then records no kernel at all; one
+        # more session measures the same calls.
+        log(f"  (the profiler recorded no launch of {kernel_name} in "
+            f"{runs} calls; profiling them once more)")
     if not want // 2 <= seen <= want:
+        kernels = sorted({e.key[:60] for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA})
         fail(f"the profiler saw {seen} launches of {kernel_name} in {runs} "
-             f"calls of {launches_per_call}")
+             f"calls of {launches_per_call} (kernels it saw: {kernels})")
     total = sum(getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0))
                 for e in hits)
     return total / seen * launches_per_call / 1e3
 
 
+def times_from(root: str) -> int:
+    """``--times-from ROOT``: phase 8's timings alone, of the kernels of the
+    checkout at ROOT (an earlier commit unpacked with ``git archive``), for
+    a comparison inside one call. Prints one JSON line."""
+    import torch
+    sys.path.insert(0, str(Path(root).resolve()))
+    import grace_tpu_torch
+    if not grace_tpu_torch.__file__.startswith(str(Path(root).resolve())):
+        fail(f"--times-from {root}: imported {grace_tpu_torch.__file__}")
+    from grace_tpu_torch.ops import _build
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    leaves = resnet50_leaves()
+    (flat,) = resnet50_flat_grads(dev, count=1)
+    log(f"[8] the kernels of {root}: wire-path times (flat n={flat.numel()})")
+    print(json.dumps({"times_from": root,
+                      "wire_times": time_wire_kernels(dev, leaves, flat)}))
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
 def main() -> int:
+    # A kernel family disabled by the environment would run its plain
+    # version in place of the kernel, and the checks would compare plain
+    # with plain.
+    switched = sorted(k for k in os.environ
+                      if k.startswith("GRACE_DISABLE_PALLAS"))
+    if switched:
+        print(f"chip_smoke: {', '.join(switched)} set: unset every "
+              "GRACE_DISABLE_PALLAS* variable, which would turn kernels "
+              "off", file=sys.stderr)
+        return 2
+    if len(sys.argv) not in (1, 3) or sys.argv[1:2] not in ([],
+                                                            ["--times-from"]):
+        print("usage: chip_smoke.py [--times-from ROOT]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3:
+        return times_from(sys.argv[2])
     try:
         import grace_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1392,13 +1588,19 @@ def main() -> int:
         cases = check_wire_kernels(dev, leaves, wire_errs)
         sign_cases = check_sign_grouped(dev, leaves, wire_errs)
         view_cases = check_pack_views(dev, wire_errs)
+        layout_cases = check_decode_layouts(dev, wire_errs)
+        vote_cases, vote_numel = check_vote_decode(dev, leaves, wire_errs)
         log(f"[6] wire-path kernels bit-identical to their plain versions in "
             f"{cases} cases on the card; the grouped sign-pack in "
             f"{sign_cases} one-launch cases over {len(leaves)} ResNet-50 "
             f"leaves and {len(SIGN_EDGES)} edge lengths (error feedback at "
             f"two beta,gamma; pack only in three float types and a mix); "
-            f"quantize-and-pack on {view_cases} shard views at element "
-            f"offsets 0-3")
+            f"quantize-and-pack and quantize in {view_cases} cases on shard "
+            f"views at element offsets 0-3; decode_accumulate in "
+            f"{layout_cases} cases over five row layouts (contiguous, an "
+            f"extra byte, padded to 16 bytes, an unaligned base, stride +17) "
+            f"at K in {DECODE_KS + (BIG_K,)}; the vote's decode of the "
+            f"grouped payload ({vote_numel} lanes) in {vote_cases} cases")
         # -- 7. the ring hop -------------------------------------------------
         flat_a, flat_b = resnet50_flat_grads(dev)
         cases, hop_launches = check_ring_hop(dev, flat_a, flat_b, wire_errs)
@@ -1461,9 +1663,9 @@ def main() -> int:
                 ("packed_int_accumulate", "pallas_wire.py", 254,
                  "homoqsgd4_rscatter_fused")):
             t = times[kname] if kname in times else wire_times[kname]
-            extra = {key: t[key] for key in ("pack_only", "one_leaf",
-                                             "width2", "width3", "unaligned")
-                     if key in t}
+            extra = {key: t[key] for key in (
+                "pack_only", "one_leaf", "width2", "width3", "unaligned",
+                "int16", "contiguous", "w8", "vote") if key in t}
             kernels.append({
                 "name": kname, "route": "cuda",
                 "source": "grace_tpu_torch/csrc/" + (

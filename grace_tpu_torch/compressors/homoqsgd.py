@@ -26,8 +26,9 @@ division (``ops/quant.encode_scale_plain``); the decode scale ``scale / q``
 divides by a constant, which XLA compiles into ``scale * float32(1/q)``,
 so the port spells it ``scale * core.mean_scale(q)``.
 
-``use_pallas`` keeps its JAX name: ``False`` runs the packed accumulate as
-staged tensor code, ``True`` and ``'auto'`` through
+``use_pallas`` keeps its JAX name: ``False`` (or the ``wire`` family
+turned off by the environment: ``ops.pallas_mode``) runs the packed
+accumulate as staged tensor code, ``True`` and ``'auto'`` through
 ``ops/wire.packed_int_accumulate`` (the CUDA kernel for CUDA tensors, its
 plain version for CPU tensors). Both are integer-exact, so the knob moves
 only where the add runs.
@@ -43,7 +44,7 @@ import torch.distributed as dist
 
 from grace_tpu_torch.core import (Compressor, Ctx, LeafKey, Payload, State,
                                   mean_scale)
-from grace_tpu_torch.ops import quant, wire
+from grace_tpu_torch.ops import pallas_mode, quant, wire
 from grace_tpu_torch.ops.packing import PACKERS
 
 _ACCUM_DTYPES = ("int8", "int16", "int32", "int64")
@@ -168,7 +169,8 @@ class HomoQSGDCompressor(Compressor):
 
     def wire_fused(self) -> bool:
         """True exactly when the packed accumulate takes its kernel."""
-        return self.accum_bits is not None and self.use_pallas is not False
+        return (self.accum_bits is not None
+                and pallas_mode(self.use_pallas, "wire"))
 
     def payload_add(self, a: Payload, b: Payload) -> Payload:
         if self.accum_bits is None:

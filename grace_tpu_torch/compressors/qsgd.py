@@ -11,10 +11,12 @@ q ≤ 3, 4-bit at q ≤ 7). The norm stays a device tensor.
 ``use_pallas`` keeps its JAX name so the JAX params dicts build unchanged.
 ``False`` selects the staged tensor path, which draws its uniforms with
 ``torch.rand`` from the leaf's generator. ``True`` and ``'auto'`` select
-the kernels of ``ops/quant.py`` (encode) and ``ops/wire.py`` (the ring
-hop's decode→accumulate), which launch the CUDA kernels for CUDA tensors
-and run their plain versions for CPU tensors; their random bits are the
-counter hash under a seed drawn from the leaf's key.
+the kernels of ``ops/quant.py`` (encode, family ``quant``) and
+``ops/wire.py`` (the ring hop's decode→accumulate, family ``wire``),
+which launch the CUDA kernels for CUDA tensors and run their plain
+versions for CPU tensors; their random bits are the counter hash under a
+seed drawn from the leaf's key. The environment can turn either family
+off (``ops.pallas_mode``), as in the JAX package.
 
 The decode scale ``norm / q`` is ``norm * core.mean_scale(q)``: XLA
 compiles the JAX package's division by the constant ``q`` into that
@@ -32,7 +34,7 @@ import torch
 
 from grace_tpu_torch.core import (Compressor, Ctx, LeafKey, Payload, State,
                                   mean_scale)
-from grace_tpu_torch.ops import quant, wire
+from grace_tpu_torch.ops import pallas_mode, quant, wire
 from grace_tpu_torch.ops.packing import PACKERS
 
 
@@ -79,9 +81,6 @@ class QSGDCompressor(Compressor):
     def level_dtype(self) -> torch.dtype:
         return torch.int8 if self.quantum_num < 128 else torch.int16
 
-    def _kernels(self) -> bool:
-        return self.use_pallas is not False
-
     def decode_scale(self, norm: torch.Tensor) -> torch.Tensor:
         """``norm / q`` as XLA computes it: ``norm * float32(1/q)``."""
         return norm * mean_scale(self.quantum_num)
@@ -92,7 +91,7 @@ class QSGDCompressor(Compressor):
         flat = x.reshape(-1)
         norm = torch.linalg.vector_norm(flat)
         q = self.quantum_num
-        if self._kernels():
+        if pallas_mode(self.use_pallas, "quant"):
             seed = rng.seed_int32()
             if self.packed_wire:
                 packed = quant.quantize_pack_stochastic(
@@ -122,21 +121,24 @@ class QSGDCompressor(Compressor):
         return out.reshape(shape)
 
     def wire_fused(self) -> bool:
-        """True exactly when :meth:`decode_accumulate` takes its kernel."""
-        return self._kernels() and self.packed_wire
+        """True exactly when :meth:`decode_accumulate` takes its kernel:
+        the ``wire`` family on and the payload packed."""
+        return self.packed_wire and pallas_mode(self.use_pallas, "wire")
 
     def decode_accumulate(self, payloads, ctxs):
         """The ring hop's decode: K packed payloads → one float32 partial
         through the decode→accumulate kernel, bit-identical to the staged
         ``decompress + decompress`` (same unpack, same sign extension, same
         per-payload ``norm * mean_scale(q)``, same order of additions).
-        The staged spelling runs when the kernels are off, the wire is not
-        packed, the decode dtype is not float32, or the ctxs differ."""
+        The staged spelling runs when the ``wire`` family is off, the
+        wire is not packed, the decode dtype is not float32, or the ctxs
+        differ. The payloads are stacked into rows that start on 16
+        bytes (``wire.stack_payloads``)."""
         shape, dtype = ctxs[0]
         if (not self.wire_fused() or dtype != torch.float32
                 or any(tuple(c[:2]) != (shape, dtype) for c in ctxs)):
             return super().decode_accumulate(payloads, ctxs)
-        stacked = torch.stack([p[0] for p in payloads])
+        stacked = wire.stack_payloads([p[0] for p in payloads])
         scales = torch.stack([self.decode_scale(p[1].reshape(()).float())
                               for p in payloads])
         out = wire.decode_accumulate(stacked, scales, _numel(shape),

@@ -4,9 +4,11 @@ package's ``compressors/signsgd.py``.
 The wire is the sign mask ``x >= 0`` packed 8 per byte; decode is ``±1``;
 ``aggregate`` is the majority vote (sum, then re-sign with ties to +1);
 ``average=False``. Sign extraction is deterministic, so the kernel path
-(``use_pallas`` True or ``'auto'``: ``ops/quant.sign_pack`` and the sign
-branch of ``ops/wire.decode_accumulate``) and the staged path
-(``use_pallas=False``) agree bit for bit everywhere.
+(``use_pallas`` True or ``'auto'``: ``ops/quant.sign_pack``, family
+``quant``, and the sign branch of ``ops/wire.decode_accumulate``, family
+``wire``) and the staged path (``use_pallas=False``, or the family turned
+off by the environment: ``ops.pallas_mode``) agree bit for bit
+everywhere.
 
 Over many leaves (``fusion="none"`` under the all-reduce vote), the kernel
 path packs every leaf whose gates pass in one grouped sign-pack launch
@@ -22,7 +24,7 @@ import dataclasses
 import torch
 
 from grace_tpu_torch.core import Compressor, Ctx, LeafKey, Payload, State
-from grace_tpu_torch.ops import quant, wire
+from grace_tpu_torch.ops import pallas_mode, quant, wire
 from grace_tpu_torch.ops.packing import pack_bits, unpack_bits
 
 
@@ -47,11 +49,8 @@ class SignSGDCompressor(Compressor):
             raise ValueError(f"use_pallas must be True, False or 'auto'; "
                              f"got {self.use_pallas!r}")
 
-    def _kernels(self) -> bool:
-        return self.use_pallas is not False
-
     def _pack(self, flat: torch.Tensor) -> torch.Tensor:
-        if self._kernels():
+        if pallas_mode(self.use_pallas, "quant"):
             return quant.sign_pack(flat)
         return pack_bits(flat >= 0)
 
@@ -70,7 +69,8 @@ class SignSGDCompressor(Compressor):
         return (summed >= 0).to(stacked.dtype) * 2 - 1
 
     def wire_fused(self) -> bool:
-        return self._kernels()
+        """True exactly when the sign decodes take their kernel."""
+        return pallas_mode(self.use_pallas, "wire")
 
     def fused_feedback_compress_leaves(self, xs, states, coeffs, rngs):
         """The grouped compress of the vote's per-leaf path: every leaf
@@ -80,9 +80,9 @@ class SignSGDCompressor(Compressor):
         compensates, packs and writes the new residual (in place on CUDA).
         The gates read shapes and dtypes only, so every rank takes the same
         leaves. Returns ``(taken, (payload,), ctx, new_states)`` or None
-        where no leaf passes; per leaf, bit-identical to ``compensate →
-        compress → update``."""
-        if not self._kernels():
+        where no leaf passes or the ``quant`` family is off; per leaf,
+        bit-identical to ``compensate → compress → update``."""
+        if not pallas_mode(self.use_pallas, "quant"):
             return None
         taken = []
         for i, (x, state) in enumerate(zip(xs, states)):
@@ -114,8 +114,12 @@ class SignSGDCompressor(Compressor):
     def decompress_leaves(self, payload, ctx) -> torch.Tensor:
         """The ±1 float32 decode of a grouped payload, one pass over all of
         it (padding lanes included: they decode to -1): leaf ``l`` sits at
-        element ``8 * plan.boff[l]``. :meth:`leaf_views` cuts it up."""
+        element ``8 * plan.boff[l]``. :meth:`leaf_views` cuts it up. The
+        ``wire`` family's kernel, or the staged unpack where it is off."""
         (packed,) = payload
+        if not self.wire_fused():
+            return _signs_to_float(unpack_bits(packed, packed.numel() * 8),
+                                   torch.float32)
         ones = torch.ones(1, dtype=torch.float32, device=packed.device)
         return wire.decode_accumulate(packed[None], ones, packed.numel() * 8,
                                       1, sign=True)
@@ -133,10 +137,10 @@ class SignSGDCompressor(Compressor):
         one kernel, bit-identical to the staged ``decompress +
         decompress`` (small integers, exact in float32)."""
         numel, shape, dtype = ctxs[0]
-        if (not self._kernels() or dtype != torch.float32
+        if (not self.wire_fused() or dtype != torch.float32
                 or any(tuple(c) != (numel, shape, dtype) for c in ctxs)):
             return super().decode_accumulate(payloads, ctxs)
-        stacked = torch.stack([p[0] for p in payloads])
+        stacked = wire.stack_payloads([p[0] for p in payloads])
         scales = torch.ones(stacked.shape[0], dtype=torch.float32,
                             device=stacked.device)
         out = wire.decode_accumulate(stacked, scales, numel, 1, sign=True)

@@ -10,7 +10,8 @@ strided chunk (column ``c`` of the ``(rows, k)`` view), so indices are
 with no PyTorch counterpart; it raises ``NotImplementedError`` here.
 
 ``use_pallas`` keeps its JAX name so the JAX params dicts build unchanged.
-Its meaning in the port: ``False`` selects the staged tensor path;
+Its meaning in the port: ``False`` (or the ``topk`` family turned off by
+the environment: ``ops.pallas_mode``) selects the staged tensor path;
 ``True`` and ``'auto'`` select the fused chunk kernels, which launch the
 CUDA kernel for CUDA tensors and run the kernel's plain version for CPU
 tensors. (In the JAX package ``'auto'`` means staged, a choice measured on
@@ -24,7 +25,7 @@ import dataclasses
 import torch
 
 from grace_tpu_torch.core import Compressor, Ctx, LeafKey, Payload, State
-from grace_tpu_torch.ops import chunk_topk
+from grace_tpu_torch.ops import chunk_topk, pallas_mode
 from grace_tpu_torch.ops.sparse import chunkwise_dense, scatter_dense
 
 
@@ -59,16 +60,24 @@ class TopKCompressor(Compressor):
             raise ValueError(f"use_pallas must be True, False or 'auto'; "
                              f"got {self.use_pallas!r}")
 
-    def _fused_k(self, numel: int, dtype) -> int | None:
-        """k when the fused chunk kernels apply, else None (staged path).
-        The gates are semantic: the kernels select per chunk, compute and
-        ship float32, and need at least two rows."""
-        if self.algorithm != "chunk" or self.use_pallas is False:
-            return None
+    def _kernel_path(self) -> bool:
+        """The chunk algorithm with the ``topk`` kernel family on."""
+        return (self.algorithm == "chunk"
+                and pallas_mode(self.use_pallas, "topk"))
+
+    def _chunk_k(self, numel: int, dtype) -> int | None:
+        """k where a leaf passes the kernels' semantic gates (they compute
+        and ship float32 and need at least two rows), else None."""
         if dtype != torch.float32:
             return None
         k = static_k(numel, self.compress_ratio)
         return k if numel >= 2 * k else None
+
+    def _fused_k(self, numel: int, dtype) -> int | None:
+        """k when the fused chunk kernels apply, else None (staged path)."""
+        if not self._kernel_path():
+            return None
+        return self._chunk_k(numel, dtype)
 
     def fused_feedback_compress(self, x: torch.Tensor, state, coeffs,
                                 rng: LeafKey):
@@ -100,10 +109,13 @@ class TopKCompressor(Compressor):
         of the leaves taken, their payloads concatenated in leaf order
         (``(values[K], indices[K])``, wire indices ``win_row*k + c``), the
         decode ctx of the group and their new residuals; or None where no
-        leaf passes. Per leaf, bit-identical to the one-leaf path."""
+        leaf passes or the kernel path is off. Per leaf, bit-identical to
+        the one-leaf path."""
+        if not self._kernel_path():            # one switch read a step
+            return None
         taken, ks = [], []
         for i, (x, state) in enumerate(zip(xs, states)):
-            k = self._fused_k(x.numel(), x.dtype)
+            k = self._chunk_k(x.numel(), x.dtype)
             if (k is not None and state is not None
                     and state.dtype == torch.float32 and x.is_contiguous()
                     and state.is_contiguous()):

@@ -17,20 +17,23 @@
 // for quantize-and-pack, so its packing costs few instructions.
 //
 // What the designs do about it:
-//   * quantize: one thread an element in a grid-stride loop (the first,
-//     simple design, not yet revisited).
-//   * quantize-and-pack: a warp takes rows of 128 elements, lane l the four
-//     elements 4l..4l+3 of a row through one 16-byte load (four guarded
-//     scalar loads where the input does not start on a 16-byte boundary, as
-//     a ring shard view at any element offset may not, or past n). A lane
-//     packs its 4 codes into 4*width bits; a row's 4*width words are then
-//     assembled by lanes 0..4*width-1 from their neighbours' bits with warp
-//     shuffles and stored as whole 32-bit words (at width 3 a code may
-//     straddle two words). Each warp iteration loads kPackRows rows before
-//     it packs any, so 64 bytes a lane are in flight; the grid holds as many
-//     blocks as the SMs keep resident and strides over the rest. Index math
-//     is 32-bit below 2^31 elements, the hash block split by shift and mask,
-//     and the encode scale is computed once a block.
+//   * quantize and quantize-and-pack share one loop: a warp takes rows of
+//     128 elements, lane l the four elements 4l..4l+3 of a row through one
+//     16-byte load (four guarded scalar loads where the input does not
+//     start on a 16-byte boundary, as a ring shard view at any element
+//     offset may not, or past n). Each warp iteration loads kPackRows rows
+//     before it uses any, so 64 bytes a lane are in flight; the grid holds
+//     as many blocks as the SMs keep resident (resident.cuh) and strides
+//     over the rest. Index math is 32-bit below 2^31 elements, the hash
+//     block split by shift and mask, and the encode scale is computed once
+//     a block into shared memory.
+//   * quantize stores lane l's four levels as one 4-byte (int8) or 8-byte
+//     (int16) word, so a warp's store covers 128 or 256 contiguous bytes;
+//     a ragged tail takes guarded scalar stores.
+//   * quantize-and-pack: a lane packs its 4 codes into 4*width bits; a
+//     row's 4*width words are then assembled by lanes 0..4*width-1 from
+//     their neighbours' bits with warp shuffles and stored as whole 32-bit
+//     words (at width 3 a code may straddle two words).
 //   * sign-pack: one launch over a table of up to kMaxLeaves leaves, passed
 //     by value as a __grid_constant__ parameter, with a tile prefix and a
 //     binary-search leaf lookup (as csrc/chunk_topk.cu does). A block takes
@@ -71,14 +74,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resident.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int64_t kHashBlock = 64 * 256;
 constexpr int kHashShift = 14;                // kHashBlock = 1 << kHashShift
-constexpr int64_t kMaxBlocks = 1 << 20;
-constexpr int kPackRows = 4;                  // quantize-and-pack: rows a warp iteration
+constexpr int kPackRows = 4;                  // quantize(-and-pack): rows a warp iteration
 constexpr int kMaxLeaves = 256;               // sign-pack: leaves a launch
 constexpr int kSignWarpWords = 16;            // sign-pack: words a warp
 constexpr int kSignTileWords = kWarps * kSignWarpWords;   // words a block
@@ -95,9 +99,13 @@ __device__ __forceinline__ uint32_t hash_mix(uint32_t seed, uint32_t local,
   return h ^ (h >> 16);
 }
 
-__device__ __forceinline__ uint32_t hash_bits(uint32_t seed, int64_t g) {
-  return hash_mix(seed, static_cast<uint32_t>(g % kHashBlock),
-                  static_cast<uint32_t>(g / kHashBlock));
+// The random bits of flat element e: its local counter in the Pallas
+// (64, 256) hash block and the block's index, by mask and shift.
+template <typename Idx>
+__device__ __forceinline__ uint32_t element_bits(uint32_t seed, Idx e) {
+  return hash_mix(
+      seed, static_cast<uint32_t>(e) & static_cast<uint32_t>(kHashBlock - 1),
+      static_cast<uint32_t>(e >> kHashShift));
 }
 
 __device__ __forceinline__ float encode_scale(const float* norm, int q) {
@@ -117,21 +125,6 @@ __device__ __forceinline__ float signed_level(float x, float scale,
   return __fmul_rn(level, sgn);
 }
 
-template <typename T>
-__global__ void quantize_stochastic_kernel(const float* x, const float* norm,
-                                           T* out, int64_t n, int q,
-                                           uint32_t seed, float lo, float hi) {
-  const float scale = encode_scale(norm, q);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       g < n; g += stride) {
-    const float s = signed_level(x[g], scale, hash_bits(seed, g));
-    out[g] = static_cast<T>(static_cast<int>(fminf(fmaxf(s, lo), hi)));
-  }
-}
-
-// -- quantize-and-pack --------------------------------------------------------
-
 // Elements e..e+3 (0.0 past n): one 16-byte load where x is 16-byte aligned
 // and all four are real, else four guarded scalar loads.
 template <typename Idx>
@@ -146,15 +139,123 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ x, Idx e,
   return v;
 }
 
+// -- quantize -----------------------------------------------------------------
+
+// The saturated int level of element e holding v.
+template <typename Idx>
+__device__ __forceinline__ int quantize_level(float v, Idx e, float scale,
+                                              uint32_t seed, float lo,
+                                              float hi) {
+  const float s = signed_level(v, scale, element_bits(seed, e));
+  return static_cast<int>(fminf(fmaxf(s, lo), hi));
+}
+
+// Levels of elements e..e+3 to out: one 4-byte (int8) or 8-byte (int16)
+// store where all four are real (out is aligned to the word; e is a
+// multiple of 4), else guarded scalar stores.
+template <typename T, typename Idx>
+__device__ __forceinline__ void store4(T* __restrict__ out, Idx e, Idx n,
+                                       int a, int b, int c, int d) {
+  if (e + 4 <= n) {
+    if (sizeof(T) == 1) {
+      *reinterpret_cast<uint32_t*>(out + e) =
+          (static_cast<uint32_t>(a) & 0xFFu) |
+          (static_cast<uint32_t>(b) & 0xFFu) << 8 |
+          (static_cast<uint32_t>(c) & 0xFFu) << 16 |
+          static_cast<uint32_t>(d) << 24;
+    } else {
+      *reinterpret_cast<uint2*>(out + e) = make_uint2(
+          (static_cast<uint32_t>(a) & 0xFFFFu) | static_cast<uint32_t>(b) << 16,
+          (static_cast<uint32_t>(c) & 0xFFFFu) | static_cast<uint32_t>(d) << 16);
+    }
+    return;
+  }
+  if (e < n) out[e] = static_cast<T>(a);
+  if (e + 1 < n) out[e + 1] = static_cast<T>(b);
+  if (e + 2 < n) out[e + 2] = static_cast<T>(c);
+}
+
+// out: n levels of type T, its start aligned to 4 * sizeof(T) bytes.
+template <typename T, typename Idx>
+__global__ void __launch_bounds__(kThreads)
+quantize_stochastic_kernel(const float* __restrict__ x, const float* norm,
+                           T* __restrict__ out, Idx n, int q, uint32_t seed,
+                           float lo, float hi, int aligned) {
+  __shared__ float s_scale;
+  if (threadIdx.x == 0) s_scale = encode_scale(norm, q);
+  __syncthreads();
+  const float scale = s_scale;
+  const int lane = threadIdx.x & 31;
+  const Idx rows = (n + 127) / 128;
+  const Idx groups = (rows + kPackRows - 1) / kPackRows;
+  const Idx warps = static_cast<Idx>(gridDim.x) * kWarps;
+  for (Idx gi = static_cast<Idx>(blockIdx.x) * kWarps + threadIdx.x / 32;
+       gi < groups; gi += warps) {
+    const Idx r0 = gi * kPackRows;
+    float4 v[kPackRows];
+#pragma unroll
+    for (int k = 0; k < kPackRows; ++k) {
+      v[k] = load4(x, (r0 + k) * 128 + 4 * lane, n, aligned != 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kPackRows; ++k) {
+      const Idx e = (r0 + k) * 128 + 4 * lane;
+      if (e >= n) break;                         // later rows are past n too
+      store4(out, e, n, quantize_level(v[k].x, e, scale, seed, lo, hi),
+             quantize_level(v[k].y, e + 1, scale, seed, lo, hi),
+             quantize_level(v[k].z, e + 2, scale, seed, lo, hi),
+             quantize_level(v[k].w, e + 3, scale, seed, lo, hi));
+    }
+  }
+}
+
+// Launches `kernel`, a kernel of the rows of 128 elements of x (quantize,
+// quantize-and-pack), over n elements on a resident grid; `cache` holds
+// its resident blocks by device.
+template <typename Kernel, typename... Args>
+cudaError_t launch_rows(Kernel kernel, unsigned int* cache, int64_t n,
+                        cudaStream_t s, Args... args) {
+  const int64_t groups = ((n + 127) / 128 + kPackRows - 1) / kPackRows;
+  unsigned int grid = 0;
+  const cudaError_t err = resident::grid(kernel, kThreads, cache,
+                                         (groups + kWarps - 1) / kWarps, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, 0, s>>>(args...);
+  return cudaGetLastError();
+}
+
+inline int aligned16(const float* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+template <typename T, typename Idx>
+cudaError_t launch_quantize(const float* x, const float* norm, T* out,
+                            int64_t n, int q, uint32_t seed, float lo,
+                            float hi, cudaStream_t s) {
+  static unsigned int cache[resident::kDevices] = {};   // this kernel's
+  return launch_rows(quantize_stochastic_kernel<T, Idx>, cache, n, s, x, norm,
+                     out, static_cast<Idx>(n), q, seed, lo, hi, aligned16(x));
+}
+
+template <typename T>
+cudaError_t launch_quantize_type(const float* x, const float* norm, T* out,
+                                 int64_t n, int q, uint32_t seed, float lo,
+                                 float hi, cudaStream_t s) {
+  if (n < (int64_t{1} << 31)) {
+    return launch_quantize<T, uint32_t>(x, norm, out, n, q, seed, lo, hi, s);
+  }
+  return launch_quantize<T, uint64_t>(x, norm, out, n, q, seed, lo, hi, s);
+}
+
+// -- quantize-and-pack --------------------------------------------------------
+
 // The W-bit two's-complement code of element e holding v (0 past n).
 template <int W, typename Idx>
 __device__ __forceinline__ uint32_t pack_code(float v, Idx e, Idx n,
                                               float scale, float qf,
                                               uint32_t seed) {
-  const uint32_t bits = hash_mix(
-      seed, static_cast<uint32_t>(e) & static_cast<uint32_t>(kHashBlock - 1),
-      static_cast<uint32_t>(e >> kHashShift));
-  const float s = fminf(fmaxf(signed_level(v, scale, bits), -qf), qf);
+  const float s =
+      fminf(fmaxf(signed_level(v, scale, element_bits(seed, e)), -qf), qf);
   // Masking the int's two's complement is code + 2^W for a negative level.
   const uint32_t code = static_cast<uint32_t>(static_cast<int>(s)) &
                         ((1u << W) - 1u);
@@ -219,42 +320,12 @@ quantize_pack_kernel(const float* __restrict__ x, const float* norm,
   }
 }
 
-// Blocks of `kernel` that the SMs of device `dev` keep resident; 0 when the
-// runtime cannot say.
-template <typename Kernel>
-unsigned int resident_blocks(Kernel kernel, int dev) {
-  int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                    0) != cudaSuccess) {
-    return 0;
-  }
-  return static_cast<unsigned int>(sms * (per_sm > 0 ? per_sm : 1));
-}
-
 template <int W, typename Idx>
 cudaError_t launch_pack(const float* x, const float* norm, uint32_t* out,
                         int64_t n, int q, uint32_t seed, cudaStream_t s) {
-  constexpr int kDevices = 64;
-  static unsigned int cached[kDevices] = {};   // by device, this kernel
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  unsigned int resident = dev < kDevices ? cached[dev] : 0;
-  if (resident == 0) {
-    resident = resident_blocks(quantize_pack_kernel<W, Idx>, dev);
-    if (resident == 0) return cudaGetLastError();
-    if (dev < kDevices) cached[dev] = resident;
-  }
-  const int64_t groups = ((n + 127) / 128 + kPackRows - 1) / kPackRows;
-  const int64_t want = (groups + kWarps - 1) / kWarps;
-  const unsigned int grid =
-      static_cast<unsigned int>(want < resident ? want : resident);
-  const int aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  quantize_pack_kernel<W, Idx><<<grid, kThreads, 0, s>>>(
-      x, norm, out, static_cast<Idx>(n), q, seed, aligned);
-  return cudaGetLastError();
+  static unsigned int cache[resident::kDevices] = {};   // this kernel's
+  return launch_rows(quantize_pack_kernel<W, Idx>, cache, n, s, x, norm, out,
+                     static_cast<Idx>(n), q, seed, aligned16(x));
 }
 
 template <int W>
@@ -352,30 +423,29 @@ sign_pack_kernel(const __grid_constant__ SignTable tab,
   }
 }
 
-inline unsigned int blocks_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;   // grid-stride covers the rest
-  return static_cast<unsigned int>(blocks < 1 ? 1 : blocks);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Each returns the cudaError_t (0 = success) of its launch.
+// out: n int8 (out_int16 = 0) or int16 levels, 4-byte or 8-byte aligned.
 int grace_quantize_stochastic(const float* x, const float* norm, void* out,
                               int64_t n, int q, uint32_t seed, int out_int16,
                               void* stream) {
-  if (n <= 0 || q < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_int16) {
-    quantize_stochastic_kernel<int16_t><<<blocks_for(n), kThreads, 0, s>>>(
-        x, norm, static_cast<int16_t*>(out), n, q, seed, -32768.0f, 32767.0f);
-  } else {
-    quantize_stochastic_kernel<int8_t><<<blocks_for(n), kThreads, 0, s>>>(
-        x, norm, static_cast<int8_t*>(out), n, q, seed, -128.0f, 127.0f);
+  if (n <= 0 || q < 1 ||
+      reinterpret_cast<uintptr_t>(out) % (out_int16 ? 8 : 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (out_int16) {
+    err = launch_quantize_type(x, norm, static_cast<int16_t*>(out), n, q,
+                               seed, -32768.0f, 32767.0f, s);
+  } else {
+    err = launch_quantize_type(x, norm, static_cast<int8_t*>(out), n, q, seed,
+                               -128.0f, 127.0f, s);
+  }
+  return static_cast<int>(err);
 }
 
 // out: ceil(n / 128) * 16 * width bytes, 4-byte aligned (whole words of

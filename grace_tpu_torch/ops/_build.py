@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``*.cu`` file under ``grace_tpu_torch/csrc`` is compiled for Hopper
-(``sm_90a``) into a shared library with a plain C interface. The library's
-file name carries a hash of its source and of the compiler flags, so a
-changed source is rebuilt and an unchanged one is reused. Builds go to
+(``sm_90a``) into a shared library with a plain C interface; the ``*.cuh``
+headers beside them are included, not compiled. The library's file name
+carries a hash of its source, of every header and of the compiler flags,
+so a changed source or header is rebuilt and an unchanged one is reused. Builds go to
 ``grace_tpu_torch/_build`` (listed in ``.gitignore``) at first use: a
 fresh checkout builds its kernels on the first call that launches one.
 Sources are compiled in parallel, one ``nvcc`` process each.
@@ -54,6 +55,8 @@ def sources() -> Dict[str, Path]:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 

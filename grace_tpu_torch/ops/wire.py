@@ -29,15 +29,30 @@ import torch
 from grace_tpu_torch.ops import _build
 from grace_tpu_torch.ops.packing import PACKERS
 
-__all__ = ["decode_accumulate", "decode_accumulate_plain",
+__all__ = ["decode_accumulate", "decode_accumulate_plain", "stack_payloads",
            "packed_int_accumulate", "packed_int_accumulate_plain",
-           "WIRE_WIDTHS", "ACCUM_WIDTHS"]
+           "WIRE_WIDTHS", "ACCUM_WIDTHS", "ROW_ALIGN"]
 
 # The pack widths decoded here: the sign mask plus qsgd's two's-complement
 # fields (ops/packing.py declares the layouts).
 WIRE_WIDTHS = (1, 2, 3, 4)
 # The two's-complement field widths that homoqsgd's packed levels ride.
 ACCUM_WIDTHS = (2, 3, 4)
+# The decode kernel reads payload rows that start on 16-byte boundaries
+# with 16-byte loads (others with byte loads).
+ROW_ALIGN = 16
+
+
+def stack_payloads(payloads) -> torch.Tensor:
+    """K equal-length uint8 payloads → a ``(K, nbytes)`` view of a buffer
+    whose rows are ``nbytes`` rounded up to ``ROW_ALIGN`` bytes, so that
+    every row starts on a 16-byte boundary for :func:`decode_accumulate`.
+    The one copy ``torch.stack`` makes, into the padded rows."""
+    nbytes = payloads[0].numel()
+    pitch = -(-nbytes // ROW_ALIGN) * ROW_ALIGN
+    buf = torch.empty((len(payloads), pitch), dtype=torch.uint8,
+                      device=payloads[0].device)
+    return torch.stack(payloads, out=buf[:, :nbytes])
 
 
 def _check_args(stacked: torch.Tensor, scales: torch.Tensor, numel: int,
@@ -63,7 +78,7 @@ def _check_args(stacked: torch.Tensor, scales: torch.Tensor, numel: int,
 def decode_accumulate_plain(stacked: torch.Tensor, scales: torch.Tensor,
                             numel: int, width: int, sign: bool = False,
                             vote: bool = False) -> torch.Tensor:
-    """``(K, nbytes)`` uint8 payloads in accumulation order and their
+    """``(K, >= nbytes)`` uint8 payloads in accumulation order and their
     ``(K,)`` float32 decode scales → the length-``numel`` float32 partial
     ``Σ_k scale_k·level_k`` (or ``Σ ±1`` with ``sign``; ``vote`` re-signs
     the sum, ties to +1); the plain version of the kernel."""
@@ -89,8 +104,8 @@ def decode_accumulate_plain(stacked: torch.Tensor, scales: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library("wire")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.grace_decode_accumulate.argtypes = [p, p, p, i64, i64, i64, i32, i32,
-                                            i32, p]
+    lib.grace_decode_accumulate.argtypes = [p, i64, p, p, i64, i64, i64, i32,
+                                            i32, i32, p]
     lib.grace_decode_accumulate.restype = ctypes.c_int
     lib.grace_packed_int_accumulate.argtypes = [p, p, i64, i64, i64, i32,
                                                 i32, p]
@@ -102,7 +117,10 @@ def decode_accumulate(stacked: torch.Tensor, scales: torch.Tensor,
                       numel: int, width: int, sign: bool = False,
                       vote: bool = False) -> torch.Tensor:
     """Fused decode→accumulate of K packed payloads into one float32
-    partial, one pass over the output. Bit-identical to
+    partial, one pass over the output. ``stacked``'s rows may lie at any
+    stride (``stacked.stride(1) == 1``): the kernel reads them in place,
+    with 16-byte loads where every row starts on 16 bytes
+    (:func:`stack_payloads` stacks them so). Bit-identical to
     :func:`decode_accumulate_plain`."""
     if stacked.device.type == "cpu":
         return decode_accumulate_plain(stacked, scales, numel, width, sign,
@@ -110,15 +128,17 @@ def decode_accumulate(stacked: torch.Tensor, scales: torch.Tensor,
     if stacked.device.type != "cuda":
         raise ValueError(f"no decode_accumulate for {stacked.device}")
     _check_args(stacked, scales, numel, width, sign, vote)
-    stacked = stacked.contiguous()
+    if stacked.stride(1) != 1 and stacked.shape[1] > 1:
+        raise ValueError(f"decode_accumulate reads each payload row as "
+                         f"bytes in order; got strides {stacked.stride()}")
     scales = scales.contiguous()
     out = torch.empty(numel, dtype=torch.float32, device=stacked.device)
     if numel:
         with torch.cuda.device(stacked.device):
             err = _lib().grace_decode_accumulate(
-                stacked.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                stacked.shape[0], stacked.shape[1], numel, int(width),
-                int(sign), int(vote),
+                stacked.data_ptr(), stacked.stride(0), scales.data_ptr(),
+                out.data_ptr(), stacked.shape[0], stacked.shape[1], numel,
+                int(width), int(sign), int(vote),
                 torch.cuda.current_stream(stacked.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"decode_accumulate: CUDA kernel launch "

@@ -129,6 +129,30 @@ def test_decode_accumulate_arbitrary_scales(width, k):
     assert np.abs(got - want).max() <= (k - 1) * ulp
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("width,sign,vote", MODES)
+def test_decode_accumulate_row_strided_matches_pallas(width, sign, vote, k):
+    """Payload rows at any stride, as the CUDA wrapper reads them in place:
+    the rows of ``wire.stack_payloads`` (padded to 16 bytes) and rows 17
+    bytes apart give the bits of the contiguous stack, and those equal the
+    interpret-mode Pallas kernel's (power-of-two scales)."""
+    numel = 1001                       # rows of 126, 251, 376 or 501 bytes
+    stacked, scales = _payloads(numel, width, k, seed=100 * k + 10 * width)
+    nbytes = stacked.shape[1]
+    padded = wire.stack_payloads([torch.from_numpy(r) for r in stacked])
+    assert padded.shape == (k, nbytes) and padded.stride(1) == 1
+    assert padded.stride(0) % wire.ROW_ALIGN == 0
+    assert padded.stride(0) == -(-nbytes // 16) * 16
+    wide = torch.zeros((k, nbytes + 17), dtype=torch.uint8)
+    wide[:, :nbytes] = torch.from_numpy(stacked)
+    want = _jax(stacked, scales, numel, width, sign, vote)
+    for st in (torch.from_numpy(stacked), padded, wide[:, :nbytes]):
+        got = wire.decode_accumulate(st, torch.from_numpy(scales), numel,
+                                     width, sign, vote).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
 def test_wrapper_gates_and_plain_only_on_cpu():
     stacked, scales = _payloads(100, 4, 2, seed=0)
     before = wire.decode_accumulate.launches
