@@ -9,9 +9,19 @@ collectives are real calls). Every phase passes or ends the script with a
 non-zero exit; nothing is caught and allowed to continue. It refuses to
 start while any GRACE_DISABLE_PALLAS* variable is set: a kernel family
 turned off would make its checks compare plain versions with themselves.
-With ``--times-from ROOT`` it runs phase 8's timings alone, of the
-kernels of the checkout at ROOT (an earlier commit, unpacked with
-``git archive``), so that two versions compare within one call.
+With ``--times-from ROOT`` it runs phase 8's and phase 12's timings
+alone, of the kernels of the checkout at ROOT (an earlier commit, unpacked
+with ``git archive``), so that two versions compare within one call.
+
+Every timed kernel row of phases 3, 8 and 12 reads the kernel alone with
+two clocks: the profiler's device time of the kernel, and CUDA events
+around R back-to-back calls queued behind a ``torch.cuda._sleep``
+(divided by R); and both again with the card's L2 cache flushed before
+each call (an input of up to ~40 MB stays in the 50 MB L2 from one call
+to the next). A profiler reading under the kernel's bound, or more than
+25% from the event reading, is printed on a line of its own
+(``MEASUREMENT FAULT``): a fault of the measurement, which does not fail
+the run.
 
 1. Identify the card and build the CUDA kernels from grace_tpu_torch/csrc
    (one nvcc process per source, all started together).
@@ -25,7 +35,8 @@ kernels of the checkout at ROOT (an earlier commit, unpacked with
 3. Time the grouped chunk Top-K kernels at the main path's shapes (all 161
    ResNet-50 leaves in one launch), beside their byte bound, the kernel
    alone, their plain versions and a one-call library yardstick, and the
-   161 one-leaf calls that the main path made before it was grouped.
+   161 one-leaf calls that the main path made before it was grouped; the
+   yardstick's scatter kernel alone too.
 4. Check the port against a reference on a small input: a reduced ResNet
    on the card against the same model on the CPU (forward and backward
    within a tolerance, then the GRACE exchange of identical gradients bit
@@ -77,16 +88,24 @@ The homomorphic path:
     the card, byte for byte: widths 2, 3 and 4; K in {1, 2, 3, 7} with
     levels bounded to the field; one wrap case a width; lengths around the
     byte and 3-byte boundaries, every distinct ResNet-50 leaf size and the
-    flat gradient; one input that is not 4-byte aligned.
+    flat gradient; one input that is not 4-byte aligned. Then random bytes
+    (sums that leave the field) over the five row layouts of phase 6 at
+    numel = every slot, one fewer and half, through the stacked entry and
+    the rows entry (``packed_int_accumulate_rows``), and rows from separate
+    allocations on and off the 16-byte grid, at K in {1, 2, 3, 7, 40}
+    (K=40: more rows than the kernel's table, chained launches).
 11. The packed hop: two ranks' real ResNet-50 flat gradients, encoded by
     homoqsgd (q=1, 4-bit fields at W in {2, 4, 7}, 3-bit at W in {2, 3})
     against their shared scale, each shard's W payloads summed as the ring
     hop (``payload_add``) and the reduce-scatter (``payload_sum``) call
     the kernel: byte for byte against the plain version and the staged
-    unpack -> add -> repack, and the true integer sum of the levels. Then
-    a lattice input through the one-card reduce-scatter comes back exact.
+    unpack -> add -> repack, and the true integer sum of the levels; each
+    call launches the kernel once and allocates only its output (the
+    payloads are read in place, not stacked). Then a lattice input through
+    the one-card reduce-scatter comes back exact.
 12. Time the kernel at K=1 on the flat buffer, K=2 on a W=2 shard and K=7
-    on a W=7 shard.
+    on a W=7 shard, on a contiguous stack and on the rows the callers pass
+    (K=2 at width 3 too), and the ring hop's whole ``payload_add`` call.
 13. Train full-width ResNet-50 under the homomorphic path's configurations
     (homoqsgd4_ring_bs256, the fused 4-bit homoqsgd over the reduce-
     scatter, topk1pct_rscatter_bs256) and assert their launches a step.
@@ -99,6 +118,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -244,6 +264,140 @@ def cuda_time_ms(fn, runs: int = TIMING_RUNS, host: bool = False):
     if host:
         return statistics.median(times), statistics.median(host_times)
     return statistics.median(times)
+
+
+EVENT_LAUNCHES = 512      # launches queued at most behind the sleep
+L2_FLUSH_BYTES = 128 << 20  # read between calls: over twice the 50 MB L2
+
+
+@functools.cache
+def _flush_buffer():
+    import torch
+    return torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+
+
+def flush_l2() -> None:
+    """Fill the card's L2 cache with clean lines of a buffer of its own
+    (a read, so nothing dirty is left to write back during the next
+    kernel): the next call finds its inputs in device memory, as a caller
+    whose data has left the cache would."""
+    _flush_buffer().amax()
+
+
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond on this card,
+    measured once with CUDA events."""
+    import torch
+    cycles = 20_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def event_device_ms(fn, runs: int = TIMING_RUNS, launches_per_call: int = 1,
+                    cold: bool = False):
+    """A second device time of one call of ``fn``, independent of the
+    profiler, from CUDA events on calls that the host queued behind a
+    ``torch.cuda._sleep``, so that the device runs them with no wait for
+    the host: around ``runs`` back-to-back calls, over ``runs``; with
+    ``cold``, around each call, the L2 flushed before each (flush_l2), the
+    mean. It holds every device operation ``fn`` enqueues (and, back to
+    back, the gaps between launches). None when the host could not queue
+    the calls inside the sleep (a call that synchronises, or launches that
+    fill the queue)."""
+    import torch
+    runs = max(1, min(runs, EVENT_LAUNCHES // launches_per_call))
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def enqueue():
+        if not cold:
+            pairs = [(event(), event())]
+            pairs[0][0].record()
+            for _ in range(runs):
+                fn()
+            pairs[0][1].record()
+            return pairs
+        pairs = []
+        for _ in range(runs):
+            flush_l2()
+            pairs.append((event(), event()))
+            pairs[-1][0].record()
+            fn()
+            pairs[-1][1].record()
+        return pairs
+
+    enqueue()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enqueue()
+    sleep_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        t0 = time.perf_counter()
+        pairs = enqueue()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if queued_ms < sleep_ms:            # all queued before the first ran
+            return sum(a.elapsed_time(b) for a, b in pairs) / runs
+        sleep_ms *= 4
+    return None
+
+
+def cross_check(name: str, unit: str, t: dict) -> None:
+    """Print, on a line of its own, a kernel-alone reading of the profiler
+    that lies under the kernel's bound, or more than 25% from the event
+    reading of the same calls back to back; or, with the L2 flushed, more
+    than 25% over the event pairs that bracket each call (those add the
+    launch of a kernel after a recorded event, a few microseconds, so they
+    read more than the kernel and never less). A fault of the measurement,
+    not of the kernel, so the run goes on. Neither number replaces the
+    other."""
+    b = t["bound_ms"]
+    for how, k, e in (("warm", t["kernel_ms"], t["event_ms"]),
+                      ("L2 flushed", t.get("cold_ms"), t.get("cold_event_ms"))):
+        if k is None:
+            continue
+        faults = []
+        if k < b:
+            faults.append(f"under its bound of {b:.4f} ms")
+        if e is None:
+            faults.append("no event reading (the host could not queue the "
+                          "calls ahead of the device)")
+        elif how == "warm" and abs(k - e) > 0.25 * e:
+            faults.append(f"{abs(k - e) / e:.0%} from the event reading")
+        elif how != "warm" and k > 1.25 * e:
+            faults.append(f"{k / e - 1:.0%} over the event reading")
+        if faults:
+            log(f"  MEASUREMENT FAULT {name} ({unit}, {how}): the profiler "
+                f"read the kernel alone at {k:.4f} ms, the events at "
+                f"{fmt_ms(e)} ms: {'; '.join(faults)}")
+
+
+def fmt_ms(v) -> str:
+    return "none" if v is None else f"{v:.4f}"
+
+
+def alone(fn, kname, per_call=1) -> dict:
+    """The kernel-alone readings of ``fn`` (which launches kernel ``kname``
+    ``per_call`` times): the profiler's and the events', on calls back to
+    back (their inputs warm in the L2 from the call before) and with the
+    L2 flushed before each call."""
+    return {"kernel_ms": kernel_device_ms(fn, kname,
+                                          launches_per_call=per_call),
+            "event_ms": event_device_ms(fn, launches_per_call=per_call),
+            "cold_ms": kernel_device_ms(fn, kname, launches_per_call=per_call,
+                                        cold=True),
+            "cold_event_ms": event_device_ms(fn, launches_per_call=per_call,
+                                             cold=True)}
 
 
 def resnet50_leaves():
@@ -530,24 +684,32 @@ def time_kernels(dev, leaves):
         kernel = f"{name}_kernel"
         ms, host_ms = cuda_time_ms(grouped, host=True)
         one_ms, one_host_ms = cuda_time_ms(one_leaf, host=True)
+        bound = max(bytes_ms, ops_ms)
         t = out[name] = {
-            "ms": ms, "host_ms": host_ms,
-            "kernel_ms": kernel_device_ms(grouped, kernel),
+            "ms": ms, "host_ms": host_ms, **alone(grouped, kernel),
             "plain_ms": cuda_time_ms(plain),
             "library_ms": cuda_time_ms(lib) if lib is not None else None,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "one_leaf": {"ms": one_ms, "host_ms": one_host_ms,
-                         "kernel_ms": kernel_device_ms(
-                             one_leaf, kernel, launches_per_call=len(ns))}}
+                         **alone(one_leaf, kernel, len(ns)),
+                         "bound_ms": bound}}
+        if lib is not None:
+            # The yardstick's own kernel alone (its output's zero fill is a
+            # kernel of its own), beside the event time of the whole call.
+            t["library_kernel"] = kernel_named(lib, "scatter")
+            t["library_kernel_ms"] = kernel_device_ms(lib, t["library_kernel"])
         log(f"  {name}: grouped, one launch over {len(ns)} leaves: {ms:.4f} "
-            f"ms, {host_ms:.4f} ms of it to enqueue, the kernel alone "
-            f"{t['kernel_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
-            f"{t['bound_by']}: {nbytes / 1e6:.1f} MB), plain "
-            f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms; the "
-            f"{len(ns)} one-leaf calls {one_ms:.4f} ms, {one_host_ms:.4f} ms "
-            f"to enqueue, their kernels alone "
-            f"{t['one_leaf']['kernel_ms']:.4f} ms")
+            f"ms, {host_ms:.4f} ms of it to enqueue, {log_alone(t)}, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({nbytes / 1e6:.1f} "
+            f"MB), plain {t['plain_ms']:.4f} ms, library {t['library_ms']} ms"
+            + (f" (its kernel alone {t['library_kernel_ms']:.4f} ms: "
+               f"{t['library_kernel'][:60]})" if lib is not None else "")
+            + f"; the {len(ns)} one-leaf calls {one_ms:.4f} ms, "
+            f"{one_host_ms:.4f} ms to enqueue, "
+            f"{log_alone(t['one_leaf'], 'their kernels')}")
+        cross_check(name, "grouped", t)
+        cross_check(name, f"the {len(ns)} one-leaf calls", t["one_leaf"])
     return out
 
 
@@ -682,6 +844,7 @@ def train(dev, group, cfg, x, y):
     opt = torch.optim.SGD(model.parameters(), lr=1e-3)
     state = init_stateful_train_state(model, tx, opt, group)
     step = make_stateful_train_step(loss_fn, tx, group)
+    _flush_buffer.cache_clear()           # the timing phases' L2 flush buffer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()                 # just before the main path
@@ -1089,9 +1252,7 @@ def timed(kern, plain, nbytes, nops, kname, per_call=1, library=None):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / FP32_FLOP_PER_S * 1e3
     ms, host_ms = cuda_time_ms(kern, host=True)
-    return {"ms": ms, "host_ms": host_ms,
-            "kernel_ms": kernel_device_ms(kern, kname,
-                                          launches_per_call=per_call),
+    return {"ms": ms, "host_ms": host_ms, **alone(kern, kname, per_call),
             "plain_ms": cuda_time_ms(plain) if plain is not None else None,
             "library_ms": cuda_time_ms(library) if library else None,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -1099,12 +1260,18 @@ def timed(kern, plain, nbytes, nops, kname, per_call=1, library=None):
             "mb": nbytes / 1e6}
 
 
+def log_alone(t, what: str = "the kernel") -> str:
+    return (f"{what} alone {t['kernel_ms']:.4f} ms (events "
+            f"{fmt_ms(t['event_ms'])}), the L2 flushed "
+            f"{fmt_ms(t['cold_ms'])} ms (events {fmt_ms(t['cold_event_ms'])})")
+
+
 def log_timed(name, unit, t):
-    plain = "-" if t["plain_ms"] is None else f"{t['plain_ms']:.4f}"
     log(f"  {name}: {t['ms']:.4f} ms {unit}, {t['host_ms']:.4f} ms of it to "
-        f"enqueue, the kernel alone {t['kernel_ms']:.4f} ms (bound "
-        f"{t['bound_ms']:.4f} ms by {t['bound_by']}: {t['mb']:.2f} MB), "
-        f"plain {plain} ms, library {t['library_ms']} ms")
+        f"enqueue, {log_alone(t)}, bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']} ({t['mb']:.2f} MB), plain "
+        f"{fmt_ms(t['plain_ms'])} ms, library {t['library_ms']} ms")
+    cross_check(name, unit, t)
 
 
 def time_wire_kernels(dev, leaves, flat):
@@ -1240,7 +1407,9 @@ def time_wire_kernels(dev, leaves, flat):
 ACCUM_KS = (1, 2, 3, 7)
 ACCUM_EDGES = (1, 2, 3, 4, 5, 7, 8, 9, 10, 11, 15, 16, 17, 23, 24, 25, 31,
                32, 33, 16383, 16384, 16385)    # codes
-ACCUM_OPS = 5          # a code a payload: shift, mask, sign-extend, add; pack
+ACCUM_LAYOUT_CODES = (1001, 4097, 16385)       # rows of 126 to 8193 bytes
+ACCUM_BIG_K = 40       # past the kernel's table of 32 rows: chained launches
+ACCUM_OPS = 6          # a 32-bit word a payload: two masks, add, xor, and, xor
 
 
 def bounded_levels(gen, k, n, width, dev):
@@ -1268,7 +1437,8 @@ def pack_levels(levels, width):
 
 
 def check_accum_kernel(dev, leaves, errs):
-    """Phase 10: packed_int_accumulate against its plain version."""
+    """Phase 10: packed_int_accumulate against its plain version. Returns
+    (cases, of which row-layout and separate-row cases)."""
     import torch
     from grace_tpu_torch.ops import wire as Wr
 
@@ -1276,11 +1446,8 @@ def check_accum_kernel(dev, leaves, errs):
     flat_n = sum(n for _, n in leaves)
     cases = 0
 
-    def same(label, stacked, width):
+    def check(label, got, want, width):
         nonlocal cases
-        slots = stacked.shape[1] * 8 // width
-        got = Wr.packed_int_accumulate(stacked, slots, width)
-        want = Wr.packed_int_accumulate_plain(stacked, slots, width)
         torch.cuda.synchronize()
         err = float((got.int() - want.int()).abs().max())
         if not torch.equal(got, want):
@@ -1289,6 +1456,21 @@ def check_accum_kernel(dev, leaves, errs):
         errs["packed_int_accumulate"] = max(errs["packed_int_accumulate"],
                                             err)
         cases += 1
+
+    def same(label, stacked, width, numel=None):
+        slots = stacked.shape[1] * 8 // width if numel is None else numel
+        check(label, Wr.packed_int_accumulate(stacked, slots, width),
+              Wr.packed_int_accumulate_plain(stacked, slots, width), width)
+
+    def same_rows(label, rows, width, numel):
+        check(f"{label} (separate rows)",
+              Wr.packed_int_accumulate_rows(rows, numel, width),
+              Wr.packed_int_accumulate_plain(torch.stack(rows), numel, width),
+              width)
+
+    def randbytes(n):
+        return torch.randint(0, 256, (n,), generator=gen, device=dev,
+                             dtype=torch.uint8)
 
     sizes = sorted(set(ACCUM_EDGES) | {n for _, n in leaves})
     for width in (2, 3, 4):
@@ -1306,11 +1488,32 @@ def check_accum_kernel(dev, leaves, errs):
             same(f"wrap n={n} K=7", torch.randint(
                 0, 256, (7, nbytes), generator=gen, device=dev,
                 dtype=torch.uint8), width)
-        # Rows that do not start on 4-byte boundaries: the byte path.
+        # Rows that do not start on 4-byte boundaries.
         buf = torch.randint(0, 256, (1 + 3 * 4000,), generator=gen,
                             device=dev, dtype=torch.uint8)
         same("unaligned K=3", buf[1:].view(3, 4000), width)
-    return cases
+    base = cases
+    for width in (2, 3, 4):
+        for n in ACCUM_LAYOUT_CODES:
+            nbytes = -(-n * width // 8)
+            slots = nbytes * 8 // width
+            for k in ACCUM_KS + (ACCUM_BIG_K,):
+                # Random bytes: the sums leave the field (the wraps).
+                buf = randbytes(k * (nbytes + 17) + 1)
+                for layout, st in decode_layouts(buf, k, nbytes).items():
+                    for numel in (slots, slots - 1, slots // 2):
+                        label = f"n={n} K={k} numel={numel} {layout}"
+                        same(label, st, width, numel)
+                        same_rows(label, list(st), width, numel)
+                # Rows from separate allocations, on the 16-byte grid and
+                # each at its own offset off it.
+                for label, rows in (
+                        ("allocations", [randbytes(nbytes) for _ in range(k)]),
+                        ("allocations off the grid",
+                         [randbytes(nbytes + 16)[1 + i % 15:][:nbytes]
+                          for i in range(k)])):
+                    same_rows(f"n={n} K={k} {label}", rows, width, slots)
+    return cases, cases - base
 
 
 def check_packed_hop(dev, flat_a, flat_b, errs):
@@ -1328,6 +1531,22 @@ def check_packed_hop(dev, flat_a, flat_b, errs):
     def shards(flat, w):
         pad = -flat.numel() % w
         return torch.cat([flat, flat.new_zeros(pad)]).view(w, -1)
+
+    def allocations():
+        return torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def no_copy(call, what):
+        """``call`` launches the kernel once and allocates its output and
+        nothing else: the payloads are read where they lie, not stacked."""
+        launches, allocated = Wr.packed_int_accumulate.launches, allocations()
+        out = call()
+        launches = Wr.packed_int_accumulate.launches - launches
+        allocated = allocations() - allocated
+        if launches != 1 or allocated != 1:
+            fail(f"packed hop: {what} launched the kernel {launches} times "
+                 f"and made {allocated} allocations (one launch, one output "
+                 "and no stacking copy expected)")
+        return out
 
     cases = 0
     calls = 0
@@ -1347,10 +1566,12 @@ def check_packed_hop(dev, flat_a, flat_b, errs):
                                        shared=scale)[0][0]
                         for r in range(w)]
                 stacked = torch.stack(pays)
-                (summed,) = codec.payload_sum((stacked,))
+                (summed,) = no_copy(lambda: codec.payload_sum((stacked,)),
+                                    "payload_sum")
                 ring = pays[0]
                 for p in pays[1:]:
-                    (ring,) = codec.payload_add((ring,), (p,))
+                    (ring,) = no_copy(lambda: codec.payload_add((ring,), (p,)),
+                                      "payload_add")
                 calls += w
                 slots = stacked.shape[1] * 8 // bits
                 plain = Wr.packed_int_accumulate_plain(stacked, slots, bits)
@@ -1394,59 +1615,147 @@ def check_packed_hop(dev, flat_a, flat_b, errs):
 def time_accum_kernel(dev, flat):
     """Phase 12: packed_int_accumulate at its shapes on the 4-bit wire of
     the flat buffer: K=1 (the one-card reduce-scatter), K=2 on a W=2 shard
-    (a ring hop) and K=7 on a W=7 shard."""
+    (a ring hop) and K=7 on a W=7 shard, each on a contiguous stack (rows
+    nbytes apart, off the 16-byte grid at K=2 and 7) and on the rows the
+    callers pass (payload_add: two separate payloads; payload_sum: the
+    rows of the all-to-all's stack); K=2 on the 3-bit wire too; and the
+    ring hop's whole payload_add call on a W=2 shard.
+
+    Uses only calls that every slice of the port has, so that it also
+    times an earlier checkout's kernels (``--times-from``): where the rows
+    entry is missing, the rows go as that checkout's callers passed them
+    (payload_add stacked its two payloads, payload_sum passed its stack)."""
     import torch
+    from grace_tpu_torch.compressors import HomoQSGDCompressor
     from grace_tpu_torch.ops import wire as Wr
 
+    rows_entry = getattr(Wr, "packed_int_accumulate_rows", None)
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     n = flat.numel()
     out = {}
-    for label, k in (("K=1", 1), ("K=2", 2), ("K=7", 7)):
+    for label, k, width in (("K=1", 1, 4), ("K=2", 2, 4), ("K=7", 7, 4),
+                            ("K=2 width 3", 2, 3)):
         m = -(-n // k)                             # the shard's codes
-        nbytes = -(-m * 4 // 8)
+        nbytes = -(-m * width // 8)
         st = torch.randint(0, 256, (k, nbytes), generator=gen, device=dev,
                            dtype=torch.uint8)
-        slots = nbytes * 8 // 4
+        if k == 2:       # a ring hop: the received payload and this rank's
+            rows = [st[i].clone() for i in range(k)]
+            stack_of_rows = None
+        else:            # the reduce-scatter: the all-to-all's stack
+            rows = list(st.unbind(0))
+            stack_of_rows = st
+        slots = nbytes * 8 // width
         nbytes_moved = (k + 1) * nbytes
         bytes_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ACCUM_OPS * k * slots / FP32_FLOP_PER_S * 1e3
-        ms, host_ms = cuda_time_ms(
-            lambda: Wr.packed_int_accumulate(st, slots, 4), host=True)
-        out[label] = {
-            "ms": ms, "host_ms": host_ms,
-            "kernel_ms": kernel_device_ms(
-                lambda: Wr.packed_int_accumulate(st, slots, 4),
-                "packed_int_accumulate_kernel"),
-            "plain_ms": cuda_time_ms(
-                lambda: Wr.packed_int_accumulate_plain(st, slots, 4)),
-            "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "mb": nbytes_moved / 1e6}
-        log(f"  packed_int_accumulate {label} ({nbytes} bytes a payload): "
-            f"{ms:.4f} ms, {host_ms:.4f} ms of it to enqueue, the kernel "
-            f"itself {out[label]['kernel_ms']:.4f} ms (bound "
-            f"{out[label]['bound_ms']:.4f} ms by {out[label]['bound_by']}: "
-            f"{nbytes_moved / 1e6:.2f} MB), plain "
-            f"{out[label]['plain_ms']:.4f} ms, library none")
+        ops_ms = ACCUM_OPS * k * (nbytes // 4) / FP32_FLOP_PER_S * 1e3
+
+        def on_stack(st=st, slots=slots, width=width):
+            Wr.packed_int_accumulate(st, slots, width)
+
+        def on_rows(rows=rows, stack_of_rows=stack_of_rows, slots=slots,
+                    width=width):
+            if rows_entry is not None:
+                rows_entry(rows, slots, width)
+            else:
+                Wr.packed_int_accumulate(
+                    torch.stack(rows) if stack_of_rows is None
+                    else stack_of_rows, slots, width)
+
+        for spelling, fn in (("stack", on_stack), ("rows", on_rows)):
+            ms, host_ms = cuda_time_ms(fn, host=True)
+            t = {"ms": ms, "host_ms": host_ms,
+                 **alone(fn, "packed_int_accumulate_kernel"),
+                 "plain_ms": cuda_time_ms(
+                     lambda: Wr.packed_int_accumulate_plain(st, slots,
+                                                            width)),
+                 "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "mb": nbytes_moved / 1e6}
+            if spelling == "stack":
+                out[label] = t
+            else:
+                out[label]["rows"] = t
+            unit = (f"{label}, {nbytes} bytes a payload, " + (
+                "a contiguous stack" if spelling == "stack" else
+                "two separate payloads" if k == 2 else
+                "the rows of the all-to-all's stack"))
+            log_timed("packed_int_accumulate", unit, t)
+        if label == "K=2":
+            codec = HomoQSGDCompressor(quantum_num=1, accum_bits=4,
+                                       use_pallas=True)
+            a, b = (rows[0],), (rows[1],)
+
+            def hop(codec=codec, a=a, b=b):
+                codec.payload_add(a, b)
+
+            ms, host_ms = cuda_time_ms(hop, host=True)
+            t = out[label]["payload_add"] = {
+                "ms": ms, "host_ms": host_ms, "event_ms": event_device_ms(hop),
+                "cold_event_ms": event_device_ms(hop, cold=True)}
+            log(f"  homoqsgd payload_add, the ring hop on a W=2 shard "
+                f"({nbytes} bytes a payload): {ms:.4f} ms a call, "
+                f"{host_ms:.4f} ms of it to enqueue, its device work "
+                f"{fmt_ms(t['event_ms'])} ms (events over back-to-back "
+                f"calls), the L2 flushed {fmt_ms(t['cold_event_ms'])} ms")
     return out
 
 
-def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
-                     launches_per_call: int = 1):
-    """The device time of the CUDA kernel named ``kernel_name`` in one call
-    of ``fn`` (which launches it ``launches_per_call`` times), from
-    ``runs`` calls under torch.profiler: the kernel alone, without the
-    host's enqueue that a CUDA-event pair around one call also holds when
-    the host is the slower. The mean is over the launches the profiler
-    recorded, which can miss one at the edge of the window."""
+def kernel_named(fn, word: str) -> str:
+    """The name of the one CUDA kernel whose name holds ``word`` among those
+    one call of ``fn`` launches, as the profiler names it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    want = runs * launches_per_call
     for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA})
+        hits = [n for n in names if word in n]
+        if len(hits) == 1:
+            return hits[0]
+        if names:
+            break
+    fail(f"one call launched {len(hits)} kernels named *{word}*: {names}")
+
+
+@functools.cache
+def warm_profiler() -> None:
+    """One short profiler session, once a process: the first session of a
+    process has recorded few of its launches or none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+
+
+def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
+                     launches_per_call: int = 1, cold: bool = False):
+    """The device time of the CUDA kernel named ``kernel_name`` in one call
+    of ``fn`` (which launches it ``launches_per_call`` times), from
+    ``runs`` calls under torch.profiler: the kernel alone, without the
+    host's enqueue that a CUDA-event pair around one call also holds when
+    the host is the slower. The mean is over the launches the profiler
+    recorded, which can miss one at the edge of the window. With ``cold``
+    the L2 is flushed before each call (flush_l2, a kernel of another
+    name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    warm_profiler()
+    if cold:
+        fn = (lambda call: lambda: (flush_l2(), call()))(fn)
+    fn()
+    torch.cuda.synchronize()
+    want = runs * launches_per_call
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
@@ -1454,12 +1763,13 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
         hits = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and kernel_name in e.key]
         seen = sum(e.count for e in hits)
-        if seen:
+        if want // 2 <= seen <= want:
             break
-        # A profiler session now and then records no kernel at all; one
-        # more session measures the same calls.
-        log(f"  (the profiler recorded no launch of {kernel_name} in "
-            f"{runs} calls; profiling them once more)")
+        # A profiler session now and then records few launches or none (the
+        # first session of a process most of all); another session
+        # measures the same calls.
+        log(f"  (the profiler recorded {seen} launches of {kernel_name} in "
+            f"{runs} calls of {launches_per_call}; profiling them again)")
     if not want // 2 <= seen <= want:
         kernels = sorted({e.key[:60] for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA})
@@ -1472,9 +1782,9 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
 
 
 def times_from(root: str) -> int:
-    """``--times-from ROOT``: phase 8's timings alone, of the kernels of the
-    checkout at ROOT (an earlier commit unpacked with ``git archive``), for
-    a comparison inside one call. Prints one JSON line."""
+    """``--times-from ROOT``: phase 8's and phase 12's timings alone, of the
+    kernels of the checkout at ROOT (an earlier commit unpacked with ``git
+    archive``), for a comparison inside one call. Prints one JSON line."""
     import torch
     sys.path.insert(0, str(Path(root).resolve()))
     import grace_tpu_torch
@@ -1487,8 +1797,10 @@ def times_from(root: str) -> int:
     leaves = resnet50_leaves()
     (flat,) = resnet50_flat_grads(dev, count=1)
     log(f"[8] the kernels of {root}: wire-path times (flat n={flat.numel()})")
-    print(json.dumps({"times_from": root,
-                      "wire_times": time_wire_kernels(dev, leaves, flat)}))
+    wire_times = time_wire_kernels(dev, leaves, flat)
+    log(f"[12] the kernels of {root}: packed_int_accumulate times")
+    print(json.dumps({"times_from": root, "wire_times": wire_times,
+                      "accum_times": time_accum_kernel(dev, flat)}))
     print(nvidia_smi_line(), flush=True)
     return 0
 
@@ -1614,9 +1926,13 @@ def main() -> int:
         wire_times = time_wire_kernels(dev, leaves, flat_a)
         # -- 10. the packed integer accumulate against its plain version -----
         wire_errs["packed_int_accumulate"] = 0.0
-        cases = check_accum_kernel(dev, leaves, wire_errs)
+        cases, layout_cases = check_accum_kernel(dev, leaves, wire_errs)
         log(f"[10] packed_int_accumulate byte-identical to its plain version "
-            f"in {cases} cases on the card")
+            f"in {cases} cases on the card, {layout_cases} of them over the "
+            f"five row layouts (at numel = every slot, one fewer and half) "
+            f"through the stacked and the rows entry, and over rows from "
+            f"separate allocations on and off the 16-byte grid, at K in "
+            f"{ACCUM_KS + (ACCUM_BIG_K,)} (K={ACCUM_BIG_K}: chained launches)")
         # -- 11. the packed hop ----------------------------------------------
         cases, accum_launches = check_packed_hop(dev, flat_a, flat_b,
                                                  wire_errs)
@@ -1626,8 +1942,9 @@ def main() -> int:
             f"payload_sum and as the ring's payload_add chain, byte for byte "
             f"against the plain version and the staged path and equal to "
             f"the levels' integer sum; packed_int_accumulate launched "
-            f"{accum_launches} times; a lattice input through the one-card "
-            f"reduce-scatter came back exact")
+            f"{accum_launches} times, once a call, and no call allocated "
+            f"more than its output (no stacking copy); a lattice input "
+            f"through the one-card reduce-scatter came back exact")
         # -- 12. timing -------------------------------------------------------
         log("[12] packed_int_accumulate times on the 4-bit wire of the flat "
             "buffer")
@@ -1648,7 +1965,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
-            "hop": {k: accum_times[k] for k in ("K=2", "K=7")}}
+            "hop": {k: accum_times[k] for k in ("K=2", "K=7",
+                                                "K=2 width 3")}}
         kernels = []
         for kname, src, line, run in (
                 ("chunk_compress_feedback", "pallas_topk.py", 132, "topk1pct"),
@@ -1665,7 +1983,8 @@ def main() -> int:
             t = times[kname] if kname in times else wire_times[kname]
             extra = {key: t[key] for key in (
                 "pack_only", "one_leaf", "width2", "width3", "unaligned",
-                "int16", "contiguous", "w8", "vote") if key in t}
+                "int16", "contiguous", "w8", "vote", "rows", "hop",
+                "library_kernel", "library_kernel_ms") if key in t}
             kernels.append({
                 "name": kname, "route": "cuda",
                 "source": "grace_tpu_torch/csrc/" + (
@@ -1676,6 +1995,8 @@ def main() -> int:
                 "launches_from": f"the {run} run",
                 "max_abs_err": {**errs, **wire_errs}[kname], "ms": t["ms"],
                 "host_ms": t["host_ms"], "kernel_ms": t["kernel_ms"],
+                "event_ms": t["event_ms"], "cold_ms": t["cold_ms"],
+                "cold_event_ms": t["cold_event_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 **extra})

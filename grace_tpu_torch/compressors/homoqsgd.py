@@ -12,9 +12,10 @@ of different ranks do not add. This codec negotiates one scale first:
    ``accum_dtype`` (int8/16/32), or with ``accum_bits`` ∈ {2, 3, 4} packed
    as two's-complement fields of that width (``ops/packing.py``);
 3. **aggregate** — ring hops and the reduce-scatter's owned-chunk sum add
-   the integer levels in payload space (for the packed wire: unpack →
-   add → repack, the ``packed_int_accumulate`` kernel), and one decode at
-   the end gives ``scale / quantum_num * summed_levels``.
+   the integer levels in payload space (for the packed wire: a field-wise
+   add mod ``2^accum_bits``, the ``packed_int_accumulate`` kernel over the
+   payloads where they lie), and one decode at the end gives
+   ``scale / quantum_num * summed_levels``.
 
 The sums are exact up to :meth:`HomoQSGDCompressor.payload_sum_max_world`
 ranks, the bound the communicators' homomorphic paths enforce.
@@ -29,9 +30,9 @@ so the port spells it ``scale * core.mean_scale(q)``.
 ``use_pallas`` keeps its JAX name: ``False`` (or the ``wire`` family
 turned off by the environment: ``ops.pallas_mode``) runs the packed
 accumulate as staged tensor code, ``True`` and ``'auto'`` through
-``ops/wire.packed_int_accumulate`` (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors). Both are integer-exact, so the knob moves
-only where the add runs.
+``ops/wire.packed_int_accumulate_rows`` (the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors). Both are integer-exact, so
+the knob moves only where the add runs.
 """
 
 from __future__ import annotations
@@ -156,15 +157,17 @@ class HomoQSGDCompressor(Compressor):
         code = PACKERS[w][1](packed, n).to(torch.int32)
         return code - (1 << w) * (code >= (1 << (w - 1))).to(torch.int32)
 
-    def _packed_accumulate(self, stacked: torch.Tensor) -> torch.Tensor:
-        """``(K, nbytes)`` packed payloads → the packed level sum, over
-        every code slot the bytes hold (the tail slots are zero by the
-        packers' padding, so the sum is exact and keeps the length)."""
+    def _packed_accumulate(self, rows) -> torch.Tensor:
+        """K packed ``nbytes`` payloads (separate tensors, or the rows of
+        a ``(K, nbytes)`` stack) → the packed level sum, over every code
+        slot the bytes hold (the tail slots are zero by the packers'
+        padding, so the sum is exact and keeps the length). The kernel
+        reads the payloads where they lie."""
         w = self.accum_bits
-        n_slots = stacked.shape[1] * 8 // w
+        n_slots = rows[0].numel() * 8 // w
         if self.wire_fused():
-            return wire.packed_int_accumulate(stacked, n_slots, w)
-        levels = sum(self._unpack_levels(p, n_slots) for p in stacked)
+            return wire.packed_int_accumulate_rows(rows, n_slots, w)
+        levels = sum(self._unpack_levels(p, n_slots) for p in rows)
         return PACKERS[w][0](torch.remainder(levels, 1 << w).to(torch.uint8))
 
     def wire_fused(self) -> bool:
@@ -175,12 +178,12 @@ class HomoQSGDCompressor(Compressor):
     def payload_add(self, a: Payload, b: Payload) -> Payload:
         if self.accum_bits is None:
             return super().payload_add(a, b)
-        return (self._packed_accumulate(torch.stack([a[0], b[0]])),)
+        return (self._packed_accumulate((a[0], b[0])),)
 
     def payload_sum(self, stacked: Payload) -> Payload:
         if self.accum_bits is None:
             return super().payload_sum(stacked)
-        return (self._packed_accumulate(stacked[0]),)
+        return (self._packed_accumulate(stacked[0].unbind(0)),)
 
     def decompress(self, payload: Payload, ctx: Ctx) -> torch.Tensor:
         """Linear in the (possibly summed) levels: ``scale/q · levels``,

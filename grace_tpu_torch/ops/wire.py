@@ -13,8 +13,13 @@ the fused decode equals the staged sequential ``decompress(payload_0) +
 decompress(payload_1) + …`` — the same unpack layout, the same sign
 extension, the same per-payload scale (pre-divided by the caller with the
 staged path's own expression), and the same float32 additions in stack
-order. ``packed_int_accumulate`` is integer arithmetic only, so it equals
-homoqsgd's staged unpack → add → repack byte for byte by construction.
+order. ``packed_int_accumulate`` is integer arithmetic only: a field's
+level is its code mod ``2^width``, so the sum that homoqsgd's staged
+unpack → add → repack folds with a floored mod is the per-field sum of the
+codes mod ``2^width``, which the kernel adds without unpacking.
+``packed_int_accumulate_rows`` is the same kernel over payloads given as
+separate tensors, and counts its launches on
+``packed_int_accumulate.launches``.
 
 ``hop_hbm_bytes``, a model of TPU HBM traffic, is not ported.
 """
@@ -30,8 +35,9 @@ from grace_tpu_torch.ops import _build
 from grace_tpu_torch.ops.packing import PACKERS
 
 __all__ = ["decode_accumulate", "decode_accumulate_plain", "stack_payloads",
-           "packed_int_accumulate", "packed_int_accumulate_plain",
-           "WIRE_WIDTHS", "ACCUM_WIDTHS", "ROW_ALIGN"]
+           "packed_int_accumulate", "packed_int_accumulate_rows",
+           "packed_int_accumulate_plain", "WIRE_WIDTHS", "ACCUM_WIDTHS",
+           "ROW_ALIGN", "ACCUM_ROW_TILE"]
 
 # The pack widths decoded here: the sign mask plus qsgd's two's-complement
 # fields (ops/packing.py declares the layouts).
@@ -41,6 +47,9 @@ ACCUM_WIDTHS = (2, 3, 4)
 # The decode kernel reads payload rows that start on 16-byte boundaries
 # with 16-byte loads (others with byte loads).
 ROW_ALIGN = 16
+# Rows a launch of the packed accumulate (its row table, kMaxRows in
+# csrc/wire.cu); more run as launches that chain through the output.
+ACCUM_ROW_TILE = 32
 
 
 def stack_payloads(payloads) -> torch.Tensor:
@@ -107,8 +116,8 @@ def _lib() -> ctypes.CDLL:
     lib.grace_decode_accumulate.argtypes = [p, i64, p, p, i64, i64, i64, i32,
                                             i32, i32, p]
     lib.grace_decode_accumulate.restype = ctypes.c_int
-    lib.grace_packed_int_accumulate.argtypes = [p, p, i64, i64, i64, i32,
-                                                i32, p]
+    lib.grace_packed_int_accumulate.argtypes = [p, i64, p, i64, i64, i32,
+                                                p]
     lib.grace_packed_int_accumulate.restype = ctypes.c_int
     return lib
 
@@ -185,33 +194,88 @@ def packed_int_accumulate_plain(stacked: torch.Tensor, numel: int,
     return out
 
 
+def row_tiles(rows: list, out) -> list:
+    """The launches of the packed accumulate over ``rows``: the first
+    ``ACCUM_ROW_TILE`` rows, then ``out`` (the sum so far) and up to
+    ``ACCUM_ROW_TILE - 1`` more rows a launch. Exact because the per-field
+    sum mod ``2^width`` is associative."""
+    first, rest = rows[:ACCUM_ROW_TILE], rows[ACCUM_ROW_TILE:]
+    return [first] + [[out] + rest[i:i + ACCUM_ROW_TILE - 1]
+                      for i in range(0, len(rest), ACCUM_ROW_TILE - 1)]
+
+
+def _accumulate_rows(ptrs, nbytes: int, numel: int, width: int,
+                     device: torch.device) -> torch.Tensor:
+    """Launch the kernel over the rows at the device addresses ``ptrs``
+    (each ``nbytes`` long, at any alignment), in the launches of
+    :func:`row_tiles`."""
+    out = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    if not nbytes:
+        return out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        lib = _lib()
+        for tile in row_tiles(ptrs, out.data_ptr()):
+            err = lib.grace_packed_int_accumulate(
+                (ctypes.c_void_p * len(tile))(*tile), len(tile),
+                out.data_ptr(), nbytes, numel, int(width), stream)
+            if err != 0:
+                raise RuntimeError(f"packed_int_accumulate: CUDA kernel "
+                                   f"launch failed with cudaError_t {err}")
+            packed_int_accumulate.launches += 1
+    return out
+
+
 def packed_int_accumulate(stacked: torch.Tensor, numel: int, width: int
                           ) -> torch.Tensor:
     """The exact payload-space accumulate of packed ``shared_scale``
     levels: K packed payloads in, one packed payload of the integer level
-    sums out, in one pass, with no unpacked intermediate. Byte-identical
-    to :func:`packed_int_accumulate_plain`."""
+    sums out, in one pass, with no unpacked intermediate. ``stacked``'s
+    rows may lie at any stride (``stacked.stride(1) == 1``): the kernel
+    reads them in place. Byte-identical to
+    :func:`packed_int_accumulate_plain`."""
     if stacked.device.type == "cpu":
         return packed_int_accumulate_plain(stacked, numel, width)
     if stacked.device.type != "cuda":
         raise ValueError(f"no packed_int_accumulate for {stacked.device}")
     _check_accum_args(stacked, numel, width)
-    stacked = stacked.contiguous()
-    k, nbytes = stacked.shape
-    out = torch.empty(nbytes, dtype=torch.uint8, device=stacked.device)
-    if nbytes:
-        # 32-bit loads need every row to start on a 4-byte boundary.
-        aligned = stacked.data_ptr() % 4 == 0 and nbytes % 4 == 0
-        with torch.cuda.device(stacked.device):
-            err = _lib().grace_packed_int_accumulate(
-                stacked.data_ptr(), out.data_ptr(), k, nbytes, numel,
-                int(width), int(aligned),
-                torch.cuda.current_stream(stacked.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"packed_int_accumulate: CUDA kernel launch "
-                               f"failed with cudaError_t {err}")
-        packed_int_accumulate.launches += 1
-    return out
+    if stacked.stride(1) != 1 and stacked.shape[1] > 1:
+        raise ValueError(f"packed_int_accumulate reads each payload row as "
+                         f"bytes in order; got strides {stacked.stride()}")
+    base, pitch = stacked.data_ptr(), stacked.stride(0)
+    ptrs = [base + i * pitch for i in range(stacked.shape[0])]
+    return _accumulate_rows(ptrs, stacked.shape[1], numel, width,
+                            stacked.device)
+
+
+def packed_int_accumulate_rows(rows, numel: int, width: int
+                               ) -> torch.Tensor:
+    """:func:`packed_int_accumulate` of K equal-length 1-D uint8 payloads
+    given as separate tensors on one device, in accumulation order: the
+    kernel reads each where it lies, so the callers stack nothing. On CPU
+    tensors, the plain version over ``torch.stack(rows)``."""
+    rows = list(rows)
+    if not rows:
+        raise ValueError("packed_int_accumulate_rows takes K >= 1 payloads")
+    first = rows[0]
+    for r in rows:
+        if (r.dim() != 1 or r.dtype != torch.uint8
+                or r.shape != first.shape or r.device != first.device):
+            raise ValueError(
+                f"packed_int_accumulate_rows takes equal-length 1-D uint8 "
+                f"payloads on one device; got {r.dtype} of shape "
+                f"{tuple(r.shape)} on {r.device} beside {first.dtype} of "
+                f"shape {tuple(first.shape)} on {first.device}")
+    if first.device.type == "cpu":
+        return packed_int_accumulate_plain(torch.stack(rows), numel, width)
+    if first.device.type != "cuda":
+        raise ValueError(f"no packed_int_accumulate for {first.device}")
+    _check_accum_args(first[None], numel, width)
+    if first.numel() > 1 and any(r.stride(0) != 1 for r in rows):
+        raise ValueError("packed_int_accumulate_rows reads each payload as "
+                         "bytes in order; got a strided row")
+    return _accumulate_rows([r.data_ptr() for r in rows], first.numel(),
+                            numel, width, first.device)
 
 
 packed_int_accumulate.launches = 0

@@ -46,9 +46,9 @@ SCENARIOS = {
     "homo7_rscatter": ("homo7", "residual", "rscatter", 1, 7, WORLDS,
                        WORLDS),
     "none_rscatter": ("none", "none", "rscatter", 1, 7, WORLDS, (3,)),
-    "homo1p4_ring": ("homo1p4", "residual", "ring", 1, 1, WORLDS, (4,)),
+    "homo1p4_ring": ("homo1p4", "residual", "ring", 1, 1, WORLDS, WORLDS),
     "homo1p4_rscatter": ("homo1p4", "residual", "rscatter", 1, 1, WORLDS,
-                         (4,)),
+                         WORLDS),
     "homo1p4_allreduce": ("homo1p4", "none", "allreduce", 1, 1, WORLDS, ()),
     "homo32i8_allreduce": ("homo32i8", "none", "allreduce", 1, 32, WORLDS,
                            ()),
@@ -438,6 +438,55 @@ def test_homoqsgd_decompress_bit_for_bit(accum_bits):
                                               jnp.asarray(scale))
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_packed_payload_algebra_matches_jax(bits, world):
+    """``payload_add`` (the ring hop: the received payload and this rank's,
+    as separate tensors) and ``payload_sum`` (the reduce-scatter: the rows
+    of the all-to-all's ``(W, nbytes)`` output, which lie ``nbytes``
+    apart) through ``wire.packed_int_accumulate_rows`` equal the JAX
+    package's payload algebra byte for byte: on levels within the field,
+    its interpret-mode Pallas kernel and its staged path; on random bytes
+    whose sums leave the field, its staged path (a floored mod)."""
+    import jax.numpy as jnp
+
+    from grace_tpu import compressors as JC
+    q = 1
+    port = C.HomoQSGDCompressor(quantum_num=q, accum_bits=bits,
+                                use_pallas=True)
+    assert port.wire_fused()
+    jax_fused = JC.HomoQSGDCompressor(quantum_num=q, accum_bits=bits,
+                                      use_pallas=True)
+    jax_staged = JC.HomoQSGDCompressor(quantum_num=q, accum_bits=bits,
+                                       use_pallas=False)
+    rng = np.random.default_rng(10 * bits + world)
+    n = 1001                                     # 251 to 501 bytes a payload
+    ceil = (1 << (bits - 1)) - 1
+    levels = np.zeros((world, n), np.int64)      # sums within the field
+    levels[rng.integers(0, world, n), np.arange(n)] = rng.integers(
+        -ceil, ceil + 1, n)
+    bounded = torch.stack([PACKERS[bits][0](torch.from_numpy(
+        np.mod(lv, 1 << bits).astype(np.uint8))) for lv in levels])
+    wraps = torch.from_numpy(rng.integers(0, 256, tuple(bounded.shape))
+                             .astype(np.uint8))
+    for stacked, refs in ((bounded, (jax_fused, jax_staged)),
+                          (wraps, (jax_staged,))):
+        (got_sum,) = port.payload_sum((stacked,))
+        ring = (stacked[0].clone(),)
+        for r in range(1, world):
+            ring = port.payload_add(ring, (stacked[r].clone(),))
+        for ref in refs:
+            (want_sum,) = ref.payload_sum((jnp.asarray(stacked.numpy()),))
+            np.testing.assert_array_equal(got_sum.numpy(),
+                                          np.asarray(want_sum))
+            jring = (jnp.asarray(stacked[0].numpy()),)
+            for r in range(1, world):
+                jring = ref.payload_add(jring,
+                                        (jnp.asarray(stacked[r].numpy()),))
+            np.testing.assert_array_equal(ring[0].numpy(),
+                                          np.asarray(jring[0]))
 
 
 def test_homoqsgd_bounds_and_errors_match_jax():

@@ -262,3 +262,174 @@ def test_packed_int_accumulate_wrapper_gates():
     # Slots from numel on come out zero.
     full = torch.full((1, 3), 0xFF, dtype=torch.uint8)
     assert wire.packed_int_accumulate(full, 3, 4).tolist() == [0xFF, 0x0F, 0]
+
+
+# -- the per-field modular add the kernel rests on ----------------------------
+
+ACCUM_ROW_BYTES = (1, 2, 3, 4, 5, 11, 12, 13, 15, 16, 17, 47, 48, 49, 511,
+                   512, 513, 1535, 1536, 1537, 3073)
+# The fields' top bits of word g of a row's stream, by g % 3.
+TOP_BITS = {2: (0xAAAAAAAA,) * 3, 4: (0x88888888,) * 3,
+            3: (0x24924924, 0x49249249, 0x92492492)}
+CHUNK_WORDS = 384      # a warp's chunk of the kernel: 1536 bytes
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _field_sum(stacked, numel, width):
+    """The per-field sum of the codes mod ``2^width``: code g is bits
+    ``width*g ..`` of each row's little-endian bit stream; the bits from
+    ``numel*width`` on come out 0."""
+    k, nbytes = stacked.shape
+    bits = np.unpackbits(stacked, axis=1, bitorder="little")
+    n = numel * width
+    codes = bits[:, :n].reshape(k, numel, width).astype(np.int64)
+    codes = (codes << np.arange(width)).sum(-1)
+    s = codes.sum(0) % (1 << width)
+    out = np.zeros(8 * nbytes, np.uint8)
+    out[:n] = ((s[:, None] >> np.arange(width)) & 1).reshape(-1)
+    return np.packbits(out, bitorder="little")
+
+
+def _swar_sum(stacked, numel, width, rng):
+    """The kernel's arithmetic in numpy: each row as little-endian 32-bit
+    words, garbage past its end (the kernel's last 16-byte block reads
+    past it), added word by word as ``((a & ~H) + (b & ~H)) ^ ((a ^ b) &
+    H)`` with the carry into word g the carry out of word g-1's masked sum
+    alone (none at a chunk's first word), then the bits from
+    ``numel*width`` on cleared."""
+    k, nbytes = stacked.shape
+    nwords = -(-nbytes // 16) * 4
+    pad = rng.integers(0, 256, (k, 4 * nwords)).astype(np.uint8)
+    pad[:, :nbytes] = stacked
+    words = pad.view("<u4").astype(np.uint64)
+    h = np.array([TOP_BITS[width][g % 3] for g in range(nwords)], np.uint64)
+    low = ~h & M32
+    acc = words[0]
+    for b in words[1:]:
+        t = (acc & low) + (b & low)
+        carry = t >> np.uint64(32)
+        cin = np.concatenate([[np.uint64(0)], carry[:-1]])
+        cin[::CHUNK_WORDS] = 0
+        acc = (((t & M32) + cin) & M32) ^ ((acc ^ b) & h)
+    bit = np.arange(32 * nwords).reshape(nwords, 32)
+    keep = ((bit < numel * width) << np.arange(32)).sum(-1).astype(np.uint64)
+    return (acc & keep).astype("<u4").view(np.uint8)[:nbytes]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 40])
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_packed_int_accumulate_is_a_field_wise_modular_add(width, k):
+    """The identity the CUDA kernel rests on: the plain version (unpack,
+    sign-extend, add, floored mod, repack) equals the per-field sum of the
+    codes mod ``2^width``, and so the kernel's carry-less word add, on
+    random bytes whose sums leave the field, over row lengths around the
+    word, 3-byte, 16-byte and 1536-byte (a warp's chunk) boundaries, for
+    every code slot the bytes hold and for fewer. Past ``ACCUM_ROW_TILE``
+    rows the kernel's launches chain through the output."""
+    rng = np.random.default_rng(1000 * width + k)
+    for nbytes in ACCUM_ROW_BYTES:
+        stacked = rng.integers(0, 256, (k, nbytes)).astype(np.uint8)
+        slots = nbytes * 8 // width
+        for numel in sorted({slots, max(slots - 1, 0), slots // 2}):
+            want = wire.packed_int_accumulate_plain(
+                torch.from_numpy(stacked), numel, width).numpy()
+            np.testing.assert_array_equal(
+                _field_sum(stacked, numel, width), want)
+            out = None
+            for tile in wire.row_tiles(list(stacked), "out"):
+                rows = np.stack([out if isinstance(r, str) else r
+                                 for r in tile])
+                out = _swar_sum(rows, numel, width, rng)
+            np.testing.assert_array_equal(out, want)
+
+
+def test_row_tiles_chain_through_the_output():
+    tile = wire.ACCUM_ROW_TILE
+    assert wire.row_tiles(list(range(3)), "o") == [[0, 1, 2]]
+    assert wire.row_tiles(list(range(tile)), "o") == [list(range(tile))]
+    tiles = wire.row_tiles(list(range(40)), "o")
+    assert tiles == [list(range(tile)), ["o"] + list(range(tile, 40))]
+    tiles = wire.row_tiles(list(range(2 * tile)), "o")
+    assert [len(t) for t in tiles] == [tile, tile, 2]
+    assert [r for t in tiles for r in t if r != "o"] == list(range(2 * tile))
+
+
+def _accum_layouts(buf, k, nbytes):
+    """``(k, nbytes)`` stacks over the bytes of ``buf`` in the row layouts
+    a caller can give the kernel: contiguous (rows off the 16-byte grid
+    where nbytes is not a multiple of 16), one extra byte a row, rows
+    padded to 16 bytes (``wire.stack_payloads``), a base off the 16-byte
+    grid, and rows 17 bytes apart."""
+    return {"contiguous": buf[:k * nbytes].view(k, nbytes),
+            "extra byte": buf[:k * (nbytes + 1)].view(k, nbytes + 1)[
+                :, :nbytes],
+            "padded rows": wire.stack_payloads(
+                [buf[i * nbytes:(i + 1) * nbytes] for i in range(k)]),
+            "unaligned base": buf[1:1 + k * nbytes].view(k, nbytes),
+            "stride +17": buf[:k * (nbytes + 17)].view(k, nbytes + 17)[
+                :, :nbytes]}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7])
+@pytest.mark.parametrize("width", [2, 3, 4])
+def test_packed_int_accumulate_row_layouts_match_pallas(width, k):
+    """``packed_int_accumulate`` on rows at any stride (the five layouts)
+    and ``packed_int_accumulate_rows`` on separate tensors (the layouts'
+    rows, and copies of them) equal the contiguous stack's sum byte for
+    byte: on levels bounded to the field, the interpret-mode Pallas
+    kernel's too; on random bytes whose sums leave the field, JAX
+    homoqsgd's staged accumulate (the Pallas kernel lets such sums carry
+    across fields, and at width 3 keeps the bits past the last whole code:
+    it is exact only within ``payload_sum_max_world``)."""
+    from grace_tpu import compressors as JC
+    staged = JC.HomoQSGDCompressor(quantum_num=1, accum_bits=width,
+                                   use_pallas=False)
+    rng = np.random.default_rng(100 * width + k)
+    n = 1001
+    nbytes = -(-n * width // 8)               # 126 to 501 bytes: off the grid
+    slots = nbytes * 8 // width
+    bounded = _pack(_bounded_levels(rng, k, n, width), width).numpy()
+    wraps = rng.integers(0, 256, (k, nbytes)).astype(np.uint8)
+    for content, want in (
+            (bounded, pallas_wire.packed_int_accumulate(
+                jnp.asarray(bounded), slots, width, interpret=True)),
+            (wraps, staged._packed_accumulate(jnp.asarray(wraps)))):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(wire.packed_int_accumulate_plain(
+            torch.from_numpy(content), slots, width).numpy(), want)
+        for layout in ("contiguous", "extra byte", "padded rows",
+                       "unaligned base", "stride +17"):
+            buf = torch.from_numpy(rng.integers(0, 256, k * (nbytes + 17) + 1)
+                                   .astype(np.uint8))
+            st = _accum_layouts(buf, k, nbytes)[layout]
+            assert st.shape == (k, nbytes) and st.stride(1) == 1, layout
+            st.copy_(torch.from_numpy(content))
+            for got in (wire.packed_int_accumulate(st, slots, width),
+                        wire.packed_int_accumulate_rows(list(st), slots,
+                                                        width),
+                        wire.packed_int_accumulate_rows(
+                            [r.clone() for r in st], slots, width)):
+                np.testing.assert_array_equal(got.numpy(), want,
+                                              err_msg=layout)
+
+
+def test_packed_int_accumulate_rows_gates():
+    rows = [torch.zeros(8, dtype=torch.uint8) for _ in range(2)]
+    before = wire.packed_int_accumulate.launches
+    out = wire.packed_int_accumulate_rows(rows, 16, 4)
+    assert out.dtype == torch.uint8 and out.shape == (8,)
+    assert wire.packed_int_accumulate.launches == before     # plain on CPU
+    with pytest.raises(ValueError, match="K >= 1"):
+        wire.packed_int_accumulate_rows([], 16, 4)
+    with pytest.raises(ValueError, match="equal-length"):
+        wire.packed_int_accumulate_rows([rows[0], rows[1][:7]], 14, 4)
+    with pytest.raises(ValueError, match="equal-length"):
+        wire.packed_int_accumulate_rows([rows[0], rows[1].to(torch.int8)],
+                                        16, 4)
+    with pytest.raises(ValueError, match="equal-length"):
+        wire.packed_int_accumulate_rows([torch.zeros(2, 8, dtype=torch.uint8)],
+                                        16, 4)
+    with pytest.raises(ValueError, match="width"):
+        wire.packed_int_accumulate_rows(rows, 8, 1)
+    with pytest.raises(ValueError, match="uint8"):
+        wire.packed_int_accumulate_rows(rows, 17, 4)          # too few bytes
