@@ -110,6 +110,26 @@ The homomorphic path:
     (homoqsgd4_ring_bs256, the fused 4-bit homoqsgd over the reduce-
     scatter, topk1pct_rscatter_bs256) and assert their launches a step.
 
+The MNIST convergence path and the two-shot all-reduce:
+
+14. Hold the chunk Top-K pair against its plain versions on LeNet's 8
+    leaves (10 to 16,000 elements; k=1, one column, on the three smallest,
+    one with a tie): grouped in one launch (the four compress variants,
+    the aggregate at W in {1, 8} x {f32, bf16}), and one-leaf over the
+    flat 21,840-element buffer.
+15. Train LeNet on the bundled MNIST split through the port's entry point
+    (grace_tpu_torch/examples/mnist10k_lenet.py), W=1, 40 epochs from the
+    seeded init, in three configurations: Top-K 1% chunk + residual +
+    allgather at fusion flat (the committed curve's) and per leaf, and the
+    dense anchor. Print every epoch's test accuracy; each final accuracy
+    must reach the committed W=1 CPU run's less 1.0 pp, and the Top-K runs
+    launch each chunk kernel once a step (over the run and in a profiled
+    step).
+16. Train full-width ResNet-50 under topk1pct_twoshot_bs256
+    (bench_all.py), as in 5; then signSGD + residual through the two-shot
+    all-reduce over the 161 ResNet-50 leaves must equal the all-gather vote
+    bit for bit, every encode through the sign-pack kernel.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -190,6 +210,43 @@ HEADLINE[0]["per_step"] = {}
 # The main path groups its 161 leaves: one launch of each kernel a step.
 HEADLINE[1]["per_step"] = {"chunk_compress_feedback": 1,
                            "chunk_aggregate_dense": 1}
+# The MNIST convergence path (phase 15): the port's MNIST entry point
+# (grace_tpu_torch/examples/mnist10k_lenet.py) at W=1 on the card, 40 epochs
+# from the seeded init, in three configurations: the committed curve's
+# (Top-K 1% chunk + residual + allgather, fusion flat: one one-leaf launch of
+# each chunk kernel a step), the same one exchange a leaf (one grouped launch
+# over the 8 leaves a step) and the dense anchor. Each must reach the test
+# accuracy of the port's own W=1 run on the CPU at epoch 40
+# (grace_tpu_torch/examples/logs/mnist10k_w1cpu_*.tsv), less MNIST_FLOOR.
+MNIST_PATH = [
+    {"name": "lenet_topk1pct_chunk_flat",
+     "argv": ["--compressor", "topk", "--topk-algorithm", "chunk",
+              "--memory", "residual"],
+     "cpu_log": "mnist10k_w1cpu_topk1pct_chunk.tsv",
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}},
+    {"name": "lenet_topk1pct_chunk_none",
+     "argv": ["--compressor", "topk", "--topk-algorithm", "chunk",
+              "--memory", "residual", "--fusion", "none"],
+     "cpu_log": "mnist10k_w1cpu_topk1pct_chunk_none.tsv",
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}},
+    {"name": "lenet_dense",
+     "argv": ["--communicator", "allreduce"],
+     "cpu_log": "mnist10k_w1cpu_uncompressed.tsv",
+     "per_step": {}},
+]
+MNIST_FLOOR = 0.01                # 1.0 pp under the CPU run
+MNIST_LOGS = Path(__file__).resolve().parent / "grace_tpu_torch" / "examples" \
+    / "logs"
+# The two-shot all-reduce (phase 16): bench_all.py's topk1pct_twoshot_bs256
+# verbatim. Its chunk encodes run the staged selection (compress, not the
+# fused feedback path), so no kernel launches on one card.
+TWOSHOT_PATH = [
+    {"name": "topk1pct_twoshot_bs256", "per_device_bs": 256,
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "chunk", "memory": "residual",
+                "communicator": "twoshot", "fusion": "flat"},
+     "per_step": {}},
+]
 IMAGE_HW = 224
 NUM_CLASSES = 1000
 WARMUP_STEPS = 2
@@ -1701,6 +1758,248 @@ def time_accum_kernel(dev, flat):
     return out
 
 
+# -- phases 14 to 16: the MNIST convergence path and the two-shot all-reduce --
+
+def lenet_leaves():
+    """(name, numel) of LeNet's 8 parameter leaves, in the GRACE leaf
+    order: 10, 250, 20, 5000, 50, 16000, 10 and 500 elements."""
+    from grace_tpu_torch.models.lenet import LeNet
+    from grace_tpu_torch.transform import leaf_order
+    params = dict(LeNet(device="cpu").named_parameters())
+    return [(n, params[n].numel()) for n in leaf_order(params)]
+
+
+def check_lenet_kernels(dev, errs):
+    """Phase 14: the chunk Top-K pair on LeNet's leaves at 1% (k = 1 on the
+    10-, 20- and 50-element leaves: one column), grouped over the 8 leaves
+    in one launch of each kernel (the four compress variants; the
+    aggregate at W in {1, 8} x {f32, bf16} x average), and one-leaf over
+    the flat 21,840-element buffer (``fusion='flat'``), bit for bit against
+    the plain versions."""
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def randn(n, scale=1.0):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
+    def same(kname, label, want, got):
+        if not same_bits(want, got):
+            fail(f"[14] {kname} {label}: differs from the plain version "
+                 f"(max abs err {max_abs_err(want, got)})")
+        if want.is_floating_point():
+            errs[kname] = max(errs[kname], max_abs_err(want, got))
+
+    leaves = lenet_leaves()
+    ns = [n for _, n in leaves]
+    ks = [static_k(n, 0.01) for n in ns]
+    gs = [randn(n) for n in ns]
+    rs = [randn(n, 0.1) for n in ns]
+    # The first leaf is one column of 10 rows (k=1): a tie at rows 2 and 7,
+    # which row 2 must win, and a zero.
+    gs[0].mul_(0.1)
+    gs[0][2] = gs[0][7] = 1.5
+    rs[0][2] = rs[0][7] = rs[0][3] = gs[0][3] = 0.0
+    cases = 0
+    ck.reset_launch_counts()
+    variants = (("", True, 1.0, 1.0, False),
+                ("residual=None", False, 1.0, 1.0, False),
+                ("beta,gamma=0.9,0.5", True, 0.9, 0.5, False),
+                ("wire_bf16", True, 1.0, 1.0, True))
+    for label, feedback, beta, gamma, bf16 in variants:
+        resids = rs if feedback else [None] * len(rs)
+        want = ck.chunk_compress_feedback_grouped_plain(gs, resids, ks, beta,
+                                                        gamma, bf16)
+        got = ck.chunk_compress_feedback_grouped(
+            gs, [None if r is None else r.clone() for r in resids], ks, beta,
+            gamma, bf16)
+        torch.cuda.synchronize()
+        same("chunk_compress_feedback", f"grouped {label} vals", want[0],
+             got[0])
+        same("chunk_compress_feedback", f"grouped {label} indices", want[1],
+             got[1])
+        if int(got[1][0]) != 2:
+            fail(f"[14] grouped {label}: the tied one-column leaf picked row "
+                 f"{int(got[1][0])}, expected the first, row 2")
+        for (name, _), w, o in zip(leaves, want[2], got[2]):
+            same("chunk_compress_feedback", f"grouped {label} residual of "
+                 f"{name}", w, o.reshape(-1))
+        cases += 1
+    for world in (1, 8):
+        for bf16 in (False, True):
+            pays = [ck.chunk_compress_feedback_grouped_plain(
+                [randn(n) for n in ns], [None] * len(ns), ks, wire_bf16=bf16)
+                for _ in range(world)]
+            vals = torch.stack([p[0] for p in pays])
+            idx = torch.stack([p[1] for p in pays])
+            idx[-1] = idx[0]                     # colliding rows (W=8)
+            for average in (True, False):
+                want = ck.chunk_aggregate_dense_grouped_plain(
+                    vals, idx, ks, ns, average)
+                got = ck.chunk_aggregate_dense_grouped(vals, idx, ks, ns,
+                                                       average)
+                torch.cuda.synchronize()
+                same("chunk_aggregate_dense", f"grouped W={world} "
+                     f"bf16={bf16} average={average}", want, got)
+                cases += 1
+    n = sum(ns)
+    k = static_k(n, 0.01)
+    g, r = torch.cat(gs), torch.cat(rs)
+    for label, feedback, beta, gamma, bf16 in variants:
+        resid = r if feedback else None
+        want = ck.chunk_compress_feedback_plain(g, resid, k, beta, gamma, bf16)
+        got = ck.chunk_compress_feedback(g, None if resid is None
+                                         else resid.clone(), k, beta, gamma,
+                                         bf16)
+        torch.cuda.synchronize()
+        for part, w, o in zip(("vals", "win", "resid"), want, got):
+            same("chunk_compress_feedback", f"flat n={n} {label} {part}", w,
+                 o)
+        cases += 1
+    for world in (1, 8):
+        pays = [ck.chunk_compress_feedback_plain(randn(n), None, k)
+                for _ in range(world)]
+        vals = torch.stack([p[0] for p in pays])
+        win = torch.stack([p[1] for p in pays])
+        for average in (True, False):
+            want = ck.chunk_aggregate_dense_plain(vals, win, k, n, average)
+            got = ck.chunk_aggregate_dense(vals, win, k, n, average)
+            torch.cuda.synchronize()
+            same("chunk_aggregate_dense", f"flat n={n} W={world} "
+                 f"average={average}", want, got)
+            cases += 1
+    counts = ck.launch_counts()
+    want_counts = {"chunk_compress_feedback": 2 * len(variants),
+                   "chunk_aggregate_dense": 12}
+    if counts != want_counts:
+        fail(f"[14] launches {counts}, expected {want_counts} (one a call)")
+    return cases, leaves
+
+
+def profiled_kernel_launches(step, state, batch, words) -> dict:
+    """Launches of the kernels whose names hold each of ``words`` in one
+    more step under torch.profiler (the profiler's own count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    warm_profiler()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return {w: sum(e.count for e in events if w in e.key) for w in words}
+
+
+def final_test_acc(tsv: Path) -> float:
+    """The last row's test accuracy of a committed MNIST curve."""
+    rows = [line.split("\t") for line in tsv.read_text().splitlines()
+            if line and not line.startswith(("#", "epoch"))]
+    return float(rows[-1][2])
+
+
+def train_mnist(dev, group, cfg):
+    """Phase 15: one configuration through the MNIST entry point on the
+    card, from the seeded init, every epoch evaluated; the kernels'
+    launches over the run and in one profiled step. The floor is the
+    committed W=1 CPU run's final accuracy less MNIST_FLOOR."""
+    import torch
+    from grace_tpu_torch import ops
+    from grace_tpu_torch.examples import mnist10k_lenet as ex
+
+    args = ex.build_parser().parse_args(cfg["argv"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                 # just before the run
+    res = ex.train(args, group, dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()            # just after it
+    profiled = profiled_kernel_launches(
+        res["step"], res["state"], res["batch"],
+        ("chunk_compress_feedback", "chunk_aggregate_dense"))
+    cpu_acc = final_test_acc(MNIST_LOGS / cfg["cpu_log"])
+    floor = cpu_acc - MNIST_FLOOR
+    accs = res["accs"]
+    log(f"  {cfg['name']}: test accuracy by epoch "
+        f"{' '.join(f'{a:.4f}' for a in accs)}")
+    log(f"  {cfg['name']}: final {accs[-1]:.4f} after {res['steps']} steps in "
+        f"{res['seconds']:.1f} s ({res['seconds'] / res['steps'] * 1e3:.2f} "
+        f"ms a step, evaluation included); floor {floor:.4f} (the port's W=1 "
+        f"CPU run: {cpu_acc:.4f}, less {MNIST_FLOOR * 100:.1f} pp); "
+        f"launches {launches}; in one profiled step {profiled}")
+    if len(accs) != args.epochs or not all(math.isfinite(a) for a in accs):
+        fail(f"[15] {cfg['name']}: accuracies {accs}")
+    if accs[-1] < floor:
+        fail(f"[15] {cfg['name']}: final test accuracy {accs[-1]:.4f} under "
+             f"its floor {floor:.4f}")
+    for name, count in launches.items():
+        want = cfg["per_step"].get(name, 0) * res["steps"]
+        if count != want:
+            fail(f"[15] {cfg['name']}: {name} launched {count} times over "
+                 f"{res['steps']} steps, expected {want}")
+    for name, count in profiled.items():
+        if count != cfg["per_step"].get(name, 0):
+            fail(f"[15] {cfg['name']}: {count} launches of {name} in the "
+                 f"profiled step, expected {cfg['per_step'].get(name, 0)}")
+    return {"name": cfg["name"], "accs": accs, "final_acc": accs[-1],
+            "floor": floor, "cpu_acc": cpu_acc, "steps": res["steps"],
+            "seconds": res["seconds"], "launches": launches,
+            "profiled_step_launches": profiled}
+
+
+def check_twoshot_vote(dev, group, leaves):
+    """Phase 16, second part: signSGD + residual through two-shot equals the
+    all-gather vote bit for bit over the 161 ResNet-50 leaves (outputs and
+    residuals, two steps; ±0.0 and NaN planted), with every leaf's two
+    encodes (stage 1 and stage 2) through the sign-pack kernel."""
+    import torch
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    grads = {name: torch.randn(n, generator=gen, device=dev)
+             for name, n in leaves}
+    first = grads[leaves[0][0]]
+    first[:4] = torch.tensor([0.0, -0.0, float("nan"), -1.0], device=dev)
+    outs, launches = {}, None
+    for comm in ("twoshot", "allgather"):
+        tx = grace_from_params({"compressor": "signsgd", "memory": "residual",
+                                "communicator": comm, "fusion": "none"},
+                               group=group).transform(SEED)
+        state = tx.init(grads)
+        torch.cuda.synchronize()
+        Q.reset_launch_counts()
+        ups = []
+        for step in range(2):
+            up, state = tx.update({n: g * (step + 1) for n, g in
+                                   grads.items()}, state)
+            ups.append(up)
+        torch.cuda.synchronize()
+        if comm == "twoshot":
+            launches = Q.launch_counts()["sign_pack"]
+        outs[comm] = (ups, state.mem)
+    (ups_t, mem_t), (ups_g, mem_g) = outs["twoshot"], outs["allgather"]
+    for step in range(2):
+        for n in ups_t[step]:
+            if not same_bits(ups_t[step][n], ups_g[step][n]):
+                fail(f"[16] two-shot signSGD update of {n} at step {step} "
+                     "differs from the all-gather vote")
+    for a, b in zip(mem_t, mem_g):
+        if not same_bits(a, b):
+            fail("[16] two-shot signSGD residual differs from the all-gather "
+                 "vote's")
+    want = 2 * 2 * len(leaves)            # two steps, two encodes a leaf
+    if launches != want:
+        fail(f"[16] two-shot signSGD launched sign_pack {launches} times, "
+             f"expected {want}")
+    return launches
+
+
 def kernel_named(fn, word: str) -> str:
     """The name of the one CUDA kernel whose name holds ``word`` among those
     one call of ``fn`` launches, as the profiler names it."""
@@ -1963,6 +2262,37 @@ def main() -> int:
         for cfg in HOMO_PATH:
             runs[cfg["name"]] = train(dev, group, cfg, x, y)
             torch.cuda.empty_cache()
+        # -- 14. the chunk Top-K pair on LeNet's leaves -----------------------
+        cases, lenet = check_lenet_kernels(dev, errs)
+        sizes = ", ".join(str(n) for _, n in lenet)
+        log(f"[14] chunk Top-K pair bit-identical to its plain versions on "
+            f"LeNet's {len(lenet)} leaves ({sizes} elements, k=1 on the "
+            f"three smallest) in {cases} cases: grouped "
+            f"(four compress variants, the aggregate at W in {{1, 8}}) and "
+            f"over the flat {sum(n for _, n in lenet)}-element buffer, one "
+            f"launch a call")
+        # -- 15. LeNet on the bundled MNIST ----------------------------------
+        log(f"[15] LeNet on the bundled MNIST split, W=1, 40 epochs, batch "
+            f"256, SGD lr 0.02 momentum 0.9, seed 42 (tf32: cudnn "
+            f"{torch.backends.cudnn.allow_tf32}, matmul "
+            f"{torch.backends.cuda.matmul.allow_tf32})")
+        mnist = {}
+        for cfg in MNIST_PATH:
+            mnist[cfg["name"]] = train_mnist(dev, group, cfg)
+            runs[cfg["name"]] = mnist[cfg["name"]]
+        # -- 16. the two-shot all-reduce -------------------------------------
+        log(f"[16] ResNet-50 under the two-shot configuration, batch {bs}, "
+            f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
+        for cfg in TWOSHOT_PATH:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y)
+            torch.cuda.empty_cache()
+        vote_launches = check_twoshot_vote(dev, group, leaves)
+        runs["twoshot_signsgd_vote"] = {"launches": {"sign_pack":
+                                                     vote_launches}}
+        log(f"[16] two-shot signSGD + residual over the {len(leaves)} "
+            f"ResNet-50 leaves equals the all-gather vote bit for bit "
+            f"(updates and residuals, two steps); sign_pack launched "
+            f"{vote_launches} times (both encodes of every leaf)")
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",
@@ -1993,6 +2323,9 @@ def main() -> int:
                 "replaces": f"grace_tpu/ops/{src}:{line}",
                 "launches": runs[run]["launches"][kname],
                 "launches_from": f"the {run} run",
+                "launches_by_run": {
+                    r: v["launches"][kname] for r, v in runs.items()
+                    if v["launches"].get(kname)},
                 "max_abs_err": {**errs, **wire_errs}[kname], "ms": t["ms"],
                 "host_ms": t["host_ms"], "kernel_ms": t["kernel_ms"],
                 "event_ms": t["event_ms"], "cold_ms": t["cold_ms"],

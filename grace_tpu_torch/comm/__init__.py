@@ -1,8 +1,8 @@
 """Communicators over ``torch.distributed``; counterpart of the JAX
 ``comm/__init__.py`` (``Allreduce`` with its majority-vote routing and its
 homomorphic path, ``Allgather``, ``Broadcast``, ``SignAllreduce``,
-``RingAllreduce``, ``ReduceScatterAllreduce`` and ``Identity``; the
-two-shot and hierarchical communicators are queued in ROADMAP).
+``TwoShotAllreduce``, ``RingAllreduce``, ``ReduceScatterAllreduce`` and
+``Identity``; the hierarchical communicator is queued in ROADMAP).
 
 NCCL carries them on the card, gloo in the CPU tests. A world of one rank
 still makes the real collective calls, except the ring's point-to-point
@@ -29,8 +29,8 @@ from grace_tpu_torch.core import (Communicator, Compressor, Ctx, LeafKey,
                                   Memory, Payload, mean_scale)
 
 __all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
-           "SignAllreduce", "RingAllreduce", "ReduceScatterAllreduce",
-           "vote_exact_max_world"]
+           "SignAllreduce", "TwoShotAllreduce", "RingAllreduce",
+           "ReduceScatterAllreduce", "vote_exact_max_world"]
 
 # Newer PyTorch renames all_gather_into_tensor (same signature) and
 # deprecates the old name.
@@ -403,14 +403,23 @@ class _ChunkedView:
     """Decompress-only adapter: the W shard payloads of a stage-1 encode →
     the full flat leaf, so that a Memory's ``update`` (which only calls
     ``compressor.decompress``) sees the reconstruction of the whole buffer.
-    ``ctx = (shard ctxs, n, shape, dtype)``."""
+    ``ctx = (shard ctxs, n, shape, dtype, stage2)``. ``stage2`` is None, or
+    two-shot's ``(e2, start)`` under ``stage2_feedback``: the owner's
+    re-compression error ``e2``, subtracted at its chunk from ``start`` on,
+    so that a residual memory (``compensated − decompress``) keeps it."""
 
     inner: Compressor
 
     def decompress(self, payload, ctx) -> torch.Tensor:
-        ctxs, n, shape, dtype = ctx
+        ctxs, n, shape, dtype, stage2 = ctx
         flat = torch.cat([self.inner.decompress(p, c).reshape(-1)
                           for p, c in zip(payload, ctxs)])
+        if stage2 is not None:
+            e2, start = stage2
+            stop = start + e2.numel()
+            flat = torch.cat([flat[:start],
+                              flat[start:stop] - e2.to(flat.dtype),
+                              flat[stop:]])
         return flat[:n].reshape(shape).to(dtype)
 
 
@@ -418,7 +427,8 @@ class _ChunkedView:
 class _PipelinedView:
     """Decompress-only adapter over P segments' :class:`_ChunkedView` ctxs:
     each segment decodes on its own, and the segments concatenate back into
-    the full leaf. ``ctx = (segment ctxs, n, shape, dtype)``."""
+    the full leaf. ``ctx = (segment ctxs, n, shape, dtype)``, each segment
+    ctx a :class:`_ChunkedView` ctx."""
 
     inner: Compressor
 
@@ -465,6 +475,101 @@ def _shard_compress(compressor: Compressor, chunks: torch.Tensor,
         payloads.append(tuple(payload))
         ctxs.append(ctx)
     return payloads, ctxs
+
+
+def _stacked_decode(compressor: Compressor, stacked: Payload, ctx: Ctx,
+                    k: int) -> torch.Tensor:
+    """The ``k`` payloads of a ``(k, ...)`` stack decoded with one ctx and
+    stacked: ``(k,) + shape``."""
+    return torch.stack([compressor.decompress(_rank_payload(stacked, j), ctx)
+                        for j in range(k)])
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoShotAllreduce(Communicator):
+    """Scatter, reduce, re-compress and gather: O(k) wire per rank.
+
+    1. split the compensated gradient into W equal chunks
+       (``Communicator.shard_spec``) and compress each under
+       ``rng.fold(c)`` (error feedback covers exactly this encode);
+    2. ``all_to_all`` the stacked chunk payloads: rank i receives every
+       rank's payload for chunk i;
+    3. decode those W payloads with chunk i's ctx, ``aggregate`` them (a
+       sum or the majority vote; staged, as the JAX package does: a fused
+       decode-accumulate would associate the sums differently) and scale
+       by ``mean_scale(W)`` under ``average``;
+    4. re-compress the aggregate under ``rng.fold(W)``, a key every rank
+       holds, ``all_gather`` it, and decode every rank's chunk with this
+       rank's own stage-2 ctx.
+
+    Only for stateless codecs with a wire payload and a ctx free of data
+    (``_shard_compress``'s gates): every rank decodes the others' chunks
+    with its own ctx. ``stage2_feedback=True`` folds each owner's stage-2
+    re-compression error into its residual at the owned chunk (×W under
+    ``average``, so the mean repays it once), which needs a memory whose
+    update is ``compensated − decompress``.
+    """
+
+    stage2_feedback: bool = False
+    shard_parallel = True
+
+    def step(self, x: torch.Tensor, mem_state, comp_state, memory,
+             compressor: Compressor, rng: LeafKey):
+        if comp_state is not None:
+            raise TypeError(
+                f"TwoShotAllreduce requires a stateless compressor; "
+                f"{type(compressor).__name__} carries cross-step state "
+                "(init_state != None) that has no per-chunk meaning — use "
+                "Allgather/Allreduce instead.")
+        shape, dtype = tuple(x.shape), x.dtype
+        compensated, mem_state = memory.compensate(x, mem_state)
+        flat = compensated.reshape(-1)
+        n = flat.numel()
+        w, m, pad = self.shard_spec(n)
+        chunks = (torch.cat([flat, flat.new_zeros(pad)]) if pad
+                  else flat).reshape(w, m)
+        payloads, ctxs = _shard_compress(compressor, chunks, rng,
+                                         "TwoShotAllreduce")
+        if self.stage2_feedback and not (
+                getattr(memory, "linear_feedback_coeffs", None) is not None
+                or _is_identity_memory(memory)):
+            raise TypeError(
+                "TwoShotAllreduce(stage2_feedback=True) needs a memory whose "
+                "update is compensated − decompress (ResidualMemory: "
+                f"linear_feedback_coeffs); {type(memory).__name__} does not "
+                "declare it. A keep-mask memory such as DgcMemory reads "
+                "decompress()==0, and the injected stage-2 error would "
+                "clear its accumulators across the whole owned chunk. Use "
+                "ResidualMemory or disable stage2_feedback.")
+        i = dist.get_rank(self.group)
+        # Rank i now holds every rank's payload for chunk i.
+        mine = _all_to_all(tuple(torch.stack(leaf) for leaf in
+                                 zip(*payloads)), self.group)
+        agg = compressor.aggregate(_stacked_decode(compressor, mine,
+                                                   ctxs[i], w))
+        if compressor.average:
+            agg = agg * mean_scale(w)                         # agg / w
+        agg = agg.to(chunks.dtype)
+        payload2, ctx2, _ = compressor.compress(agg, None, rng.fold(w))
+        stage2 = None
+        if self.stage2_feedback:
+            e2 = agg - compressor.decompress(payload2, ctx2)
+            if compressor.average:
+                e2 = e2 * w
+            stage2 = (e2, i * m)
+        mem_state = memory.update(compensated, payloads,
+                                  (ctxs, n, shape, dtype, stage2),
+                                  _ChunkedView(compressor), mem_state)
+        out = _stacked_decode(compressor, _gather(tuple(payload2), self.group),
+                              ctx2, w)
+        return out.reshape(-1)[:n].reshape(shape).to(dtype), mem_state, \
+            comp_state
+
+    def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
+                 ) -> torch.Tensor:
+        raise TypeError("TwoShotAllreduce re-chunks the gradient before "
+                        "compression; it only supports the full step() "
+                        "pipeline, not a bare exchange().")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -547,7 +652,8 @@ class RingAllreduce(Communicator):
         if len(segs) == 1:
             out, payloads, ctxs = self._segment_schedule(
                 flat, compressor, rng, exact, homo, shared)
-            view, view_ctx = _ChunkedView(compressor), (ctxs, n, shape, dtype)
+            view = _ChunkedView(compressor)
+            view_ctx = (ctxs, n, shape, dtype, None)
         else:
             outs, seg_pay, seg_ctx = [], [], []
             for p, (lo, hi) in enumerate(segs):
@@ -556,7 +662,7 @@ class RingAllreduce(Communicator):
                     shared)
                 outs.append(o)
                 seg_pay.append(pay)
-                seg_ctx.append((ctxs, hi - lo, (hi - lo,), flat.dtype))
+                seg_ctx.append((ctxs, hi - lo, (hi - lo,), flat.dtype, None))
             out = torch.cat(outs)
             payloads = tuple(seg_pay)
             view, view_ctx = (_PipelinedView(compressor),
@@ -776,7 +882,7 @@ class ReduceScatterAllreduce(Communicator):
         # Error feedback covers the stage-1 encode exactly; the one
         # requant boundary (requant path only) is downstream of it.
         mem_state = memory.update(compensated, payloads,
-                                  (ctxs, n, shape, dtype),
+                                  (ctxs, n, shape, dtype, None),
                                   _ChunkedView(compressor), mem_state)
         i = dist.get_rank(self.group)
         # Rank i now holds every rank's payload for chunk i.

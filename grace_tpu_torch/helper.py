@@ -25,7 +25,7 @@ PORTED_KEYS = frozenset({
     "compressor", "compress_ratio", "topk_algorithm", "wire_dtype",
     "use_pallas", "quantum_num", "accum_dtype", "accum_bits", "sketch_rows",
     "momentum", "memory", "beta", "gamma", "memory_dtype", "communicator",
-    "pipeline", "vote_dtype", "fusion", "world_size"})
+    "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size"})
 
 
 def _unsupported(kind: str, name, ported) -> ValueError:
@@ -53,6 +53,9 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
     name = params.get("compressor", "none")
     if name == "none":
         return C.NoneCompressor()
+    if name in ("fp16", "bf16", "bfloat16"):
+        return C.FP16Compressor(dtype="float16" if name == "fp16"
+                                else "bfloat16")
     if name == "topk":
         return C.TopKCompressor(
             compress_ratio=params.get("compress_ratio", 0.3),
@@ -80,7 +83,8 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
                                   use_pallas=params.get("use_pallas",
                                                         "auto"))
     raise _unsupported("compressor", name,
-                       ("none", "topk", "qsgd", "homoqsgd", "countsketch",
+                       ("none", "fp16", "bf16", "bfloat16", "topk", "qsgd",
+                        "homoqsgd", "countsketch",
                         "signsgd", "signum"))
 
 
@@ -104,6 +108,10 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
         return comm.Allgather(group=group)
     if name == "broadcast":
         return comm.Broadcast(group=group)
+    if name in ("twoshot", "twoshot_allreduce"):
+        return comm.TwoShotAllreduce(
+            group=group,
+            stage2_feedback=bool(params.get("stage2_feedback", False)))
     if name in ("ring", "ring_allreduce"):
         return comm.RingAllreduce(group=group,
                                   pipeline=int(params.get("pipeline", 1)))
@@ -115,7 +123,8 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
     if name in ("identity", "none"):
         return comm.Identity(group=group)
     raise _unsupported("communicator", name,
-                       ("allreduce", "allgather", "broadcast", "ring",
+                       ("allreduce", "allgather", "broadcast", "twoshot",
+                        "ring",
                         "rscatter", "sign_allreduce", "identity"))
 
 

@@ -1,2 +1,2 @@
-"""Models with the JAX package's parameter layout (ResNet so far; LeNet and
-the rest of the zoo are queued in ROADMAP)."""
+"""Models with the JAX package's parameter layout (ResNet and LeNet so far;
+the rest of the zoo is queued in ROADMAP)."""

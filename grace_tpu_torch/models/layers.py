@@ -51,36 +51,60 @@ def glorot_uniform(shape, fan_in: int, fan_out: int,
 
 
 class Conv(nn.Module):
-    """Convolution with an HWIO kernel ``w`` and XLA SAME padding; takes
-    and returns NCHW tensors."""
+    """Convolution with an HWIO kernel ``w``, XLA ``padding`` (``"SAME"`` or
+    ``"VALID"``) and, with ``use_bias``, a bias ``b``; takes and returns
+    NCHW tensors."""
 
     def __init__(self, kh: int, kw: int, cin: int, cout: int, stride: int = 1,
-                 *, generator: torch.Generator):
+                 *, padding: str = "SAME", use_bias: bool = False,
+                 generator: torch.Generator):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID'; got "
+                             f"{padding!r}")
         self.stride = stride
+        self.padding = padding
         self.w = nn.Parameter(he_normal((kh, kw, cin, cout), kh * kw * cin,
                                         generator))
+        self.b = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kh, kw = self.w.shape[:2]
-        top, bottom = same_padding(x.shape[2], kh, self.stride)
-        left, right = same_padding(x.shape[3], kw, self.stride)
         # HWIO -> OIHW, cast to the activation dtype, channels-last storage.
         w = self.w.permute(3, 2, 0, 1).to(dtype=x.dtype,
                                           memory_format=torch.channels_last)
-        if top == bottom and left == right:
-            return F.conv2d(x, w, stride=self.stride, padding=(top, left))
-        x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, w, stride=self.stride)
+        if self.padding == "VALID":
+            y = F.conv2d(x, w, stride=self.stride)
+        else:
+            kh, kw = self.w.shape[:2]
+            top, bottom = same_padding(x.shape[2], kh, self.stride)
+            left, right = same_padding(x.shape[3], kw, self.stride)
+            if top == bottom and left == right:
+                y = F.conv2d(x, w, stride=self.stride, padding=(top, left))
+            else:
+                y = F.conv2d(F.pad(x, (left, right, top, bottom)), w,
+                             stride=self.stride)
+        if self.b is None:
+            return y
+        # Added after the convolution, as the JAX layer adds it.
+        return y + self.b.to(y.dtype).view(1, -1, 1, 1)
 
 
 class Dense(nn.Module):
-    """``x @ w + b`` with ``w`` of shape ``(din, dout)``."""
+    """``x @ w + b`` with ``w`` of shape ``(din, dout)``, initialised by
+    ``init``: ``"glorot"`` (uniform) or ``"he"`` (normal). The JAX
+    ``dense_init`` defaults to ``"he"``; ResNet's fc passes ``"glorot"``
+    there, which is this layer's default."""
 
-    def __init__(self, din: int, dout: int, *, generator: torch.Generator):
+    def __init__(self, din: int, dout: int, *, init: str = "glorot",
+                 generator: torch.Generator):
         super().__init__()
-        self.w = nn.Parameter(glorot_uniform((din, dout), din, dout,
-                                             generator))
+        if init == "glorot":
+            w = glorot_uniform((din, dout), din, dout, generator)
+        elif init == "he":
+            w = he_normal((din, dout), din, generator)
+        else:
+            raise ValueError(f"init must be 'glorot' or 'he'; got {init!r}")
+        self.w = nn.Parameter(w)
         self.b = nn.Parameter(torch.zeros(dout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

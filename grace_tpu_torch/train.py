@@ -29,7 +29,7 @@ from torch import nn
 from grace_tpu_torch.transform import GraceState, GraceTransform
 
 __all__ = ["TrainState", "make_train_step", "make_stateful_train_step",
-           "init_train_state", "init_stateful_train_state"]
+           "make_eval_step", "init_train_state", "init_stateful_train_state"]
 
 
 @dataclasses.dataclass
@@ -108,3 +108,30 @@ def make_stateful_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
     forward pass (BatchNorm running stats); ``sync_model_state`` averages
     them over the group after each backward pass."""
     return _make_step(loss_fn, grace_tx, group, sync_model_state)
+
+
+def make_eval_step(metric_fn: Callable[[nn.Module, Any], Any],
+                   group: Optional[Any] = None):
+    """``eval_step(model, batch) -> metrics averaged over the group``.
+
+    ``metric_fn(model, batch)`` returns a scalar tensor or a dict of them,
+    computed on this rank's part of the batch; each is averaged over the
+    group (the JAX package's ``pmean``). The model runs in eval mode
+    without gradients, and its mode is restored afterwards."""
+
+    def eval_step(model: nn.Module, batch):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                metrics = metric_fn(model, batch)
+        finally:
+            model.train(was_training)
+        if isinstance(metrics, dict):
+            return {k: _mean_over_group(torch.as_tensor(v).detach().float()
+                                        .clone(), group)
+                    for k, v in metrics.items()}
+        return _mean_over_group(torch.as_tensor(metrics).detach().float()
+                                .clone(), group)
+
+    return eval_step

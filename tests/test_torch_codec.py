@@ -154,6 +154,46 @@ def test_fused_path_taken_and_gated():
                                          LeafKey(0, 0, 0)) is None
 
 
+@pytest.mark.parametrize("name,dtype", [("fp16", "float16"),
+                                        ("bf16", "bfloat16"),
+                                        ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("memory", ["none", "residual"])
+def test_fp16_codec_matches_jax(name, dtype, memory):
+    """The half-precision downcast through ``Communicator.step``: payload,
+    decoded tensor and residual bit for bit against the JAX package, with
+    values past float16's range, below its normal range and a signed
+    zero."""
+    from grace_tpu_torch.compressors import FP16Compressor
+    x = np.random.default_rng(11).standard_normal((7, 13)).astype(np.float32)
+    x[0, :4] = [7e4, -7e4, 3e-6, -0.0]
+    resid = np.random.default_rng(12).standard_normal(x.shape).astype(
+        np.float32) * 0.1
+    g = grace_from_params({"compressor": name, "memory": memory,
+                           "communicator": "identity"})
+    assert g.compressor == FP16Compressor(dtype=dtype)
+    assert g.compressor.payload_algebra == "exact"
+    assert not g.compressor.supports_hop_requant
+    jc = jC.FP16Compressor(dtype=dtype)
+    jm = jM.ResidualMemory() if memory == "residual" else jM.NoneMemory()
+    st = torch.from_numpy(resid) if memory == "residual" else None
+    out, ms, _ = g.communicator.step(torch.from_numpy(x), st, None, g.memory,
+                                     g.compressor, LeafKey(0, 0, 0))
+    want, want_ms = _jax_step(jc, jm, jnp.asarray(x),
+                              jnp.asarray(resid) if st is not None else None)
+    assert_same_bits(out, want)
+    if memory == "residual":
+        assert_same_bits(ms, want_ms)
+    payload, ctx, _ = g.compressor.compress(torch.from_numpy(x), None,
+                                            LeafKey(0, 0, 0))
+    (jpayload,), jctx, _ = jc.compress(jnp.asarray(x), None,
+                                       jax.random.key(0))
+    np.testing.assert_array_equal(payload[0].view(torch.int16).numpy(),
+                                  np.asarray(jpayload).view(np.int16))
+    assert ctx == torch.float32 and jctx == jnp.float32
+    with pytest.raises(ValueError, match="half dtype"):
+        FP16Compressor(dtype="float8")
+
+
 def test_none_codec_and_memory():
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (4, 5)).astype(np.float32))

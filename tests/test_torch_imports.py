@@ -38,6 +38,11 @@ WIRE_PATH_MODULES = {
     "grace_tpu_torch.compressors.signsgd",
     "grace_tpu_torch.compressors.homoqsgd",
     "grace_tpu_torch.compressors.countsketch"}
+# The MNIST convergence path's modules and the two-shot codec.
+MNIST_PATH_MODULES = {
+    "grace_tpu_torch.data", "grace_tpu_torch.models.lenet",
+    "grace_tpu_torch.models.threefry", "grace_tpu_torch.compressors.fp16",
+    "grace_tpu_torch.examples", "grace_tpu_torch.examples.mnist10k_lenet"}
 
 
 def test_every_module_imports_without_jax_or_triton():
@@ -49,6 +54,7 @@ def test_every_module_imports_without_jax_or_triton():
     names = set(names.split(","))
     assert len(names) >= 20                      # every module of the port
     assert WIRE_PATH_MODULES <= names
+    assert MNIST_PATH_MODULES <= names
     assert leaked.strip() == "[]"
 
 
