@@ -130,6 +130,30 @@ The MNIST convergence path and the two-shot all-reduce:
     all-reduce over the 161 ResNet-50 leaves must equal the all-gather vote
     bit for bit, every encode through the sign-pack kernel.
 
+The hierarchical all-reduce:
+
+17. Train full-width ResNet-50 under bench_all.py's four hier rows
+    (topk1pct_hier_bs256, qsgd_hier, none_hier, homoqsgd4_hier_slice8,
+    their params verbatim, batch 256) and a fifth with the quantize-and-pack
+    kernel on (qsgd4_hier, the hier sibling of qsgd4_ring), one warm-up and
+    three timed steps a row (to stay well inside the time limit). At W=1
+    with slice_size=8 the schedule is one slice, the flat ring's. Then, on
+    two steps of a real ResNet-50 flat gradient, each row's step equals its
+    ring twin (the same params with "communicator": "ring") bit for bit,
+    outputs and residuals; the twin runs under a key that names its final
+    encode fold(W) fold(2W+1), the key hier encodes its owned shard under
+    (as in the JAX package).
+18. The hier schedule's boundary kernels at the shapes of a W=8 world over
+    the ResNet-50 flat buffer, for S=4, K=2 and for S=2, Kr=2, R=2: the
+    exact boundary sum (packed_int_accumulate over K, then R, 4-bit
+    homoqsgd payloads of one S-shard, through payload_sum), the cascaded
+    vote (decode_accumulate with vote over K signSGD shard payloads,
+    through the schedule's _gathered_aggregate) and the boundary re-encode
+    (quantize-and-pack of one shard under fold(2S)): each bit for bit
+    against its plain version (the vote against the staged decode too),
+    then timed. And randomk's shared indices on the card: two draws under
+    one key give the same indices, two keys different ones.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -247,6 +271,41 @@ TWOSHOT_PATH = [
                 "communicator": "twoshot", "fusion": "flat"},
      "per_step": {}},
 ]
+# The hierarchical all-reduce (phase 17): bench_all.py's four hier rows
+# verbatim, and qsgd4_hier, qsgd4_ring's params with the hier communicator.
+# At W=1 no row makes a hop or a boundary exchange; only qsgd4_hier launches
+# a kernel (its stage-1 and owned-shard encodes).
+HIER_PATH = [
+    {"name": "topk1pct_hier_bs256", "per_device_bs": 256,
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "chunk", "memory": "residual",
+                "communicator": "hier", "slice_size": 8,
+                "fusion": "flat"},
+     "per_step": {}},
+    {"name": "qsgd_hier",
+     "params": {"compressor": "qsgd", "quantum_num": 64,
+                "use_pallas": False, "memory": "none",
+                "communicator": "hier", "slice_size": 8, "fusion": "flat"},
+     "per_step": {}},
+    {"name": "none_hier",
+     "params": {"compressor": "none", "memory": "none",
+                "communicator": "hier", "slice_size": 8, "fusion": "flat"},
+     "per_step": {}},
+    {"name": "homoqsgd4_hier_slice8", "per_device_bs": 256,
+     "params": {"compressor": "homoqsgd", "quantum_num": 7,
+                "memory": "residual", "communicator": "hier",
+                "slice_size": 8, "fusion": "flat"},
+     "per_step": {}},
+    {"name": "qsgd4_hier", "per_device_bs": 256,
+     "params": {"compressor": "qsgd", "quantum_num": 7, "use_pallas": True,
+                "memory": "none", "communicator": "hier", "slice_size": 8,
+                "fusion": "flat"},
+     "per_step": {"quantize_pack_stochastic": 2}},
+]
+HIER_WARMUP_STEPS = 1
+HIER_TIMED_STEPS = 3
+# Phase 18: (label, S, Kr, R) of a W=8 world.
+HIER_LAYOUTS = (("S=4 K=2", 4, 2, 1), ("S=2 Kr=2 R=2", 2, 2, 2))
 IMAGE_HW = 224
 NUM_CLASSES = 1000
 WARMUP_STEPS = 2
@@ -882,9 +941,10 @@ def profile_step(step, state, batch, label):
         f"{total_ms / wall_ms:.2f})")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": total_ms, "kernels": kernels}
 
 
-def train(dev, group, cfg, x, y):
+def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.models.resnet import resnet50
@@ -906,24 +966,24 @@ def train(dev, group, cfg, x, y):
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()                 # just before the main path
     losses = []
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         state, loss = step(state, (x, y))
         losses.append(float(loss))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         state, loss = step(state, (x, y))
     losses.append(float(loss))                # synchronises
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()            # just after it
-    profile_step(step, state, (x, y), cfg["name"])
-    steps = WARMUP_STEPS + TIMED_STEPS
-    res = {"name": cfg["name"], "img_per_s": x.shape[0] * TIMED_STEPS / seconds,
-           "step_ms": seconds / TIMED_STEPS * 1e3, "first_loss": losses[0],
+    profiled = profile_step(step, state, (x, y), cfg["name"])
+    steps = warmup + timed
+    res = {"name": cfg["name"], "img_per_s": x.shape[0] * timed / seconds,
+           "step_ms": seconds / timed * 1e3, "first_loss": losses[0],
            "last_loss": losses[-1],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "launches": launches, "steps": steps}
+           "launches": launches, "steps": steps, "profiled": profiled}
     log(f"  {cfg['name']}: {res['img_per_s']:.1f} img/s "
         f"({res['step_ms']:.1f} ms/step), loss {res['first_loss']:.4f} -> "
         f"{res['last_loss']:.4f}, peak {res['peak_mem_gb']:.2f} GB, "
@@ -2000,6 +2060,192 @@ def check_twoshot_vote(dev, group, leaves):
     return launches
 
 
+# -- phases 17 and 18: the hierarchical all-reduce ----------------------------
+
+def _refold_key(seed: int, count: int, world: int):
+    """``LeafKey(seed, count, 0)`` whose top-level ``fold(world)`` is
+    ``fold(2·world + 1)``: the ring's owned-shard encode then draws under
+    the key the hier schedule (in both packages) draws it under at one
+    slice, and the two steps must agree bit for bit."""
+    import dataclasses
+    from grace_tpu_torch.core import LeafKey
+
+    @dataclasses.dataclass(frozen=True)
+    class RefoldKey(LeafKey):
+        def fold(self, i):
+            if not self.folds and int(i) == world:
+                i = 2 * world + 1
+            return super().fold(i)
+
+    return RefoldKey(seed, count, 0)
+
+
+def check_hier_collapse(dev, group, flat):
+    """Phase 17, second part: each HIER_PATH row's step on a real ResNet-50
+    flat gradient equals its ring twin bit for bit, outputs and residuals,
+    two steps (the twin under _refold_key)."""
+    import torch
+    import torch.distributed as dist
+    from grace_tpu_torch import comm, grace_from_params
+    from grace_tpu_torch.core import LeafKey
+
+    world = dist.get_world_size(group)
+    for cfg in HIER_PATH:
+        hier = grace_from_params(cfg["params"], group=group)
+        ring = grace_from_params({**cfg["params"], "communicator": "ring"},
+                                 group=group)
+        if not isinstance(hier.communicator, comm.HierarchicalAllreduce):
+            fail(f"[17] {cfg['name']} built {hier.communicator}")
+        mem_h = hier.memory.init_state(flat)
+        mem_r = ring.memory.init_state(flat)
+        for step in range(2):
+            g = flat * (step + 1)
+            out_h, mem_h, _ = hier.communicator.step(
+                g.clone(), mem_h, None, hier.memory, hier.compressor,
+                LeafKey(SEED, step, 0))
+            out_r, mem_r, _ = ring.communicator.step(
+                g.clone(), mem_r, None, ring.memory, ring.compressor,
+                _refold_key(SEED, step, world))
+            torch.cuda.synchronize()
+            if not same_bits(out_h, out_r):
+                fail(f"[17] {cfg['name']}: step {step}'s output differs from "
+                     f"the ring twin's (max abs err "
+                     f"{max_abs_err(out_h, out_r)})")
+            if mem_h is not None and not same_bits(mem_h, mem_r):
+                fail(f"[17] {cfg['name']}: step {step}'s residual differs "
+                     "from the ring twin's")
+            if not bool(torch.isfinite(out_h).all()):
+                fail(f"[17] {cfg['name']}: non-finite output")
+
+
+def check_hier_boundaries(dev, flat_a, flat_b, errs):
+    """Phase 18: the boundary kernels of the hier schedule at the shapes of
+    a W=8 world over the ResNet-50 flat buffer (HIER_LAYOUTS), each bit for
+    bit against its plain version and then timed; randomk's shared indices
+    on the card. Returns ({layout: {kernel: times}}, cases)."""
+    import torch
+    from grace_tpu_torch import comm
+    from grace_tpu_torch.compressors import (HomoQSGDCompressor,
+                                             QSGDCompressor,
+                                             RandomKCompressor,
+                                             SignSGDCompressor)
+    from grace_tpu_torch.core import LeafKey
+    from grace_tpu_torch.ops import quant as Q
+    from grace_tpu_torch.ops import wire as Wr
+
+    def shards(flat, s):
+        pad = -flat.numel() % s
+        return torch.cat([flat, flat.new_zeros(pad)]).view(s, -1)
+
+    homo = HomoQSGDCompressor(quantum_num=1, accum_bits=4, use_pallas=True)
+    sign = SignSGDCompressor(use_pallas=True)
+    qsgd = QSGDCompressor(quantum_num=7, use_pallas=True)
+    scale = torch.maximum(flat_a.abs().max(), flat_b.abs().max()).float()
+    out, cases = {}, 0
+    for label, s, kr, r in HIER_LAYOUTS:
+        grads = (shards(flat_a, s), shards(flat_b, s))
+        m = grads[0].shape[1]
+        c = s - 1                       # the last shard, padded
+        times = out[label] = {}
+        # The exact boundary sum: Kr gathered 4-bit payloads of shard c,
+        # then (three levels) the R region sums.
+        regions = []
+        for rho in range(r):
+            pays = torch.stack([
+                homo.compress(grads[(rho + j) % 2][c], None,
+                              LeafKey(SEED, rho * kr + j, 0).fold(c),
+                              shared=scale)[0][0] for j in range(kr)])
+            regions.append(pays)
+        stacks = regions + ([torch.stack([homo.payload_sum((p,))[0]
+                                          for p in regions])]
+                            if r > 1 else [])
+        for st in stacks:
+            slots = st.shape[1] * 8 // 4
+            Wr.reset_launch_counts()
+            (got,) = homo.payload_sum((st,))
+            launched = Wr.packed_int_accumulate.launches
+            plain = Wr.packed_int_accumulate_plain(st, slots, 4)
+            torch.cuda.synchronize()
+            if launched != 1 or not torch.equal(got, plain):
+                fail(f"[18] {label}: the boundary payload_sum launched "
+                     f"{launched} kernels or differs from the plain version")
+            cases += 1
+        st = stacks[-1]
+        nb = st.shape[1]
+        times["packed_int_accumulate"] = timed(
+            lambda: homo.payload_sum((st,)),
+            lambda: Wr.packed_int_accumulate_plain(st, nb * 2, 4),
+            (st.shape[0] + 1) * nb, ACCUM_OPS * st.shape[0] * (nb // 4),
+            "packed_int_accumulate_kernel")
+        log_timed("packed_int_accumulate", f"{label}: the boundary sum of "
+                  f"{st.shape[0]} payloads of {nb} bytes",
+                  times["packed_int_accumulate"])
+        # The cascaded vote over Kr signSGD shard payloads.
+        pays = torch.stack([sign.compress(grads[j % 2][c] * (j + 1), None,
+                                          LeafKey(SEED, j, 0))[0][0]
+                            for j in range(kr)])
+        ctx = (m, (m,), torch.float32)
+        Wr.reset_launch_counts()
+        got = comm._gathered_aggregate(sign, sign, (pays,), ctx, kr)
+        launched = Wr.decode_accumulate.launches
+        ones = torch.ones(kr, device=dev)
+        plain = sign.aggregate(Wr.decode_accumulate_plain(
+            pays, ones, m, 1, sign=True)[None])
+        staged = sign.aggregate(torch.stack([
+            sign.decompress((pays[j],), ctx) for j in range(kr)]))
+        torch.cuda.synchronize()
+        for ref, what in ((plain, "plain version"), (staged, "staged vote")):
+            if launched != 1 or not same_bits(got, ref):
+                fail(f"[18] {label}: the cascaded vote launched {launched} "
+                     f"kernels or differs from the {what}")
+        errs["decode_accumulate"] = max(errs["decode_accumulate"],
+                                        max_abs_err(plain, got))
+        cases += 1
+        nb = pays.shape[1]
+        times["decode_accumulate"] = timed(
+            lambda: Wr.decode_accumulate(pays, ones, m, 1, True),
+            lambda: Wr.decode_accumulate_plain(pays, ones, m, 1, True),
+            kr * nb + 4 * m, kr * DECODE_OPS * m, "decode_accumulate_kernel")
+        log_timed("decode_accumulate", f"{label}: the cascaded vote over "
+                  f"{kr} payloads of {nb} bytes", times["decode_accumulate"])
+        # The boundary re-encode of one shard partial under fold(2S).
+        partial = grads[0][c] + grads[1][c]
+        key = LeafKey(SEED, 0, 0).fold(2 * s)
+        norm = torch.linalg.vector_norm(partial)
+        Q.reset_launch_counts()
+        (got, _), _, _ = qsgd.compress(partial, None, key)
+        launched = Q.quantize_pack_stochastic.launches
+        plain = Q.quantize_pack_stochastic_plain(partial, norm,
+                                                 key.seed_int32(), 7, 4)
+        torch.cuda.synchronize()
+        if launched != 1 or not torch.equal(got, plain):
+            fail(f"[18] {label}: the boundary re-encode launched {launched} "
+                 "kernels or differs from the plain version")
+        cases += 1
+        seed = key.seed_int32()
+        times["quantize_pack_stochastic"] = timed(
+            lambda: Q.quantize_pack_stochastic(partial, norm, seed, 7, 4),
+            lambda: Q.quantize_pack_stochastic_plain(partial, norm, seed, 7,
+                                                     4),
+            4 * m + -(-m * 4 // 8), PACK_OPS * m, "quantize_pack_kernel")
+        log_timed("quantize_pack_stochastic", f"{label}: the boundary "
+                  f"re-encode of a {m}-element shard",
+                  times["quantize_pack_stochastic"])
+    # randomk's contract on the card: one key, one index set, on any rank.
+    rk = RandomKCompressor(compress_ratio=0.01)
+    m = grads[0].shape[1]
+    key = LeafKey(SEED, 3, 5).fold(1)
+    a = rk._indices(key, m, dev)
+    b = rk._indices(LeafKey(SEED, 3, 5).fold(1), m, dev)
+    other = rk._indices(LeafKey(SEED, 3, 6).fold(1), m, dev)
+    if a.device.type != "cuda" or not torch.equal(a, b) \
+            or torch.equal(a, other) or a.unique().numel() != a.numel():
+        fail("[18] randomk: equal keys drew different indices, or two keys "
+             "the same ones")
+    cases += 1
+    return out, cases
+
+
 def kernel_named(fn, word: str) -> str:
     """The name of the one CUDA kernel whose name holds ``word`` among those
     one call of ``fn`` launches, as the profiler names it."""
@@ -2293,10 +2539,39 @@ def main() -> int:
             f"ResNet-50 leaves equals the all-gather vote bit for bit "
             f"(updates and residuals, two steps); sign_pack launched "
             f"{vote_launches} times (both encodes of every leaf)")
+        # -- 17. the hierarchical all-reduce --------------------------------
+        log(f"[17] ResNet-50 under the hier configurations, batch {bs}, "
+            f"{HIER_WARMUP_STEPS} warm-up + {HIER_TIMED_STEPS} timed steps "
+            f"(W=1 with slice_size=8: one slice, the flat ring's schedule)")
+        for cfg in HIER_PATH:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y,
+                                      HIER_WARMUP_STEPS, HIER_TIMED_STEPS)
+            torch.cuda.empty_cache()
+        flat_a, flat_b = resnet50_flat_grads(dev)
+        check_hier_collapse(dev, group, flat_a)
+        log(f"[17] each of the {len(HIER_PATH)} hier rows' steps on a "
+            f"ResNet-50 flat gradient ({flat_a.numel()} elements) equals its "
+            f"ring twin bit for bit, outputs and residuals, two steps")
+        # -- 18. the boundary kernels at a W=8 world's shapes ---------------
+        log("[18] the hier boundary kernels at the shapes of a W=8 world "
+            "over the ResNet-50 flat buffer")
+        hier_times, cases = check_hier_boundaries(dev, flat_a, flat_b,
+                                                  wire_errs)
+        del flat_a, flat_b
+        torch.cuda.empty_cache()
+        log(f"[18] {cases} cases bit for bit against the plain versions "
+            f"(the exact boundary sums, the cascaded vote, the boundary "
+            f"re-encode at {', '.join(h[0] for h in HIER_LAYOUTS)}); "
+            f"randomk drew one index set under one key on the card")
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",
                                                 "K=2 width 3")}}
+        for kname, key in (("packed_int_accumulate", "hier_boundary"),
+                           ("decode_accumulate", "hier_vote"),
+                           ("quantize_pack_stochastic", "hier_reencode")):
+            wire_times[kname][key] = {label: t[kname]
+                                      for label, t in hier_times.items()}
         kernels = []
         for kname, src, line, run in (
                 ("chunk_compress_feedback", "pallas_topk.py", 132, "topk1pct"),
@@ -2314,6 +2589,7 @@ def main() -> int:
             extra = {key: t[key] for key in (
                 "pack_only", "one_leaf", "width2", "width3", "unaligned",
                 "int16", "contiguous", "w8", "vote", "rows", "hop",
+                "hier_boundary", "hier_vote", "hier_reencode",
                 "library_kernel", "library_kernel_ms") if key in t}
             kernels.append({
                 "name": kname, "route": "cuda",

@@ -1,8 +1,9 @@
 """Communicators over ``torch.distributed``; counterpart of the JAX
 ``comm/__init__.py`` (``Allreduce`` with its majority-vote routing and its
 homomorphic path, ``Allgather``, ``Broadcast``, ``SignAllreduce``,
-``TwoShotAllreduce``, ``RingAllreduce``, ``ReduceScatterAllreduce`` and
-``Identity``; the hierarchical communicator is queued in ROADMAP).
+``TwoShotAllreduce``, ``RingAllreduce``, ``ReduceScatterAllreduce``,
+``HierarchicalAllreduce`` and ``Identity``), each with its wire-byte model
+(``recv_link_bytes``, ``recv_wire_bytes``, ``wire_overlap_fraction``).
 
 NCCL carries them on the card, gloo in the CPU tests. A world of one rank
 still makes the real collective calls, except the ring's point-to-point
@@ -21,16 +22,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from grace_tpu_torch.core import (Communicator, Compressor, Ctx, LeafKey,
-                                  Memory, Payload, mean_scale)
+from grace_tpu_torch.core import (SINGLE_SLICE, Communicator, Compressor,
+                                  Ctx, LeafKey, LinkBytes, Memory, Payload,
+                                  Topology, mean_scale)
 
 __all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
            "SignAllreduce", "TwoShotAllreduce", "RingAllreduce",
-           "ReduceScatterAllreduce", "vote_exact_max_world"]
+           "ReduceScatterAllreduce", "HierarchicalAllreduce",
+           "WIRE_PIPELINE_EFFICIENCY", "vote_exact_max_world"]
 
 # Newer PyTorch renames all_gather_into_tensor (same signature) and
 # deprecates the old name.
@@ -38,6 +42,25 @@ _all_gather_into = (getattr(dist, "all_gather_single", None)
                     or dist.all_gather_into_tensor)
 
 _HOMOMORPHIC = ("shared_scale", "sketch")
+
+# Share of a pipelined segment's wire time credited as hidden behind the
+# neighbouring segment's compute: half of the steady-state (P-1)/P overlap
+# of a double buffer, until a measured trace replaces it. The pipelined
+# ring and hier schedules' ``wire_overlap_fraction`` read it.
+WIRE_PIPELINE_EFFICIENCY = 0.5
+
+
+def _ring_bytes(payload_nbytes: int, world: int) -> int:
+    """``2·payload·(W−1)/W``: a reduce-scatter plus an all-gather of
+    ~payload/W shards, the bytes of every ring-family schedule. ``W−1`` is
+    clamped at 0, so a degenerate world of 0 or 1 ranks prices to 0."""
+    return 2 * payload_nbytes * max(0, world - 1) // max(1, world)
+
+
+def _pipelined_overlap(pipeline: int) -> float:
+    if pipeline <= 1:
+        return 0.0
+    return WIRE_PIPELINE_EFFICIENCY * (pipeline - 1) / pipeline
 
 
 def _algebra(compressor) -> str | None:
@@ -225,6 +248,13 @@ class Allreduce(Communicator):
 
     vote_dtype: str = "bfloat16"
 
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        if vote:
+            # An all-reduce of dense bfloat16 (2-byte) votes.
+            return _ring_bytes(2 * n_elems, world)
+        return _ring_bytes(payload_nbytes, world)
+
     def step_leaves(self, xs, mem_states, comp_states, memory, compressor,
                     rngs):
         """The vote routing groups leaves as :class:`SignAllreduce` does;
@@ -338,6 +368,10 @@ class Broadcast(Allgather):
 class Identity(Communicator):
     """No-op communicator: decompress this rank's own payload."""
 
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        return 0
+
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         return compressor.decompress(payload, ctx)
@@ -359,6 +393,10 @@ class SignAllreduce(Communicator):
     and one re-sign; the other leaves run :meth:`step`."""
 
     vote_dtype: str = "bfloat16"
+
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        return _ring_bytes(2 * n_elems, world)
 
     def step_leaves(self, xs, mem_states, comp_states, memory, compressor,
                     rngs):
@@ -513,6 +551,11 @@ class TwoShotAllreduce(Communicator):
     stage2_feedback: bool = False
     shard_parallel = True
 
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        # The stage-1 all_to_all and the stage-2 all_gather.
+        return _ring_bytes(payload_nbytes, world)
+
     def step(self, x: torch.Tensor, mem_state, comp_state, memory,
              compressor: Compressor, rng: LeafKey):
         if comp_state is not None:
@@ -616,6 +659,16 @@ class RingAllreduce(Communicator):
                 "it is the number of segments the ring schedule splits the "
                 "buffer into.")
 
+    def wire_overlap_fraction(self) -> float:
+        return _pipelined_overlap(self.pipeline)
+
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        # W−1 hop payloads and W−1 gathered shards of ~payload/W each. The
+        # same at any pipeline depth: per-segment shard padding adds a few
+        # elements, which the model leaves out.
+        return _ring_bytes(payload_nbytes, world)
+
     def step(self, x: torch.Tensor, mem_state, comp_state, memory,
              compressor: Compressor, rng: LeafKey):
         if comp_state is not None:
@@ -673,24 +726,6 @@ class RingAllreduce(Communicator):
                                   mem_state)
         return out[:n].reshape(shape).to(dtype), mem_state, comp_state
 
-    def _shift(self, send: Payload) -> Payload:
-        """Send ``send`` to the next rank and receive the previous rank's
-        payload of the same shapes."""
-        w = dist.get_world_size(self.group)
-        i = dist.get_rank(self.group)
-        peer = (lambda r: r) if self.group is None else (
-            lambda r: dist.get_global_rank(self.group, r))
-        bufs = [_wire(t) for t in send]
-        recv = [torch.empty_like(b) for b in bufs]
-        ops = [dist.P2POp(dist.isend, b, peer((i + 1) % w), self.group)
-               for b in bufs]
-        ops += [dist.P2POp(dist.irecv, r, peer((i - 1) % w), self.group)
-                for r in recv]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return tuple(r.view(t.dtype).view(t.shape)
-                     for r, t in zip(recv, send))
-
     def _segment_schedule(self, flat: torch.Tensor, compressor: Compressor,
                           rng: LeafKey, exact: bool, homo: bool, shared):
         """One full ring schedule over one contiguous flat segment: the
@@ -703,13 +738,14 @@ class RingAllreduce(Communicator):
         payloads, ctxs = _shard_compress(compressor, chunks, rng,
                                          "RingAllreduce", shared=shared)
         i = dist.get_rank(self.group)
+        nxt, prv = (i + 1) % w, (i - 1) % w
         if exact:
             # Payload-space accumulation: the wire format is the
             # accumulator (packed homoqsgd: a field-wise add), and phase 2
             # needs no re-encode.
             send = payloads[(i - 1) % w]
             for s in range(w - 1):
-                recv = self._shift(send)
+                recv = _shift(send, self.group, nxt, prv)
                 send = compressor.payload_add(recv, payloads[(i - 2 - s) % w])
             out = _gather_decode(compressor, send, ctxs, w, homo, self.group,
                                  "RingAllreduce")
@@ -718,7 +754,7 @@ class RingAllreduce(Communicator):
             send = payloads[(i - 1) % w]
             partial = None
             for s in range(w - 1):
-                recv = self._shift(send)
+                recv = _shift(send, self.group, nxt, prv)
                 rc = (i - 2 - s) % w
                 # Hop 0 arrives in the stage-1 format (shard rc's ctx);
                 # later hops in the previous hop's requant format.
@@ -735,7 +771,7 @@ class RingAllreduce(Communicator):
             # re-sign the final tally.
             owned = compressor.aggregate(partial[None])
             out = _requant_gather_decode(compressor, owned, chunks.dtype,
-                                         rng, w, self.group)
+                                         rng.fold(w), w, self.group)
         return out[:n], payloads, ctxs
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
@@ -745,12 +781,28 @@ class RingAllreduce(Communicator):
                         "pipeline, not a bare exchange().")
 
 
+def _shift(send: Payload, group, to: int, frm: int) -> Payload:
+    """Send ``send`` to rank ``to`` of ``group`` and receive the payload of
+    the same shapes from rank ``frm``, in one batch of point-to-point
+    calls (integer tensors move as their bytes)."""
+    peer = (lambda r: r) if group is None else (
+        lambda r: dist.get_global_rank(group, r))
+    bufs = [_wire(t) for t in send]
+    recv = [torch.empty_like(b) for b in bufs]
+    ops = [dist.P2POp(dist.isend, b, peer(to), group) for b in bufs]
+    ops += [dist.P2POp(dist.irecv, r, peer(frm), group) for r in recv]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return tuple(r.view(t.dtype).view(t.shape) for r, t in zip(recv, send))
+
+
 def _gather_decode(compressor: Compressor, owned: Payload, ctxs, w: int,
                    homo: bool, group, schedule: str) -> torch.Tensor:
     """Phase 2 of the exact and homomorphic paths: gather the owned
-    shards' wire-format sums and decode shard ``j`` with shard ``j``'s ctx
-    (rank ``j`` owns shard ``j``). The mean scales float payloads before
-    the gather, and the one decode of homomorphic payloads after it."""
+    shards' wire-format sums over ``group`` and decode shard ``j`` with
+    shard ``j``'s ctx (member ``j`` owns shard ``j``). The mean over all
+    ``w`` ranks scales float payloads before the gather, and the one
+    decode of homomorphic payloads after it."""
     if compressor.average and not homo:
         if not all(t.is_floating_point() for t in owned):
             raise TypeError(
@@ -762,26 +814,26 @@ def _gather_decode(compressor: Compressor, owned: Payload, ctxs, w: int,
     gathered = _gather(owned, group)
     out = torch.cat([
         compressor.decompress(_rank_payload(gathered, j), ctxs[j]).reshape(-1)
-        for j in range(w)])
+        for j in range(len(ctxs))])
     if homo and compressor.average:
         out = out * mean_scale(w)                                 # out / w
     return out
 
 
 def _requant_gather_decode(compressor: Compressor, owned: torch.Tensor,
-                           dtype, rng: LeafKey, w: int, group
+                           dtype, key: LeafKey, w: int, group
                            ) -> torch.Tensor:
-    """Phase 2 of the requant paths: average the owned shard's aggregate,
-    encode it once more under ``rng.fold(W)`` (a key every rank holds, so
-    one ctx decodes every rank's shard), gather and decode."""
+    """Phase 2 of the requant paths: average the owned shard's aggregate
+    over all ``w`` ranks, encode it once more under ``key`` (the ring's
+    ``rng.fold(W)``: a key every rank holds, so one ctx decodes every
+    rank's shard), gather over ``group`` and decode."""
     if compressor.average:
         owned = owned * mean_scale(w)                             # owned / w
-    payload2, ctx2, _ = compressor.compress(owned.to(dtype), None,
-                                            rng.fold(w))
+    payload2, ctx2, _ = compressor.compress(owned.to(dtype), None, key)
     gathered = _gather(tuple(payload2), group)
     return torch.cat([
         compressor.decompress(_rank_payload(gathered, j), ctx2).reshape(-1)
-        for j in range(w)])
+        for j in range(gathered[0].shape[0])])
 
 
 def _gathered_aggregate(base: Compressor, codec: Compressor, stacked: Payload,
@@ -840,6 +892,12 @@ class ReduceScatterAllreduce(Communicator):
 
     shard_parallel = True
 
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        # The all_to_all of the stage-1 payloads and the all_gather of the
+        # reduced chunks.
+        return _ring_bytes(payload_nbytes, world)
+
     def step(self, x: torch.Tensor, mem_state, comp_state, memory,
              compressor: Compressor, rng: LeafKey):
         if comp_state is not None:
@@ -895,12 +953,445 @@ class ReduceScatterAllreduce(Communicator):
         else:
             agg = _gathered_aggregate(compressor, compressor, mine, ctxs[i],
                                       w)
-            out = _requant_gather_decode(compressor, agg, chunks.dtype, rng,
-                                         w, self.group)
+            out = _requant_gather_decode(compressor, agg, chunks.dtype,
+                                         rng.fold(w), w, self.group)
         return out[:n].reshape(shape).to(dtype), mem_state, comp_state
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         raise TypeError("ReduceScatterAllreduce re-shards the gradient "
+                        "before compression; it only supports the full "
+                        "step() pipeline, not a bare exchange().")
+
+
+# -- the hierarchical (multi-level) all-reduce -------------------------------
+
+# (parent group, W, S, Kr, R) -> {level: this rank's process group}. Built
+# once, at the first step of a layout, and kept: process groups are made by
+# collective calls, never per leaf or per step.
+_HIER_GROUPS: dict = {}
+
+
+def _hier_rank_lists(w: int, s: int, kr: int, r: int) -> dict:
+    """The rank lists of each level, in the JAX package's order: ``intra``
+    are the slices; ``dcn`` the Kr slices of one region that share a local
+    index (with one region: every slice); ``wan`` one rank a region that
+    share (slice in region, local index)."""
+    k = kr * r
+    lists = {"intra": [[kk * s + ll for ll in range(s)] for kk in range(k)]}
+    if r > 1:
+        rz = kr * s
+        lists["dcn"] = [[rho * rz + kk * s + ll for kk in range(kr)]
+                        for rho in range(r) for ll in range(s)]
+        lists["wan"] = [[rho * rz + kk * s + ll for rho in range(r)]
+                        for kk in range(kr) for ll in range(s)]
+    else:
+        lists["dcn"] = [[kk * s + ll for kk in range(k)] for ll in range(s)]
+    return lists
+
+
+def _hier_groups(parent, w: int, s: int, kr: int, r: int) -> dict:
+    """This rank's process group at each level of a (W, S, Kr, R) layout
+    over ``parent``. Every rank calls ``new_group`` for every group of
+    every level in one order; with ``use_local_synchronization`` a rank
+    outside a group returns at once, so a parent smaller than the default
+    group works too. A group ranks its members by ascending global rank,
+    which is the order of JAX's rank lists, so a gather stacks them as
+    JAX's grouped ``all_gather`` does. A single slice (K=1) needs none:
+    its one slice is the parent itself."""
+    key = (parent if parent is not None else dist.group.WORLD, w, s, kr, r)
+    hit = _HIER_GROUPS.get(key)
+    if hit is not None:
+        return hit
+    if kr * r == 1:
+        hit = {"intra": parent}
+    else:
+        me = dist.get_rank(parent)
+        hit = {}
+        for level, lists in _hier_rank_lists(w, s, kr, r).items():
+            for ranks in lists:
+                pg = dist.new_group(
+                    [j if parent is None else dist.get_global_rank(parent, j)
+                     for j in ranks], use_local_synchronization=True)
+                if me in ranks:
+                    hit[level] = pg
+    _HIER_GROUPS[key] = hit
+    return hit
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalAllreduce(Communicator):
+    """Multi-level compressed all-reduce (``communicator: "hier"``): most
+    traffic stays on the fast links inside a slice, and only the
+    S-times-smaller slice partials cross the slower network.
+
+    With ``slice_size=S`` on ``W = K·S`` ranks (ranks ``[k·S, (k+1)·S)``
+    form slice ``k``, the :class:`~grace_tpu_torch.core.Topology` layout;
+    on GPUs a slice is the ranks of one NVLink node):
+
+    1. **intra-slice ring reduce-scatter**: the compensated gradient is
+       split into S shards and each is encoded under ``rng.fold(c)``
+       (``_shard_compress``; error feedback covers exactly this encode),
+       then S−1 hops rotate within each slice only (rank ``j`` sends to
+       ``(j//S)·S + (j%S + 1) % S``). Local rank ℓ of every slice then
+       holds its slice's partial of shard ℓ.
+    2. **cross-slice exchange**: the K ranks that share a local index
+       gather their partials (one gather in a K-member group). Exact and
+       homomorphic payloads (``summable_payload``) sum in payload space
+       (``payload_sum``), with no re-encode; requant codecs
+       (``supports_hop_requant``) encode the partial once more under
+       ``rng.fold(2S)``, gather, and decode and aggregate the K partials
+       (``_gathered_aggregate``: a sum, or the cascaded majority vote; one
+       fused ``decode_accumulate`` where the codec's kernel is live).
+    3. **intra-slice all-gather**: each slice gathers its S reduced shards,
+       still in wire format (requant codecs after one more encode under
+       ``rng.fold(2S+1)``), and decodes them.
+
+    ``region_size=Rz`` (ranks; ``Kr = Rz/S`` slices a region, ``R = W/Rz``
+    regions) adds a third level: the boundary partial is first summed
+    within the region (the Kr-member ``dcn`` groups), then across regions
+    (the R-member ``wan`` groups). Exact payloads cross it still summable;
+    requant codecs encode the region partial once under ``rng.fold(2S+2)``,
+    through ``wan_compressor`` when one is given (a ``supports_hop_requant``
+    codec with a ctx free of data), and aggregate it with the base codec's
+    semantics.
+
+    ``slice_size=None`` or ``world <= slice_size`` is one slice: the
+    schedule is the flat ring's, except that a requant codec's last encode
+    runs under ``rng.fold(2S+1)`` where the ring's runs under
+    ``rng.fold(W)``, as in the JAX package (the two are then equal bit for
+    bit for every codec whose encode draws no noise). ``region_size=None``,
+    ``world <= region_size`` or one region is the two-level schedule. A
+    world that S or Rz does not divide raises ValueError.
+
+    The subgroups of a layout are built once, at its first step, and
+    cached (``_hier_groups``); a gather stacks the members in the order of
+    the JAX package's rank lists, which sets the order of the sums. Same
+    gates as the ring: a stateless codec, a wire payload, a ctx free of
+    data, and a payload algebra or hop requant. ``pipeline=P`` runs the
+    whole schedule on P contiguous segments under ``rng.fold(p)``.
+    """
+
+    slice_size: Optional[int] = None
+    region_size: Optional[int] = None
+    wan_compressor: Optional[Compressor] = None
+    pipeline: int = 1
+    shard_parallel = True
+
+    def __post_init__(self):
+        if self.pipeline < 1:
+            raise ValueError(
+                "HierarchicalAllreduce pipeline must be >= 1; got "
+                f"{self.pipeline} — it is the number of double-buffered "
+                "buffer segments, each running the full multi-level "
+                "schedule (the RingAllreduce.pipeline semantics applied "
+                "to the intra-slice ring and both boundary exchanges).")
+        if self.slice_size is not None and self.slice_size < 1:
+            raise ValueError(f"slice_size must be >= 1 or None; "
+                             f"got {self.slice_size}")
+        if self.region_size is not None:
+            if self.slice_size is None:
+                raise ValueError(
+                    "HierarchicalAllreduce(region_size=...) requires "
+                    "slice_size — the region tier groups whole ICI slices, "
+                    "so a three-level schedule without a slice level is "
+                    f"contradictory (got region_size={self.region_size}, "
+                    "slice_size=None).")
+            if (self.region_size < self.slice_size
+                    or self.region_size % self.slice_size):
+                raise ValueError(
+                    f"region_size {self.region_size} must be a whole "
+                    f"multiple of slice_size {self.slice_size} — regions "
+                    "are made of whole slices (the Topology contract).")
+        if self.wan_compressor is not None and self.region_size is None:
+            raise ValueError(
+                "HierarchicalAllreduce(wan_compressor=...) without "
+                "region_size — there is no WAN level to re-encode for; "
+                "set region_size or drop the WAN codec.")
+
+    def shrunk(self, topology: Topology) -> "HierarchicalAllreduce":
+        """The communicator for the world ``topology`` describes after a
+        resize (``Topology.shrink``): its tier widths, and the WAN codec
+        only while a region tier survives."""
+        wan = (self.wan_compressor if topology.region_size is not None
+               else None)
+        return dataclasses.replace(self, slice_size=topology.slice_size,
+                                   region_size=topology.region_size,
+                                   wan_compressor=wan)
+
+    def wire_overlap_fraction(self) -> float:
+        return _pipelined_overlap(self.pipeline)
+
+    def _split(self, world: int) -> tuple[int, int]:
+        """(intra-slice size S, slice count K) at ``world`` ranks."""
+        s = self.slice_size
+        if s is None or world <= s:
+            return max(1, world), 1
+        if world % s:
+            raise ValueError(
+                f"HierarchicalAllreduce(slice_size={s}) does not divide "
+                f"world size {world} — the two-level schedule needs whole "
+                "slices (ranks [k*S, (k+1)*S) per slice); run on a "
+                "world that is a multiple of slice_size or adjust "
+                "slice_size to the physical slice width.")
+        return s, world // s
+
+    def _split3(self, world: int) -> tuple[int, int, int]:
+        """(S, Kr slices a region, R regions); ``R == 1`` is the two-level
+        schedule, with Kr its K."""
+        s, k = self._split(world)
+        rz = self.region_size
+        if rz is None or k == 1 or world <= rz:
+            return s, k, 1
+        if world % rz:
+            raise ValueError(
+                f"HierarchicalAllreduce(region_size={rz}) does not divide "
+                f"world size {world} — the three-level schedule needs "
+                "whole regions (ranks [r*Rz, (r+1)*Rz) per region); run "
+                "on a world that is a multiple of region_size or adjust "
+                "region_size to the physical region width.")
+        return s, rz // s, world // rz
+
+    def _wan_leg_nbytes(self, payload_nbytes: int, n_elems: int,
+                        s: int, r: int) -> int:
+        """One rank's WAN-leg bytes: R−1 region partials of one shard, at
+        the WAN codec's own payload width on the padded float32 shard when
+        one is given, else at the base payload's share of a shard."""
+        if r <= 1:
+            return 0
+        per = payload_nbytes // max(1, s)
+        if self.wan_compressor is not None:
+            from grace_tpu_torch.utils.metrics import payload_nbytes as pnb
+            n = int(n_elems)
+            shard = (n + (-n) % max(1, s)) // max(1, s)
+            per = int(pnb(self.wan_compressor, ((shard,), torch.float32)))
+        return (r - 1) * per
+
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        s, kr, r = self._split3(world)
+        # S−1 hops and S−1 gathered shards of ~payload/S; Kr−1 cross-slice
+        # partials of ~payload/S; R−1 cross-region partials.
+        intra = _ring_bytes(payload_nbytes, s)
+        dcn = (kr - 1) * payload_nbytes // max(1, s)
+        return intra + dcn + self._wan_leg_nbytes(payload_nbytes, n_elems,
+                                                  s, r)
+
+    def recv_link_bytes(self, payload_nbytes: int, n_elems: int, world: int,
+                        topology: Optional[Topology] = None,
+                        vote: bool = False) -> LinkBytes:
+        """The mixed split: intra-slice legs on ``ici``, the cross-slice
+        gather on ``dcn``, the cross-region gather on ``wan``, when the
+        schedule's groups nest inside the physical ones. Otherwise it
+        degrades tier by tier: slices that straddle physical slices price
+        everything at the worst tier the group spans, and regions that
+        straddle physical regions (or a two-level schedule over three
+        tiers) put the whole cross-slice bill on ``wan``."""
+        total = int(self._recv_total_bytes(payload_nbytes, n_elems, world,
+                                           vote=vote))
+        topo = topology if topology is not None else SINGLE_SLICE
+        if not topo.crosses_dcn(world):
+            return LinkBytes(ici=total, dcn=0)
+        s, kr, r = self._split3(world)
+        k = kr * r
+        aligned = (k > 1 and topo.slice_size is not None
+                   and s <= topo.slice_size and topo.slice_size % s == 0)
+        if not aligned:
+            if topo.crosses_wan(world):
+                return LinkBytes(ici=0, dcn=0, wan=total)
+            return LinkBytes(ici=0, dcn=total)
+        intra = _ring_bytes(payload_nbytes, s)
+        cross = total - intra
+        if not topo.crosses_wan(world):
+            return LinkBytes(ici=intra, dcn=cross)
+        region_aligned = (r > 1 and topo.region_size is not None
+                          and self.region_size <= topo.region_size
+                          and topo.region_size % self.region_size == 0)
+        if not region_aligned:
+            return LinkBytes(ici=intra, dcn=0, wan=cross)
+        dcn_leg = (kr - 1) * payload_nbytes // max(1, s)
+        return LinkBytes(ici=intra, dcn=dcn_leg, wan=cross - dcn_leg)
+
+    def step(self, x: torch.Tensor, mem_state, comp_state, memory,
+             compressor: Compressor, rng: LeafKey):
+        if comp_state is not None:
+            raise TypeError(
+                f"HierarchicalAllreduce requires a stateless compressor; "
+                f"{type(compressor).__name__} carries cross-step state "
+                "(init_state != None) that has no per-shard meaning — use "
+                "Allgather/Allreduce instead.")
+        algebra = _algebra(compressor)
+        homo = algebra in _HOMOMORPHIC
+        exact = bool(getattr(compressor, "summable_payload", False))
+        requant = bool(getattr(compressor, "supports_hop_requant", False))
+        if not (exact or requant):
+            raise TypeError(
+                f"HierarchicalAllreduce keeps the payload compressed on "
+                "every hop and re-aggregates the per-slice partials, which "
+                "needs a payload algebra (exact: none/fp16/randomk; "
+                "shared_scale: homoqsgd; sketch: countsketch — exact "
+                "payload-space accumulation through BOTH levels) or an "
+                "opt-in to per-hop requantization "
+                "(supports_hop_requant=True: topk/qsgd/signsgd); "
+                f"{type(compressor).__name__} declares neither — its "
+                "payload carries structure a partial sum destroys. Use "
+                "Allgather (general-purpose) or TwoShotAllreduce instead.")
+        w = self.world_size()
+        s, kr, r = self._split3(w)
+        if self.wan_compressor is not None:
+            if exact:
+                raise TypeError(
+                    f"HierarchicalAllreduce(wan_compressor="
+                    f"{type(self.wan_compressor).__name__}) with "
+                    f"{type(compressor).__name__}: exact/homomorphic "
+                    "payloads cross WAN exactly-summable — that zero-"
+                    "requant property is the whole reason to use them, and "
+                    "a WAN re-encode would break the payload-space sum "
+                    "while adding loss. Drop wan_compressor, or pair it "
+                    "with a supports_hop_requant base codec.")
+            if not getattr(self.wan_compressor, "supports_hop_requant",
+                           False):
+                raise TypeError(
+                    "HierarchicalAllreduce wan_compressor re-encodes the "
+                    "region partial at the region boundary — a hop requant "
+                    "one level up — so it must declare "
+                    "supports_hop_requant (topk/qsgd/signsgd); "
+                    f"{type(self.wan_compressor).__name__} does not.")
+        # The whole sum spans all W ranks, so the shared-scale bound is on
+        # W, not S.
+        if homo:
+            _check_payload_sum_world(compressor, w, "HierarchicalAllreduce")
+        shape, dtype = tuple(x.shape), x.dtype
+        compensated, mem_state = memory.compensate(x, mem_state)
+        flat = compensated.reshape(-1)
+        n = flat.numel()
+        # One shared scale over the whole group and buffer, before the
+        # segmentation: a per-slice scale would break the cross-slice sum.
+        shared = None
+        if algebra == "shared_scale":
+            shared = compressor.negotiate(flat, self.group, rng=rng)
+        groups = _hier_groups(self.group, w, s, kr, r)
+        layout = (w, s, kr, r, groups)
+        segs = _pipeline_segments(n, self.pipeline)
+        if len(segs) == 1:
+            out, payloads, ctxs = self._segment_schedule(
+                flat, compressor, rng, shared, homo, exact, layout)
+            view = _ChunkedView(compressor)
+            view_ctx = (ctxs, n, shape, dtype, None)
+        else:
+            outs, seg_pay, seg_ctx = [], [], []
+            for p, (lo, hi) in enumerate(segs):
+                o, pay, ctxs = self._segment_schedule(
+                    flat[lo:hi], compressor, rng.fold(p), shared, homo,
+                    exact, layout)
+                outs.append(o)
+                seg_pay.append(pay)
+                seg_ctx.append((ctxs, hi - lo, (hi - lo,), flat.dtype, None))
+            out = torch.cat(outs)
+            payloads = tuple(seg_pay)
+            view, view_ctx = (_PipelinedView(compressor),
+                              (tuple(seg_ctx), n, shape, dtype))
+        # Error feedback covers the stage-1 encode exactly; the hop requants
+        # and the boundary encodes are downstream of it.
+        mem_state = memory.update(compensated, payloads, view_ctx, view,
+                                  mem_state)
+        return out[:n].reshape(shape).to(dtype), mem_state, comp_state
+
+    def _segment_schedule(self, flat: torch.Tensor, compressor: Compressor,
+                          rng: LeafKey, shared, homo: bool, exact: bool,
+                          layout):
+        """One whole multi-level schedule over one contiguous segment: the
+        stage-1 encode into S shards, the S−1 intra-slice hops, the
+        boundary exchanges, the intra-slice gather and the decode. Returns
+        ``(decoded segment, stage-1 payloads, shard ctxs)``."""
+        w, s, kr, r, groups = layout
+        n = flat.numel()
+        pad = (-n) % s
+        chunks = (torch.cat([flat, flat.new_zeros(pad)]) if pad
+                  else flat).reshape(s, -1)
+        payloads, ctxs = _shard_compress(compressor, chunks, rng,
+                                         "HierarchicalAllreduce",
+                                         shared=shared)
+        i = dist.get_rank(self.group)
+        local, base = i % s, i - i % s
+        # Rotate within the slice only: no hop crosses a slice boundary.
+        nxt, prv = base + (local + 1) % s, base + (local - 1) % s
+        intra = groups["intra"]
+        if exact:
+            send = payloads[(local - 1) % s]
+            for hop in range(s - 1):
+                recv = _shift(send, self.group, nxt, prv)
+                send = compressor.payload_add(recv,
+                                              payloads[(local - 2 - hop) % s])
+            owned = send          # the slice's partial of shard `local`
+            if kr * r > 1:
+                owned = compressor.payload_sum(_gather(owned, groups["dcn"]))
+                if r > 1:
+                    owned = compressor.payload_sum(
+                        _gather(owned, groups["wan"]))
+            out = _gather_decode(compressor, owned, ctxs, w, homo, intra,
+                                 "HierarchicalAllreduce")
+        else:
+            hop_ctx = None
+            send = payloads[(local - 1) % s]
+            partial = None
+            for hop in range(s - 1):
+                recv = _shift(send, self.group, nxt, prv)
+                rc = (local - 2 - hop) % s
+                # Hop 0 arrives in the stage-1 format (shard rc's ctx);
+                # later hops in the previous hop's requant format.
+                rctx = ctxs[rc] if hop == 0 else hop_ctx
+                partial = compressor.decode_accumulate(
+                    (recv, payloads[rc]), (rctx, ctxs[rc]))
+                if hop < s - 2:
+                    pay, hop_ctx, _ = compressor.compress(
+                        partial, None, rng.fold(s + 1 + hop))
+                    send = tuple(pay)
+            if partial is None:                 # s == 1: one-rank slices
+                partial = compressor.decompress(payloads[0], ctxs[0])
+            if kr * r > 1:
+                # The one slice-boundary encode; every rank of a cross-slice
+                # group then aggregates the same Kr partials.
+                payload_b, ctx_b, _ = compressor.compress(
+                    partial, None, rng.fold(2 * s))
+                agg = _gathered_aggregate(
+                    compressor, compressor,
+                    _gather(tuple(payload_b), groups["dcn"]), ctx_b, kr)
+                if r > 1:
+                    agg = self._region_boundary(compressor, agg,
+                                                chunks.dtype, rng, s, r,
+                                                groups["wan"])
+            else:
+                # A singleton stack: sum codecs pass through, vote codecs
+                # re-sign the final tally, as on the flat ring.
+                agg = compressor.aggregate(partial[None])
+            out = _requant_gather_decode(compressor, agg, chunks.dtype,
+                                         rng.fold(2 * s + 1), w, intra)
+        return out[:n], payloads, ctxs
+
+    def _region_boundary(self, compressor: Compressor, agg: torch.Tensor,
+                         dtype, rng: LeafKey, s: int, r: int,
+                         wan) -> torch.Tensor:
+        """The one region-boundary encode: every rank of a ``dcn`` group
+        holds the same region partial; it is encoded under
+        ``rng.fold(2S+2)`` (by the WAN codec when one is given), gathered
+        over the R regions, and aggregated with the base codec's
+        semantics."""
+        codec = self.wan_compressor or compressor
+        payload_w, ctx_w, _ = codec.compress(agg.to(dtype), None,
+                                             rng.fold(2 * s + 2))
+        if self.wan_compressor is not None and _holds_tensor(ctx_w):
+            raise TypeError(
+                "HierarchicalAllreduce wan_compressor needs a data-free "
+                "ctx — ranks decode each other's region partials with "
+                "locally derived ctx; "
+                f"{type(self.wan_compressor).__name__}.compress puts "
+                "data-derived arrays in ctx.")
+        return _gathered_aggregate(compressor, codec,
+                                   _gather(tuple(payload_w), wan), ctx_w, r)
+
+    def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
+                 ) -> torch.Tensor:
+        raise TypeError("HierarchicalAllreduce re-shards the gradient "
                         "before compression; it only supports the full "
                         "step() pipeline, not a bare exchange().")

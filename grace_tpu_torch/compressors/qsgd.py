@@ -100,8 +100,7 @@ class QSGDCompressor(Compressor):
             signed = quant.quantize_stochastic(flat, norm, seed, q,
                                                out_dtype=self.level_dtype)
             return (signed, norm), (shape, x.dtype), state
-        u = torch.rand(flat.shape, generator=rng.generator(flat.device),
-                       device=flat.device, dtype=torch.float32)
+        u = rng.uniform(flat.shape, flat.device)
         signed = quant.signed_levels_plain(flat, norm, u, q)
         if self.packed_wire:
             payload = quant.pack_levels_plain(signed, q, self.pack_width)

@@ -9,12 +9,18 @@ gradient leaf exactly as the JAX ``GraceState`` does.
 
 Communicators exchange over a ``torch.distributed`` process group (``None``
 = the default group) where the JAX package names a mesh axis.
+
+The wire-byte model rides along: :class:`LinkBytes` and :class:`Topology`
+describe which link class a rank's received bytes cross, and
+``Communicator.recv_link_bytes`` / ``recv_wire_bytes`` price one step of
+each schedule in pure integers, equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+import types
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +49,243 @@ def needs_negotiation(compressor) -> bool:
     ``negotiates = True``."""
     return (getattr(compressor, "payload_algebra", None) == "shared_scale"
             or getattr(compressor, "negotiates", False))
+
+
+def negotiation_bytes_for(compressor, n_elems: int, world: int) -> int:
+    """Bytes one rank receives in one negotiation collective for an
+    ``n_elems``-element compress call: the codec's leaf-aware
+    ``negotiation_nbytes_for`` when it declares one, else the world-only
+    ``negotiation_nbytes``."""
+    fn = getattr(compressor, "negotiation_nbytes_for", None)
+    if fn is not None:
+        return int(fn(int(n_elems), world))
+    return int(compressor.negotiation_nbytes(world))
+
+
+# -- link classes and the layout of ranks ------------------------------------
+
+class LinkBytes(NamedTuple):
+    """One rank's received bytes split by the link class they arrive over,
+    fastest first. The tier names are the JAX package's, which its params
+    and tests use: on TPUs ``ici`` is the intra-slice interconnect, ``dcn``
+    the data-center network between slices and ``wan`` the link between
+    regions; on GPUs they mean NVLink within a node, the inter-node
+    network, and the cross-region link. ``wan`` defaults to 0, so the
+    two-tier ``LinkBytes(ici, dcn)`` is the same value with no WAN tier.
+    The tiers sum to :meth:`Communicator.recv_wire_bytes`."""
+
+    ici: int
+    dcn: int
+    wan: int = 0
+
+    @property
+    def total(self) -> int:
+        return self.ici + self.dcn + self.wan
+
+    @property
+    def tiers(self) -> tuple:
+        """The ordered ``(ici, dcn, wan)`` triple, fast link first."""
+        return (self.ici, self.dcn, self.wan)
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Which ranks share a fast link domain, and which a region.
+
+    Ranks ``[k·slice_size, (k+1)·slice_size)`` form one slice (on GPUs: the
+    ranks of one NVLink node); traffic between slices rides the inter-node
+    network (``dcn``). ``slice_size=None`` means one slice spans any world:
+    every byte is ``ici``. ``region_size`` (in ranks) adds the third tier:
+    ranks ``[ρ·region_size, (ρ+1)·region_size)`` share a region, and
+    traffic between regions rides ``wan``. It needs ``slice_size`` and must
+    be a whole multiple of it: regions are made of whole slices.
+    """
+
+    slice_size: Optional[int] = None
+    region_size: Optional[int] = None
+
+    def __post_init__(self):
+        if self.slice_size is not None and self.slice_size < 1:
+            raise ValueError(f"slice_size must be >= 1 or None; "
+                             f"got {self.slice_size}")
+        if self.region_size is not None:
+            if self.slice_size is None:
+                raise ValueError(
+                    "region_size requires slice_size — a region is a group "
+                    "of whole ICI slices, so a 3-tier layout without a "
+                    f"slice tier is contradictory (got region_size="
+                    f"{self.region_size}, slice_size=None)")
+            if (self.region_size < self.slice_size
+                    or self.region_size % self.slice_size):
+                raise ValueError(
+                    f"region_size {self.region_size} must be a whole "
+                    f"multiple of slice_size {self.slice_size} — regions "
+                    "are made of whole slices (contiguous-block layout)")
+
+    def crosses_dcn(self, world: int) -> bool:
+        """True iff a flat collective over ``world`` ranks spans slices."""
+        return self.slice_size is not None and world > self.slice_size
+
+    def crosses_wan(self, world: int) -> bool:
+        """True iff a flat collective over ``world`` ranks spans regions."""
+        return self.region_size is not None and world > self.region_size
+
+    def flat_tier(self, world: int) -> str:
+        """The tier a flat collective over ``world`` ranks is priced at:
+        the slowest boundary it spans (``'wan'``, ``'dcn'`` or ``'ici'``),
+        since some rank's incoming link crosses it and the collective ends
+        when that rank does."""
+        if self.crosses_wan(world):
+            return "wan"
+        if self.crosses_dcn(world):
+            return "dcn"
+        return "ici"
+
+    def shrink(self, world: int, lost_ranks) -> Tuple["Topology", int]:
+        """``(topology, new_world)`` after ``lost_ranks`` leave a world of
+        ``world`` ranks. Whole regions lost keep both tiers (down to the
+        two-tier layout when one region remains); whole slices lost keep
+        the slice tier; a partial slice lost leaves the flat layout."""
+        lost = set(int(r) for r in lost_ranks)
+        if not lost:
+            return self, world
+        bad = [r for r in lost if r < 0 or r >= world]
+        if bad:
+            raise ValueError(f"lost_ranks {sorted(bad)} outside the world "
+                             f"[0, {world})")
+        new_world = world - len(lost)
+        if new_world < 1:
+            raise ValueError(f"cannot shrink world {world} by "
+                             f"{len(lost)} ranks — no survivors")
+        if self.slice_size is None:
+            return Topology(), new_world
+        s = self.slice_size
+        if world % s:
+            raise ValueError(f"world {world} is not a multiple of "
+                             f"slice_size {s} — this topology never "
+                             "described that world")
+        whole = all(
+            all(k * s + i in lost for i in range(s))
+            for k in sorted({r // s for r in lost}))
+        if not whole:
+            return Topology(), new_world
+        if self.region_size is None:
+            return Topology(slice_size=s), new_world
+        rz = self.region_size
+        if world % rz:
+            raise ValueError(f"world {world} is not a multiple of "
+                             f"region_size {rz} — this topology never "
+                             "described that world")
+        touched = sorted({r // rz for r in lost})
+        whole_regions = all(
+            all(rho * rz + i in lost for i in range(rz)) for rho in touched)
+        if not whole_regions:
+            # Slices survive whole, but the regions are no longer equal.
+            return Topology(slice_size=s), new_world
+        if world // rz - len(touched) <= 1:
+            # One region remains: the WAN tier is vacuous.
+            return Topology(slice_size=s), new_world
+        return Topology(slice_size=s, region_size=rz), new_world
+
+    @classmethod
+    def detect(cls, devices=None) -> "Topology":
+        """The layout of ``devices`` or of the default process group.
+
+        Given a list, it groups by each entry's ``slice_index`` and
+        ``region_index`` attributes (``None`` or missing counts as absent)
+        and raises where no contiguous-block layout describes them: some
+        entries exposing an index and some not, uneven groups, a region
+        tier without a slice tier, or regions that are not whole multiples
+        of the slice width. An empty list is one slice.
+
+        With ``None`` it reads the default process group: one slice per
+        host, from every rank's host name (``dist.all_gather_object``, a
+        collective every rank must join), and no region tier. With no
+        initialised process group it is one slice.
+        """
+        if devices is None:
+            return cls._detect_hosts()
+        devices = list(devices)
+
+        def group_counts(attr):
+            counts: dict = {}
+            missing = 0
+            for d in devices:
+                idx = getattr(d, attr, None)
+                if idx is None:
+                    missing += 1
+                else:
+                    counts[idx] = counts.get(idx, 0) + 1
+            if counts and missing:
+                raise ValueError(
+                    f"cannot detect topology: {missing} of {len(devices)} "
+                    f"devices expose no {attr} while "
+                    f"{len(devices) - missing} do — a heterogeneous device "
+                    "list (mixed runtimes / stale handles?) has no "
+                    "consistent layout. Pass an explicit Topology(...) "
+                    "instead.")
+            return counts
+
+        def uniform_size(counts, noun):
+            sizes = sorted(set(counts.values()))
+            if len(sizes) > 1:
+                raise ValueError(
+                    f"cannot detect topology: {noun}s are uneven — "
+                    f"per-{noun} device counts "
+                    f"{dict(sorted(counts.items()))} — so no single "
+                    f"{noun}_size describes the layout (the wire model "
+                    "assumes contiguous equal blocks). Pass an explicit "
+                    "Topology(...) for the layout you mean.")
+            return sizes[0]
+
+        slice_counts = group_counts("slice_index")
+        region_counts = group_counts("region_index")
+        slice_size = (uniform_size(slice_counts, "slice")
+                      if len(slice_counts) > 1 else None)
+        region_size = (uniform_size(region_counts, "region")
+                       if len(region_counts) > 1 else None)
+        if region_size is not None and slice_size is None:
+            raise ValueError(
+                "cannot detect topology: devices expose region_index "
+                f"({len(region_counts)} regions) but no multi-slice "
+                "slice_index layout — a region tier without a slice tier "
+                "is contradictory (regions are groups of whole ICI "
+                "slices). Pass an explicit Topology(...) instead.")
+        if (region_size is not None
+                and (region_size < slice_size or region_size % slice_size)):
+            raise ValueError(
+                f"cannot detect topology: per-region device count "
+                f"{region_size} is not a whole multiple of the slice "
+                f"width {slice_size} — a slice straddles a region "
+                "boundary, which the contiguous-block layout cannot "
+                "describe. Pass an explicit Topology(...) for the layout "
+                "you mean.")
+        if slice_size is None:
+            return cls()
+        return cls(slice_size=slice_size, region_size=region_size)
+
+    @classmethod
+    def _detect_hosts(cls) -> "Topology":
+        """One slice per host of the default process group, in rank order;
+        a host whose ranks are not one contiguous block raises."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return cls()
+        import socket
+        hosts = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, socket.gethostname())
+        order = list(dict.fromkeys(hosts))
+        index = [order.index(h) for h in hosts]
+        if any(b < a for a, b in zip(index, index[1:])):
+            raise ValueError(
+                f"cannot detect topology: the ranks of a host are not one "
+                f"contiguous block (hosts by rank: {hosts}), which the "
+                "contiguous-block layout cannot describe. Pass an explicit "
+                "Topology(...) for the layout you mean.")
+        return cls.detect([types.SimpleNamespace(slice_index=i)
+                           for i in index])
+
+
+SINGLE_SLICE = Topology()
 
 
 # -- the per-(step, leaf) generator contract ---------------------------------
@@ -114,6 +357,25 @@ class LeafKey:
         return torch.rand(shape, generator=self.generator(device),
                           device=device, dtype=torch.float32)
 
+    def permutation(self, n: int, device) -> torch.Tensor:
+        """A permutation of ``range(n)`` (int64) from this key's stream,
+        the same on every rank for the same key (the counterpart of
+        ``jax.random.permutation(key, n)``, whose bits differ)."""
+        return torch.randperm(n, generator=self.generator(device),
+                              device=device)
+
+
+_HALF = (torch.float16, torch.bfloat16)
+
+
+def _sum_rows(t: torch.Tensor) -> torch.Tensor:
+    """``0 + t[0] + t[1] + ...`` in ``t``'s dtype, one rounding an add (a
+    sum of -0.0 rows is +0.0, as in XLA's reduction)."""
+    out = torch.zeros_like(t[0])
+    for row in t:
+        out += row
+    return out
+
 
 # -- the three roles ---------------------------------------------------------
 
@@ -169,6 +431,12 @@ class Compressor:
         of the communicators raise beyond it."""
         return None
 
+    def wire_nbytes(self, shape, dtype) -> Optional[int]:
+        """Analytic wire bytes of one tensor's payload, or None to let
+        :func:`grace_tpu_torch.utils.metrics.payload_nbytes` encode zeros of
+        that shape and count them."""
+        return None
+
     def compress(self, x: torch.Tensor, state: State, rng: LeafKey,
                  shared=None) -> tuple[Payload, Ctx, State]:
         """Encode ``x``; return (wire payload, decode ctx, next state).
@@ -205,10 +473,16 @@ class Compressor:
 
     def payload_sum(self, stacked: Payload) -> Payload:
         """Payload-space sum over a stacked leading world axis (the
-        reduce-scatter's owned-chunk sum), in the payload's own dtype:
-        ``torch.sum`` would widen int16 to int64, and the accumulator
-        width is what :meth:`payload_sum_max_world` bounds."""
-        return tuple(torch.sum(t, dim=0, dtype=t.dtype) for t in stacked)
+        reduce-scatter's owned-chunk sum, the hierarchical boundary sums),
+        in the payload's own dtype: ``torch.sum`` would widen int16 to
+        int64, and the accumulator width is what
+        :meth:`payload_sum_max_world` bounds. Half-precision payloads add
+        row by row, rounding after each add as XLA's reduction does:
+        ``torch.sum`` keeps a float32 accumulator and rounds once, which
+        differs in the last bit from three rows on."""
+        return tuple(_sum_rows(t) if t.dtype in _HALF
+                     else torch.sum(t, dim=0, dtype=t.dtype)
+                     for t in stacked)
 
     def wire_fused(self) -> bool:
         """True when :meth:`decode_accumulate` runs a fused kernel. Default
@@ -239,6 +513,10 @@ class Communicator:
 
     group: Optional[Any] = None     # torch.distributed group; None = default
 
+    # True for the communicators that re-chunk the gradient into per-rank
+    # shards inside ``step`` (two-shot, ring, reduce-scatter, hier).
+    shard_parallel = False
+
     def world_size(self) -> int:
         return dist.get_world_size(self.group)
 
@@ -249,6 +527,51 @@ class Communicator:
         w = self.world_size()
         pad = (-n) % w
         return w, (n + pad) // w, pad
+
+    # -- the wire-byte model: pure integers, equal to the JAX package's -----
+
+    def _recv_total_bytes(self, payload_nbytes: int, n_elems: int,
+                          world: int, vote: bool = False) -> int:
+        """Bytes one rank receives in one step at ``world`` ranks, the
+        per-communicator formula that :meth:`recv_link_bytes` splits.
+        Default: gather-style, every other rank's payload arrives."""
+        return payload_nbytes * max(0, world - 1)
+
+    def recv_link_bytes(self, payload_nbytes: int, n_elems: int, world: int,
+                        topology: Optional[Topology] = None,
+                        vote: bool = False) -> LinkBytes:
+        """One rank's received bytes split by link class. A flat schedule
+        is priced whole at the slowest boundary its group spans
+        (:meth:`Topology.flat_tier`): some rank's incoming link crosses it,
+        and the collective ends when that rank does. ``topology=None`` is
+        :data:`SINGLE_SLICE`. The hierarchical communicator overrides this
+        with a mixed split."""
+        total = int(self._recv_total_bytes(payload_nbytes, n_elems, world,
+                                           vote=vote))
+        topo = topology if topology is not None else SINGLE_SLICE
+        tier = topo.flat_tier(world)
+        if tier == "wan":
+            return LinkBytes(ici=0, dcn=0, wan=total)
+        if tier == "dcn":
+            return LinkBytes(ici=0, dcn=total)
+        return LinkBytes(ici=total, dcn=0)
+
+    def recv_wire_bytes(self, payload_nbytes: int, n_elems: int, world: int,
+                        vote: bool = False) -> int:
+        """Logical bytes one rank receives a step at ``world`` ranks:
+        ``payload_nbytes`` is one rank's whole payload
+        (:func:`grace_tpu_torch.utils.metrics.payload_nbytes`), ``n_elems``
+        the dense element count (a vote moves dense votes), ``vote``
+        whether the exchange takes a majority-vote route. The sum of
+        :meth:`recv_link_bytes`' tiers."""
+        return self.recv_link_bytes(payload_nbytes, n_elems, world,
+                                    vote=vote).total
+
+    def wire_overlap_fraction(self) -> float:
+        """Share of the wire time the schedule can hide behind its own
+        compute: 0.0 for a serial schedule; the pipelined ring and hier
+        schedules override it."""
+        return 0.0
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:

@@ -7,6 +7,15 @@ port does not carry yet raises ``ValueError`` naming it, instead of being
 dropped. ``world_size`` is accepted and ignored, as in the JAX package:
 the world is the process group's. The process group itself is passed as
 ``group=`` (the JAX package's ``axis_name``).
+
+A hierarchical run names its layout and, for three levels, its WAN codec
+as a nested params dict::
+
+    {"compressor": "topk", "compress_ratio": 0.01,
+     "topk_algorithm": "chunk", "memory": "residual",
+     "communicator": "hier", "slice_size": 8, "region_size": 32,
+     "wan_compressor": {"compressor": "topk", "compress_ratio": 0.001},
+     "fusion": "flat"}
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ from typing import Any, Dict, Optional
 from grace_tpu_torch import comm
 from grace_tpu_torch import compressors as C
 from grace_tpu_torch import memories as M
-from grace_tpu_torch.core import Communicator, Compressor, Memory
+from grace_tpu_torch.core import Communicator, Compressor, Memory, Topology
 from grace_tpu_torch.transform import GraceTransform, grace_transform
 
 # Keys of the JAX schema that this port reads.
@@ -25,7 +34,8 @@ PORTED_KEYS = frozenset({
     "compressor", "compress_ratio", "topk_algorithm", "wire_dtype",
     "use_pallas", "quantum_num", "accum_dtype", "accum_bits", "sketch_rows",
     "momentum", "memory", "beta", "gamma", "memory_dtype", "communicator",
-    "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size"})
+    "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size",
+    "slice_size", "region_size", "wan_compressor"})
 
 
 def _unsupported(kind: str, name, ported) -> ValueError:
@@ -36,12 +46,18 @@ def _unsupported(kind: str, name, ported) -> ValueError:
 
 @dataclasses.dataclass(frozen=True)
 class Grace:
-    """The configured triad; ``.transform(seed)`` builds the executor."""
+    """The configured triad; ``.transform(seed)`` builds the executor.
+
+    ``topology`` is the link layout that ``slice_size`` and ``region_size``
+    declare (None when neither is given), the JAX package's ``Grace``
+    field. Nothing in the port reads it yet: its readers, the telemetry
+    ring's per-link wire split among them, come with their own slices."""
 
     compressor: Compressor
     memory: Memory
     communicator: Communicator
     fusion: Optional[str] = None
+    topology: Optional[Topology] = None
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
@@ -62,6 +78,9 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
             algorithm=params.get("topk_algorithm", "exact"),
             wire_dtype=params.get("wire_dtype", "float32"),
             use_pallas=params.get("use_pallas", "auto"))
+    if name == "randomk":
+        return C.RandomKCompressor(
+            compress_ratio=params.get("compress_ratio", 0.3))
     if name == "qsgd":
         return C.QSGDCompressor(quantum_num=params.get("quantum_num", 64),
                                 use_pallas=params.get("use_pallas", "auto"))
@@ -83,8 +102,8 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
                                   use_pallas=params.get("use_pallas",
                                                         "auto"))
     raise _unsupported("compressor", name,
-                       ("none", "fp16", "bf16", "bfloat16", "topk", "qsgd",
-                        "homoqsgd", "countsketch",
+                       ("none", "fp16", "bf16", "bfloat16", "topk",
+                        "randomk", "qsgd", "homoqsgd", "countsketch",
                         "signsgd", "signum"))
 
 
@@ -117,6 +136,16 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
                                   pipeline=int(params.get("pipeline", 1)))
     if name in ("rscatter", "reduce_scatter", "rscatter_allreduce"):
         return comm.ReduceScatterAllreduce(group=group)
+    if name in ("hier", "hierarchical", "hier_allreduce"):
+        # wan_compressor is a nested params dict naming the cross-region
+        # codec.
+        wan_params = params.get("wan_compressor")
+        wan = (_build_compressor(dict(wan_params))
+               if isinstance(wan_params, dict) else None)
+        return comm.HierarchicalAllreduce(
+            group=group, slice_size=params.get("slice_size"),
+            region_size=params.get("region_size"), wan_compressor=wan,
+            pipeline=int(params.get("pipeline", 1)))
     if name in ("sign_allreduce", "signallreduce"):
         return comm.SignAllreduce(
             group=group, vote_dtype=params.get("vote_dtype", "bfloat16"))
@@ -124,8 +153,8 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
         return comm.Identity(group=group)
     raise _unsupported("communicator", name,
                        ("allreduce", "allgather", "broadcast", "twoshot",
-                        "ring",
-                        "rscatter", "sign_allreduce", "identity"))
+                        "ring", "rscatter", "hier", "sign_allreduce",
+                        "identity"))
 
 
 def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
@@ -138,9 +167,24 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
     fusion = params.get("fusion")
     if fusion in ("none", "None", ""):     # CLI spelling of "no fusion"
         fusion = None
+    communicator = _build_communicator(params, group)
+    if fusion == "grouped" and communicator.shard_parallel:
+        raise ValueError(
+            "fusion='grouped' runs the per-leaf pipeline over stacks of "
+            "leaves, and "
+            f"{type(communicator).__name__} re-chunks the gradient into "
+            "per-rank shards inside step() (shard-parallel family: "
+            "TwoShotAllreduce/RingAllreduce/HierarchicalAllreduce); use "
+            "fusion=None or 'flat', which hand the communicator whole "
+            "buffers to shard.")
     if fusion is not None and fusion != "flat":
         raise _unsupported("fusion", fusion, (None, "none", "flat"))
+    slice_size, region_size = params.get("slice_size"), \
+        params.get("region_size")
+    topology = (Topology(
+        slice_size=int(slice_size) if slice_size else None,
+        region_size=int(region_size) if region_size else None)
+        if (slice_size or region_size) else None)
     return Grace(compressor=_build_compressor(params),
-                 memory=_build_memory(params),
-                 communicator=_build_communicator(params, group),
-                 fusion=fusion)
+                 memory=_build_memory(params), communicator=communicator,
+                 fusion=fusion, topology=topology)

@@ -7,6 +7,7 @@ communicator; the port runs both its fused path (the chunk kernels' plain
 versions on the CPU) and its staged path.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -292,3 +293,70 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resnet50()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# -- randomk -------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _JaxPermKey(LeafKey):
+    """A key whose permutation is ``jax.random.permutation`` under the
+    counterpart key ``fold_in(key(seed), *folds)``."""
+
+    def permutation(self, n, device):
+        k = jax.random.key(self.seed)
+        for f in self.folds:
+            k = jax.random.fold_in(k, f)
+        return torch.from_numpy(np.array(
+            jax.random.permutation(k, n))).long().to(device)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (37, 5)])
+@pytest.mark.parametrize("ratio", [0.01, 0.3, 0.5])
+def test_randomk_matches_jax_under_the_same_indices(ratio, shape):
+    from grace_tpu_torch.compressors import RandomKCompressor
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(shape).astype(np.float32)
+    key = _JaxPermKey(4, 0, 0).fold(2)
+    port = RandomKCompressor(compress_ratio=ratio)
+    (values,), ctx, _ = port.compress(torch.from_numpy(x), None, key)
+    jax_codec = jC.RandomKCompressor(compress_ratio=ratio)
+    (want,), jctx, _ = jax_codec.compress(
+        jnp.asarray(x), None, jax.random.fold_in(jax.random.key(4), 2))
+    assert values.numel() == max(1, int(x.size * ratio))
+    assert_same_bits(values, want)
+    out = port.decompress((values,), ctx)
+    assert out.shape == shape
+    assert_same_bits(out, jax_codec.decompress((want,), jctx))
+
+
+def test_randomk_indices_are_shared_by_equal_keys():
+    """Two ranks hold equal keys for the same (step, leaf, fold): they keep
+    the same lanes, so their payloads sum exactly; another key, or another
+    fold, keeps other lanes."""
+    from grace_tpu_torch.compressors import RandomKCompressor
+    codec = RandomKCompressor(compress_ratio=0.25)
+    a, b = torch.randn(400), torch.randn(400)
+    key = LeafKey(0, 3, 7).fold(1)
+    (va,), ctx_a, _ = codec.compress(a, None, key)
+    (vb,), ctx_b, _ = codec.compress(b, None, LeafKey(0, 3, 7).fold(1))
+    assert ctx_a == ctx_b
+    kept = codec.decompress((torch.ones(100),), ctx_a) != 0
+    assert int(kept.sum()) == 100
+    np.testing.assert_array_equal(
+        codec.decompress((va + vb,), ctx_a).numpy(),
+        torch.where(kept, a + b, torch.zeros(())).numpy())
+    for other in (LeafKey(0, 4, 7).fold(1), LeafKey(0, 3, 7).fold(2)):
+        moved = codec.decompress((torch.ones(100),),
+                                 codec.compress(a, None, other)[1]) != 0
+        assert not torch.equal(moved, kept)
+    assert torch.equal(key.permutation(400, "cpu"),
+                       LeafKey(0, 3, 7).fold(1).permutation(400, "cpu"))
+
+
+def test_grace_from_params_builds_randomk():
+    from grace_tpu_torch.compressors import RandomKCompressor
+    g = grace_from_params({"compressor": "randomk", "compress_ratio": 0.1,
+                           "communicator": "ring"})
+    assert g.compressor == RandomKCompressor(compress_ratio=0.1)
+    assert grace_from_params({"compressor": "randomk"}).compressor == \
+        RandomKCompressor(compress_ratio=0.3)

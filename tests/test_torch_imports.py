@@ -43,6 +43,10 @@ MNIST_PATH_MODULES = {
     "grace_tpu_torch.data", "grace_tpu_torch.models.lenet",
     "grace_tpu_torch.models.threefry", "grace_tpu_torch.compressors.fp16",
     "grace_tpu_torch.examples", "grace_tpu_torch.examples.mnist10k_lenet"}
+# The hierarchical path's modules: randomk and the wire-byte accounting.
+HIER_PATH_MODULES = {
+    "grace_tpu_torch.compressors.randomk", "grace_tpu_torch.utils",
+    "grace_tpu_torch.utils.metrics"}
 
 
 def test_every_module_imports_without_jax_or_triton():
@@ -55,6 +59,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert len(names) >= 20                      # every module of the port
     assert WIRE_PATH_MODULES <= names
     assert MNIST_PATH_MODULES <= names
+    assert HIER_PATH_MODULES <= names
     assert leaked.strip() == "[]"
 
 
