@@ -154,6 +154,26 @@ The hierarchical all-reduce:
     then timed. And randomk's shared indices on the card: two draws under
     one key give the same indices, two keys different ones.
 
+The rest of the codec catalog:
+
+19. One step of each new codec's configuration (the analysis registry's:
+    PowerSGD rank 2, DGC with and without gradient clipping, EF-SignSGD,
+    cyclic Top-K over the ring, natural, TernGrad, 1-bit, threshold, the
+    sketch, u8bit, AdaQ, inceptionn; approx Top-K 1% per leaf) over the 161
+    ResNet-50 leaves on the card against the same step on the CPU, with
+    gradients whose magnitudes are distinct within a leaf and the same
+    noise on both sides (drawn once, by the CPU generator): every update
+    and state bit for bit where the codec sums no floats, else within the
+    CPU tests' tolerance (the sketch within rtol 1e-4: the card adds its
+    bin sums with atomics). Then PowerSGD at rank 4 on the card: each
+    factored leaf's P, and the Q that the next step orthogonalises, are
+    orthonormal within 1e-4.
+20. Train full-width ResNet-50 (batch 256, as the other rows, 1 warm-up +
+    3 timed steps) under bench_all.py's powersgd_r4, onebit, terngrad and
+    topk1pct_approx rows and the registry configurations of DGC,
+    EF-SignSGD, cyclic Top-K over the ring, natural, threshold, the sketch,
+    u8bit, AdaQ and inceptionn, params verbatim. None launches a kernel.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -304,6 +324,85 @@ HIER_PATH = [
 ]
 HIER_WARMUP_STEPS = 1
 HIER_TIMED_STEPS = 3
+# The rest of the codec catalog (phases 19 and 20). Phase 19: one step of
+# each new codec over the 161 ResNet-50 leaves on the card against the
+# same step on the CPU, under the analysis registry's configuration of the
+# codec (grace_tpu/analysis/configs.py, params verbatim; DGC also with
+# gradient clipping; approx Top-K per leaf, since a flat buffer of several
+# leaves has ties in |x|), with the tolerance of the CPU tests (None: bit
+# for bit; else (rtol, atol), by what the codec sums in floats).
+CATALOG_CHECKS = [
+    ("powersgd-allreduce", {"compressor": "powersgd", "compress_rank": 2,
+                            "memory": "powersgd",
+                            "communicator": "allreduce"}, (0, 2e-5)),
+    ("dgc-allgather", {"compressor": "dgc", "compress_ratio": 0.3,
+                       "memory": "dgc", "communicator": "allgather"},
+     (1e-5, 1e-6)),
+    ("dgc-clip-allgather", {"compressor": "dgc", "compress_ratio": 0.3,
+                            "memory": "dgc", "gradient_clipping": True,
+                            "communicator": "allgather"}, (1e-5, 1e-6)),
+    ("efsignsgd-allgather", {"compressor": "efsignsgd", "lr": 0.1,
+                             "memory": "efsignsgd",
+                             "communicator": "allgather"}, (1e-5, 1e-6)),
+    ("cyclictopk-ring", {"compressor": "cyclictopk", "compress_ratio": 0.3,
+                         "memory": "residual", "communicator": "ring",
+                         "fusion": "flat"}, None),
+    ("natural-allgather", {"compressor": "natural", "memory": "residual",
+                           "communicator": "allgather"}, None),
+    ("terngrad-allgather", {"compressor": "terngrad", "memory": "none",
+                            "communicator": "allgather"}, (1e-5, 1e-6)),
+    ("onebit-allgather", {"compressor": "onebit", "memory": "residual",
+                          "communicator": "allgather"}, (1e-5, 1e-6)),
+    ("threshold-allgather", {"compressor": "threshold", "threshold": 0.01,
+                             "memory": "residual",
+                             "communicator": "allgather"}, None),
+    # Bit for bit on the CPU, where each bin's sum adds in element order;
+    # the card adds it with atomics in any order, up to ~37,000 values a
+    # bin on the largest leaves, so a mean moves by more ulps than one
+    # sum over a leaf does (1.0e-05 and 1.08e-05 at most in two calls).
+    ("sketch-allgather", {"compressor": "sketch", "quantum_num": 64,
+                          "memory": "none", "communicator": "allgather"},
+     (1e-4, 1e-6)),
+    ("u8bit-allgather", {"compressor": "u8bit", "memory": "none",
+                         "communicator": "allgather"}, None),
+    ("adaq-allgather", {"compressor": "adaq", "compress_ratio": 0.3,
+                        "memory": "residual", "communicator": "allgather"},
+     (1e-5, 1e-6)),
+    ("inceptionn-allgather", {"compressor": "inceptionn", "memory": "none",
+                              "communicator": "allgather"}, None),
+    ("topk1pct_approx-per-leaf", {"compressor": "topk",
+                                  "compress_ratio": 0.01,
+                                  "topk_algorithm": "approx",
+                                  "memory": "residual",
+                                  "communicator": "allgather"}, None),
+]
+POWERSGD_ORTHO_ATOL = 1e-4
+# Phase 20: full-width ResNet-50 under bench_all.py's powersgd_r4, onebit,
+# terngrad and topk1pct_approx rows and the registry configurations of the
+# other new codecs, params verbatim, batch 256, 1 warm-up + 3 timed steps.
+# None launches a kernel.
+CATALOG_PATH = [
+    {"name": "powersgd_r4", "per_device_bs": 256,
+     "params": {"compressor": "powersgd", "compress_rank": 4,
+                "memory": "powersgd", "communicator": "allreduce",
+                "fusion": "none"}},
+    {"name": "onebit", "per_device_bs": 256,
+     "params": {"compressor": "onebit", "memory": "residual",
+                "communicator": "allgather", "fusion": "flat"}},
+    {"name": "terngrad", "per_device_bs": 256,
+     "params": {"compressor": "terngrad", "memory": "none",
+                "communicator": "allgather", "fusion": "flat"}},
+    {"name": "topk1pct_approx", "per_device_bs": 256,
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "approx", "memory": "residual",
+                "communicator": "allgather", "fusion": "flat"}},
+] + [{"name": name, "per_device_bs": 256, "params": params}
+     for name, params, _ in CATALOG_CHECKS
+     if name not in ("powersgd-allreduce", "onebit-allgather",
+                     "terngrad-allgather", "dgc-clip-allgather",
+                     "topk1pct_approx-per-leaf")]
+for _cfg in CATALOG_PATH:
+    _cfg["per_step"] = {}
 # Phase 18: (label, S, Kr, R) of a W=8 world.
 HIER_LAYOUTS = (("S=4 K=2", 4, 2, 1), ("S=2 Kr=2 R=2", 2, 2, 2))
 IMAGE_HW = 224
@@ -2246,6 +2345,141 @@ def check_hier_boundaries(dev, flat_a, flat_b, errs):
     return out, cases
 
 
+# -- phases 19 and 20: the rest of the codec catalog -------------------------
+
+def tie_free_leaves():
+    """CPU float32 gradients of the 161 ResNet-50 leaves (leaf order) whose
+    magnitudes are distinct within a leaf: ``±(p + 1)·2^-20`` for a
+    permutation ``p`` (up to 2.25), so that every Top-K selection is the
+    same on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.transform import leaf_order
+
+    params = dict(resnet50(NUM_CLASSES, device="cpu").named_parameters())
+    rng = np.random.default_rng(SEED + 19)
+    out = {}
+    for n in leaf_order(params):
+        shape = tuple(params[n].shape)
+        size = params[n].numel()
+        mag = (rng.permutation(size) + 1).astype(np.float32) \
+            * np.float32(2.0 ** -20)
+        sign = np.where(rng.random(size) < 0.5, -1.0, 1.0).astype(np.float32)
+        out[n] = torch.from_numpy((mag * sign).reshape(shape))
+    return out
+
+
+def _cpu_noise_key():
+    """A ``LeafKey`` whose draws are made by the CPU generator and moved to
+    the device asked for: the card and the CPU draw the same noise."""
+    import dataclasses
+    from grace_tpu_torch.core import LeafKey
+
+    @dataclasses.dataclass(frozen=True)
+    class CpuNoiseKey(LeafKey):
+        def uniform(self, shape, device):
+            return super().uniform(shape, "cpu").to(device)
+
+        def randint(self, shape, low, high, device):
+            return super().randint(shape, low, high, "cpu").to(device)
+
+        def normal(self, shape, device):
+            return super().normal(shape, "cpu").to(device)
+
+        def permutation(self, n, device):
+            return super().permutation(n, "cpu").to(device)
+
+    return CpuNoiseKey
+
+
+def _state_tensors(prefix, entries):
+    out = {}
+    for i, e in enumerate(entries):
+        if isinstance(e, dict):
+            out.update({f"{prefix}{i}.{k}": v for k, v in e.items()})
+        elif e is not None:
+            out[f"{prefix}{i}"] = e
+    return out
+
+
+def check_catalog_steps(dev, group):
+    """Phase 19: one step of each CATALOG_CHECKS configuration over the
+    161 ResNet-50 leaves on the card against the same step on the CPU
+    (a gloo group), the same noise on both sides: every update and every
+    memory and compressor state within the row's tolerance. Then PowerSGD
+    at rank 4 on the card: each factored leaf's P, and the Q that the next
+    step orthogonalises, orthonormal within POWERSGD_ORTHO_ATOL. Returns
+    {name: (max abs err, seconds)}."""
+    import torch
+    import torch.distributed as dist
+    import grace_tpu_torch.transform as T
+    from grace_tpu_torch import compressors as C
+    from grace_tpu_torch import grace_from_params
+
+    grads = tie_free_leaves()
+    cpu_group = dist.new_group(backend="gloo")
+    patched, T.LeafKey = T.LeafKey, _cpu_noise_key()
+    results = {}
+    try:
+        for name, params, tol in CATALOG_CHECKS:
+            t0 = time.perf_counter()
+            runs = {}
+            for d, grp in (("cpu", cpu_group), (dev, group)):
+                tx = grace_from_params(params, group=grp).transform(SEED)
+                g = {n: t.to(d) for n, t in grads.items()}
+                state = tx.init(g)
+                upd, state = tx.update({n: t.clone() for n, t in g.items()},
+                                       state)
+                runs[d] = {**{f"update {n}": u for n, u in upd.items()},
+                           **_state_tensors("mem ", state.mem),
+                           **_state_tensors("comp ", state.comp)}
+            torch.cuda.synchronize()
+            if sorted(runs["cpu"]) != sorted(runs[dev]):
+                fail(f"[19] {name}: the card's and the CPU's states differ "
+                     "in structure")
+            worst = 0.0
+            for key, want in runs["cpu"].items():
+                got = runs[dev][key].cpu()
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"[19] {name}: non-finite {key} on the card")
+                err = max_abs_err(got, want)
+                worst = max(worst, err)
+                if tol is None:
+                    ok = same_bits(got, want)
+                else:
+                    ok = bool(torch.isclose(got, want, rtol=tol[0],
+                                            atol=tol[1]).all())
+                if not ok:
+                    fail(f"[19] {name}: {key} differs between the card and "
+                         f"the CPU (max abs err {err}, tolerance "
+                         f"{'bit for bit' if tol is None else tol})")
+            results[name] = (worst, time.perf_counter() - t0)
+            log(f"    {name}: {len(runs['cpu'])} tensors "
+                f"{'bit for bit' if tol is None else f'within {tol}'}, max "
+                f"abs err {worst:.3g}, {results[name][1]:.1f} s")
+    finally:
+        T.LeafKey = patched
+        dist.destroy_process_group(cpu_group)
+    codec = C.PowerSGDCompressor(rank=4, group=group)
+    key = _cpu_noise_key()(SEED, 0, 0)
+    checked, worst = 0, 0.0
+    for n, g in grads.items():
+        if g.dim() <= 1:
+            continue
+        g = g.to(dev)
+        _, (p, _, _), state = codec.compress(g, codec.init_state(g), key)
+        q = torch.linalg.qr(state[:, :p.shape[1]])[0]
+        for f in (p, q):
+            eye = torch.eye(f.shape[1], device=dev)
+            worst = max(worst, float((f.T @ f - eye).abs().max()))
+        checked += 1
+    if worst > POWERSGD_ORTHO_ATOL:
+        fail(f"[19] PowerSGD rank 4: P or Q off orthonormal by {worst}")
+    results["powersgd_orthonormal"] = (worst, checked)
+    return results
+
+
 def kernel_named(fn, word: str) -> str:
     """The name of the one CUDA kernel whose name holds ``word`` among those
     one call of ``fn`` launches, as the profiler names it."""
@@ -2563,6 +2797,31 @@ def main() -> int:
             f"(the exact boundary sums, the cascaded vote, the boundary "
             f"re-encode at {', '.join(h[0] for h in HIER_LAYOUTS)}); "
             f"randomk drew one index set under one key on the card")
+        # -- 19. the catalog's codecs on the card against the CPU ----------
+        log(f"[19] {len(CATALOG_CHECKS)} catalog configurations, one step "
+            f"over the {len(leaves)} ResNet-50 leaves (tie-free gradients), "
+            "the card against the CPU under the same noise")
+        t0 = time.perf_counter()
+        catalog = check_catalog_steps(dev, group)
+        worst, checked = catalog.pop("powersgd_orthonormal")
+        log(f"[19] every configuration agrees with the CPU within its "
+            f"tolerance; PowerSGD rank 4: P and Q of {checked} factored "
+            f"leaves orthonormal within {worst:.2g} (limit "
+            f"{POWERSGD_ORTHO_ATOL}); {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # -- 20. train the catalog ------------------------------------------
+        log(f"[20] ResNet-50 under the catalog's configurations, batch {bs}, "
+            f"{HIER_WARMUP_STEPS} warm-up + {HIER_TIMED_STEPS} timed steps")
+        t0 = time.perf_counter()
+        for cfg in CATALOG_PATH:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y,
+                                      HIER_WARMUP_STEPS, HIER_TIMED_STEPS)
+            torch.cuda.empty_cache()
+        log(f"[20] {len(CATALOG_PATH)} rows trained in "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs["catalog_checks"] = {"launches": {}, "max_abs_err": {
+            k: v[0] for k, v in catalog.items()},
+            "powersgd_orthonormal_err": worst}
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -286,6 +286,8 @@ class Allreduce(Communicator):
                     "fields (a carry crosses into the next field). Use "
                     "'ring' or 'rscatter', which sum the fields in payload "
                     "space, or an unpacked accum_dtype.")
+        # An empty payload (PowerSGD, which all-reduced inside compress)
+        # goes straight to decompress.
         for t in payload:
             _all_reduce_sum(t, self.group)
         summed = tuple(payload)
@@ -342,6 +344,9 @@ class Allgather(Communicator):
 
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
+        if not payload:
+            # PowerSGD: the exchange already ran inside compress.
+            return compressor.decompress(payload, ctx)
         world = self.world_size()
         gathered = _gather(payload, self.group)
         fused = getattr(compressor, "fused_aggregate_decompress", None)

@@ -6,8 +6,12 @@ into zeros to decompress. ``'chunk'`` keeps the largest-|x| entry of each
 strided chunk (column ``c`` of the ``(rows, k)`` view), so indices are
 ``win_row*k + c``.
 
-``'approx'`` is ``lax.approx_max_k`` in the JAX package, a TPU primitive
-with no PyTorch counterpart; it raises ``NotImplementedError`` here.
+``'approx'`` is ``lax.approx_max_k`` in the JAX package where the flat
+tensor holds more than ``4k`` entries, and the exact selection elsewhere.
+Off the TPU, XLA lowers ``approx_max_k`` to an exact sort, whatever the
+``recall_target``; so the port selects exactly (``torch.topk``), which is
+what the JAX package computes on the CPU, and keeps ``recall_target`` for
+the params dicts.
 
 ``use_pallas`` keeps its JAX name so the JAX params dicts build unchanged.
 Its meaning in the port: ``False`` (or the ``topk`` family turned off by
@@ -41,17 +45,13 @@ class TopKCompressor(Compressor):
     payload_algebra = None
 
     compress_ratio: float = 0.3
-    algorithm: str = "exact"      # 'exact' | 'chunk' ('approx' unported)
+    algorithm: str = "exact"      # 'exact' | 'approx' | 'chunk'
+    recall_target: float = 0.95   # 'approx' only; selection is exact here
     wire_dtype: str = "float32"   # 'float32' | 'bfloat16' wire values
     use_pallas: bool | str = "auto"
 
     def __post_init__(self):
-        if self.algorithm == "approx":
-            raise NotImplementedError(
-                "topk algorithm 'approx' is lax.approx_max_k, a TPU "
-                "primitive with no PyTorch counterpart; use 'chunk' or "
-                "'exact' (ROADMAP queue 1)")
-        if self.algorithm not in ("exact", "chunk"):
+        if self.algorithm not in ("exact", "approx", "chunk"):
             raise ValueError(f"unknown topk algorithm {self.algorithm!r}")
         if self.wire_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}")
@@ -175,8 +175,9 @@ class TopKCompressor(Compressor):
         if self.algorithm == "chunk" and numel >= 2 * k:
             values, indices = self._chunk_compress(flat, k)
         else:
-            # Exact top-k. Its tie order differs from lax.top_k; the wire
-            # set is the same wherever magnitudes are distinct.
+            # Exact top-k ('approx' included: see the module docstring).
+            # Its tie order differs from lax.top_k; the wire set is the
+            # same wherever magnitudes are distinct.
             indices = torch.topk(flat.abs(), k).indices.to(torch.int32)
             values = flat[indices.long()]
         if self.wire_dtype == "bfloat16":

@@ -6,8 +6,9 @@ dout)`` dense weights, BatchNorm ``scale``/``bias`` and ``mean``/``var``),
 so the conversion is the identity on values: nested dicts of numpy arrays
 become flat mappings from dotted names to tensors. Both keep the GRACE
 state's ``mem``/``comp`` entries in the same order (one per leaf in the
-flatten order, or one for the flat buffer), so a JAX run's residuals and
-Signum momenta carry over entry for entry.
+flatten order, or one for the flat buffer), so a JAX run's residuals,
+Signum momenta, PowerSGD's Q factors and the DGC memory's
+``{"residual", "gradient"}`` dicts carry over entry for entry.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def from_jax(params_np: Mapping[str, Any], model_state_np: Mapping[str, Any]
 
 
 def _state_leaf(value, rank: Optional[int]):
-    """One ``mem``/``comp`` entry: None, an array, or a dict of arrays."""
+    """One ``mem``/``comp`` entry: None, an array (a residual, a momentum,
+    a PowerSGD Q), or a dict of arrays (the DGC memory's)."""
     if value is None:
         return None
     if isinstance(value, Mapping):

@@ -364,6 +364,26 @@ class LeafKey:
         return torch.randperm(n, generator=self.generator(device),
                               device=device)
 
+    def randint(self, shape, low: int, high: int, device) -> torch.Tensor:
+        """Int32 integers in ``[low, high)`` from this key's stream (the
+        counterpart of ``jax.random.randint(key, shape, low, high)``,
+        whose bits differ)."""
+        return torch.randint(low, high, tuple(shape),
+                             generator=self.generator(device), device=device,
+                             dtype=torch.int32)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """Float32 standard normals from this key's stream (the
+        counterpart of ``jax.random.normal(key, shape)``, whose bits
+        differ)."""
+        return torch.randn(tuple(shape), generator=self.generator(device),
+                           device=device, dtype=torch.float32)
+
+    def split(self) -> Tuple["LeafKey", "LeafKey"]:
+        """Two independent sub-keys, ``fold(0)`` and ``fold(1)`` (the
+        counterpart of ``jax.random.split(key)``)."""
+        return self.fold(0), self.fold(1)
+
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -386,6 +406,11 @@ class Compressor:
     Capability flags, as in the JAX package:
 
     * ``average`` — divide the aggregate by the world size.
+    * ``tensors_size_are_same`` — kept for parity with the JAX package,
+      where it documents the reference's variable-size payloads (dgc,
+      threshold, adaq, inceptionn set it False). Every payload here has a
+      shape that depends only on the input's shape, so no communicator
+      reads it.
     * ``vote_aggregate`` — ``aggregate`` is a majority vote over ±1 tensors.
     * ``payload_algebra`` — how payloads compose under cross-rank addition:
       ``"exact"`` (linear float payloads), ``"shared_scale"`` (integer
@@ -398,6 +423,7 @@ class Compressor:
     """
 
     average = True
+    tensors_size_are_same = True
     vote_aggregate = False
     payload_algebra = None
     supports_hop_requant = False

@@ -1,10 +1,12 @@
 """String-keyed factory: ``grace_from_params``, counterpart of the JAX
-package's ``helper.py`` for the keys and names this port carries.
+package's ``helper.py``.
 
 The params-dict schema is the JAX package's, so its dicts (the benchmark's
-``HEADLINE`` pair among them) build verbatim. A key or a name that the
-port does not carry yet raises ``ValueError`` naming it, instead of being
-dropped. ``world_size`` is accepted and ignored, as in the JAX package:
+``HEADLINE`` pair among them) build verbatim: every codec name and memory
+name, with the JAX defaults. A key that the port does not carry yet (the
+resilience and observability keys, ``route``) or an unknown name raises
+``ValueError`` naming it, instead of being dropped. PowerSGD's and the DGC
+memory's collectives run over the ``group`` given here. ``world_size`` is accepted and ignored, as in the JAX package:
 the world is the process group's. The process group itself is passed as
 ``group=`` (the JAX package's ``axis_name``).
 
@@ -35,13 +37,21 @@ PORTED_KEYS = frozenset({
     "use_pallas", "quantum_num", "accum_dtype", "accum_bits", "sketch_rows",
     "momentum", "memory", "beta", "gamma", "memory_dtype", "communicator",
     "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size",
-    "slice_size", "region_size", "wan_compressor"})
+    "slice_size", "region_size", "wan_compressor", "compress_rank",
+    "threshold", "capacity_ratio", "lr", "gradient_clipping",
+    "recall_target"})
+
+COMPRESSORS = ("none", "fp16", "bf16", "bfloat16", "cyclictopk", "topk",
+               "randomk", "threshold", "qsgd", "homoqsgd", "countsketch",
+               "terngrad", "signsgd", "signum", "efsignsgd", "onebit",
+               "natural", "dgc", "powersgd", "u8bit", "sketch", "adaq",
+               "inceptionn")
+MEMORIES = ("none", "residual", "efsignsgd", "dgc", "powersgd")
 
 
 def _unsupported(kind: str, name, ported) -> ValueError:
-    return ValueError(f"{kind} {name!r} is not ported to grace_tpu_torch "
-                      f"(ported: {list(ported)}; the rest of the JAX "
-                      "package's catalog is queued in ROADMAP queue 1)")
+    return ValueError(f"unknown {kind} {name!r} (grace_tpu_torch builds: "
+                      f"{list(ported)})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,22 +75,29 @@ class Grace:
                                fusion=self.fusion)
 
 
-def _build_compressor(params: Dict[str, Any]) -> Compressor:
+def _build_compressor(params: Dict[str, Any], group=None) -> Compressor:
     name = params.get("compressor", "none")
+    ratio = params.get("compress_ratio", 0.3)
     if name == "none":
         return C.NoneCompressor()
     if name in ("fp16", "bf16", "bfloat16"):
         return C.FP16Compressor(dtype="float16" if name == "fp16"
                                 else "bfloat16")
+    if name == "cyclictopk":
+        return C.CyclicTopKCompressor(compress_ratio=ratio)
     if name == "topk":
         return C.TopKCompressor(
-            compress_ratio=params.get("compress_ratio", 0.3),
+            compress_ratio=ratio,
             algorithm=params.get("topk_algorithm", "exact"),
+            recall_target=params.get("recall_target", 0.95),
             wire_dtype=params.get("wire_dtype", "float32"),
             use_pallas=params.get("use_pallas", "auto"))
     if name == "randomk":
-        return C.RandomKCompressor(
-            compress_ratio=params.get("compress_ratio", 0.3))
+        return C.RandomKCompressor(compress_ratio=ratio)
+    if name == "threshold":
+        return C.ThresholdCompressor(
+            threshold=params.get("threshold", 0.01),
+            capacity_ratio=params.get("capacity_ratio", 0.25))
     if name == "qsgd":
         return C.QSGDCompressor(quantum_num=params.get("quantum_num", 64),
                                 use_pallas=params.get("use_pallas", "auto"))
@@ -94,6 +111,8 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
         return C.CountSketchCompressor(
             compress_ratio=params.get("compress_ratio", 0.25),
             rows=params.get("sketch_rows", 3))
+    if name == "terngrad":
+        return C.TernGradCompressor()
     if name == "signsgd":
         return C.SignSGDCompressor(use_pallas=params.get("use_pallas",
                                                          "auto"))
@@ -101,13 +120,32 @@ def _build_compressor(params: Dict[str, Any]) -> Compressor:
         return C.SignumCompressor(momentum=params.get("momentum", 0.9),
                                   use_pallas=params.get("use_pallas",
                                                         "auto"))
-    raise _unsupported("compressor", name,
-                       ("none", "fp16", "bf16", "bfloat16", "topk",
-                        "randomk", "qsgd", "homoqsgd", "countsketch",
-                        "signsgd", "signum"))
+    if name == "efsignsgd":
+        return C.EFSignSGDCompressor(lr=params.get("lr", 0.1))
+    if name == "onebit":
+        return C.OneBitCompressor()
+    if name == "natural":
+        return C.NaturalCompressor()
+    if name == "dgc":
+        return C.DgcCompressor(compress_ratio=params.get("compress_ratio",
+                                                         0.01))
+    if name == "powersgd":
+        # Its two all-reduces run inside compress, over the group.
+        return C.PowerSGDCompressor(rank=params.get("compress_rank", 1),
+                                    group=group)
+    if name == "u8bit":
+        return C.U8bitCompressor()
+    if name == "sketch":
+        return C.SketchCompressor(bins=params.get("quantum_num", 256))
+    if name == "adaq":
+        return C.AdaqCompressor(compress_ratio=params.get("compress_ratio",
+                                                          0.01))
+    if name == "inceptionn":
+        return C.InceptionNCompressor()
+    raise _unsupported("compressor", name, COMPRESSORS)
 
 
-def _build_memory(params: Dict[str, Any]) -> Memory:
+def _build_memory(params: Dict[str, Any], group=None) -> Memory:
     name = params.get("memory", "none")
     if name == "none":
         return M.NoneMemory()
@@ -115,7 +153,17 @@ def _build_memory(params: Dict[str, Any]) -> Memory:
         return M.ResidualMemory(
             beta=params.get("beta", 1.0), gamma=params.get("gamma", 1.0),
             state_dtype=params.get("memory_dtype"))
-    raise _unsupported("memory", name, ("none", "residual"))
+    if name == "efsignsgd":
+        return M.EFSignSGDMemory(lr=params.get("lr", 0.1))
+    if name == "dgc":
+        # The gradient clipping's all-reduce runs over the group.
+        return M.DgcMemory(momentum=params.get("momentum", 0.9),
+                           gradient_clipping=params.get("gradient_clipping",
+                                                        False),
+                           group=group)
+    if name == "powersgd":
+        return M.PowerSGDMemory()
+    raise _unsupported("memory", name, MEMORIES)
 
 
 def _build_communicator(params: Dict[str, Any], group) -> Communicator:
@@ -140,7 +188,7 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
         # wan_compressor is a nested params dict naming the cross-region
         # codec.
         wan_params = params.get("wan_compressor")
-        wan = (_build_compressor(dict(wan_params))
+        wan = (_build_compressor(dict(wan_params), group)
                if isinstance(wan_params, dict) else None)
         return comm.HierarchicalAllreduce(
             group=group, slice_size=params.get("slice_size"),
@@ -178,13 +226,17 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
             "fusion=None or 'flat', which hand the communicator whole "
             "buffers to shard.")
     if fusion is not None and fusion != "flat":
-        raise _unsupported("fusion", fusion, (None, "none", "flat"))
+        raise ValueError(f"fusion {fusion!r} is not ported to "
+                         "grace_tpu_torch yet (ported: None, 'none', "
+                         "'flat'; 'grouped' and bucket bytes are queued in "
+                         "ROADMAP queue 1)")
     slice_size, region_size = params.get("slice_size"), \
         params.get("region_size")
     topology = (Topology(
         slice_size=int(slice_size) if slice_size else None,
         region_size=int(region_size) if region_size else None)
         if (slice_size or region_size) else None)
-    return Grace(compressor=_build_compressor(params),
-                 memory=_build_memory(params), communicator=communicator,
+    return Grace(compressor=_build_compressor(params, group),
+                 memory=_build_memory(params, group),
+                 communicator=communicator,
                  fusion=fusion, topology=topology)

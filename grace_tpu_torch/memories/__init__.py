@@ -1,16 +1,21 @@
-"""Error-feedback memories; counterpart of the JAX ``memories/__init__.py``
-(``NoneMemory`` and ``ResidualMemory``; the others are queued in ROADMAP)."""
+"""Error-feedback memories; counterpart of the JAX ``memories/__init__.py``:
+``NoneMemory``, ``ResidualMemory``, ``EFSignSGDMemory``, ``DgcMemory``
+and ``PowerSGDMemory``. Each memory's per-leaf state is returned, never
+kept in the object, as the transform holds it per leaf."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
-from grace_tpu_torch.core import Compressor, Ctx, Memory, Payload, State
+from grace_tpu_torch.core import (Compressor, Ctx, Memory, Payload, State,
+                                  mean_scale)
 
-__all__ = ["NoneMemory", "ResidualMemory"]
+__all__ = ["NoneMemory", "ResidualMemory", "EFSignSGDMemory", "DgcMemory",
+           "PowerSGDMemory"]
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -57,3 +62,84 @@ class ResidualMemory(Memory):
                compressor: Compressor, state: State) -> State:
         resid = compensated - compressor.decompress(payload, ctx)
         return resid.to(state.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class EFSignSGDMemory(Memory):
+    """EF-SignSGD's memory: compensate ``residual + lr·grad``, update
+    ``compensated − decompress``. The paired compressor's aggregate divides
+    by ``lr`` again."""
+
+    lr: float = 0.1
+
+    @property
+    def linear_feedback_coeffs(self):
+        """``compensate = 1.0*state + lr*x`` (see ResidualMemory)."""
+        return (1.0, self.lr)
+
+    def init_state(self, x: torch.Tensor) -> State:
+        return torch.zeros_like(x)
+
+    def compensate(self, x: torch.Tensor, state: State):
+        return state + self.lr * x, state
+
+    def update(self, compensated: torch.Tensor, payload: Payload, ctx: Ctx,
+               compressor: Compressor, state: State) -> State:
+        return compensated - compressor.decompress(payload, ctx)
+
+
+@dataclasses.dataclass(frozen=True)
+class DgcMemory(Memory):
+    """DGC's momentum-corrected memory.
+
+    compensate: optionally clip the gradient at the root mean square of
+    the group's squared sums (``sqrt(Σ_ranks Σ x² / W)``, an all-reduce
+    over ``group``), then ``u = m·u + g`` and ``v = v + u``. update: zero
+    both accumulators at the lanes that were sent, which decompress to a
+    nonzero value (``decompress(...) == 0`` keeps a lane)."""
+
+    momentum: float = 0.9
+    gradient_clipping: bool = False
+    group: Optional[Any] = None    # torch.distributed group; None = default
+
+    def init_state(self, x: torch.Tensor) -> State:
+        return {"residual": torch.zeros_like(x),
+                "gradient": torch.zeros_like(x)}
+
+    def compensate(self, x: torch.Tensor, state: State):
+        if self.gradient_clipping:
+            sq_sum = torch.sum(x * x)
+            dist.all_reduce(sq_sum, op=dist.ReduceOp.SUM, group=self.group)
+            w = dist.get_world_size(self.group)
+            clip = torch.sqrt(sq_sum * mean_scale(w))      # sq_sum / w
+            x = torch.clamp(x, -clip, clip)
+        residual = self.momentum * state["residual"] + x
+        gradient = state["gradient"] + residual
+        return gradient, {"residual": residual, "gradient": gradient}
+
+    def update(self, compensated: torch.Tensor, payload: Payload, ctx: Ctx,
+               compressor: Compressor, state: State) -> State:
+        keep = (compressor.decompress(payload, ctx) == 0).to(
+            compensated.dtype)
+        return {"residual": state["residual"] * keep,
+                "gradient": state["gradient"] * keep}
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerSGDMemory(Memory):
+    """PowerSGD's error feedback: the residual only (Q is the compressor's
+    state); 1-D leaves bypass it."""
+
+    def init_state(self, x: torch.Tensor) -> State:
+        return None if x.dim() <= 1 else torch.zeros_like(x)
+
+    def compensate(self, x: torch.Tensor, state: State):
+        if state is None:
+            return x, state
+        return x + state, state
+
+    def update(self, compensated: torch.Tensor, payload: Payload, ctx: Ctx,
+               compressor: Compressor, state: State) -> State:
+        if state is None:
+            return state
+        return compensated - compressor.decompress(payload, ctx)

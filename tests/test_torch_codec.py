@@ -247,9 +247,9 @@ def test_topk_over_allreduce_raises_type_error():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"compressor": "cyclictopk"}, "cyclictopk"),
+    ({"telemetry": True}, "telemetry"),
     ({"compressor": "nonsense"}, "nonsense"),
-    ({"memory": "dgc"}, "dgc"),
+    ({"route": [("b*", {"compressor": "fp16"})]}, "route"),
     ({"communicator": "ring", "pipeline": 0}, "ring"),
     ({"compressor": "qsgd", "quantum_num": 40000}, "quantum_num"),
     ({"escape": "fp16"}, "escape"),
@@ -262,8 +262,6 @@ def test_unported_names_raise_value_error(params, match):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="approx"):
-        grace_from_params({"compressor": "topk", "topk_algorithm": "approx"})
     with pytest.raises(NotImplementedError, match="fusion"):
         grace_transform(NoneCompressor(), NoneMemory(), comm.Identity(),
                         fusion="grouped")
@@ -271,6 +269,28 @@ def test_unported_options_raise():
         TopKCompressor(use_pallas=1)
     with pytest.raises(ValueError):
         TopKCompressor(algorithm="sorted")
+
+
+def test_approx_topk_equals_jax_approx():
+    """``topk_algorithm='approx'`` builds, and equals the JAX package's
+    ``approx`` on the CPU bit for bit (XLA lowers ``approx_max_k`` to an
+    exact selection off the TPU): payload and decompressed tensor."""
+    x = np.random.default_rng(2).standard_normal(5000).astype(np.float32)
+    for ratio in (0.01, 0.3):            # n > 4k, and the exact branch
+        tc = grace_from_params({"compressor": "topk",
+                                "compress_ratio": ratio,
+                                "topk_algorithm": "approx"}).compressor
+        jc = jC.TopKCompressor(compress_ratio=ratio, algorithm="approx")
+        (tv, ti), tctx, _ = tc.compress(torch.from_numpy(x), None,
+                                        LeafKey(0, 0, 0))
+        jv, ji = jax.jit(
+            lambda a: jc.compress(a, None, jax.random.key(0))[0])(
+                jnp.asarray(x))
+        jctx = jc.compress(jnp.asarray(x), None, jax.random.key(0))[1]
+        assert_same_bits(tv, jv)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        assert_same_bits(tc.decompress((tv, ti), tctx),
+                         jc.decompress((jv, ji), jctx))
 
 
 def test_leaf_key_contract():

@@ -47,6 +47,11 @@ MNIST_PATH_MODULES = {
 HIER_PATH_MODULES = {
     "grace_tpu_torch.compressors.randomk", "grace_tpu_torch.utils",
     "grace_tpu_torch.utils.metrics"}
+# The rest of the codec catalog.
+CATALOG_MODULES = {
+    f"grace_tpu_torch.compressors.{m}" for m in (
+        "powersgd", "dgc", "efsignsgd", "cyclictopk", "onebit", "terngrad",
+        "natural", "threshold", "u8bit", "sketch", "adaq", "inceptionn")}
 
 
 def test_every_module_imports_without_jax_or_triton():
@@ -60,6 +65,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert WIRE_PATH_MODULES <= names
     assert MNIST_PATH_MODULES <= names
     assert HIER_PATH_MODULES <= names
+    assert CATALOG_MODULES <= names
     assert leaked.strip() == "[]"
 
 
