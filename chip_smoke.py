@@ -164,15 +164,41 @@ The rest of the codec catalog:
     gradients whose magnitudes are distinct within a leaf and the same
     noise on both sides (drawn once, by the CPU generator): every update
     and state bit for bit where the codec sums no floats, else within the
-    CPU tests' tolerance (the sketch within rtol 1e-4: the card adds its
-    bin sums with atomics). Then PowerSGD at rank 4 on the card: each
-    factored leaf's P, and the Q that the next step orthogonalises, are
-    orthonormal within 1e-4.
+    CPU tests' tolerance (the sketch within rtol 1e-5: the card adds its
+    bin sums in a fixed order, and its two runs on the card must give the
+    same bits). Then PowerSGD at rank 4 on the card: each factored leaf's
+    P, and the Q that the next step orthogonalises, are orthonormal within
+    1e-4.
 20. Train full-width ResNet-50 (batch 256, as the other rows, 1 warm-up +
     3 timed steps) under bench_all.py's powersgd_r4, onebit, terngrad and
     topk1pct_approx rows and the registry configurations of DGC,
     EF-SignSGD, cyclic Top-K over the ring, natural, threshold, the sketch,
     u8bit, AdaQ and inceptionn, params verbatim. None launches a kernel.
+
+The executors and the front end:
+
+21. Train full-width ResNet-50 (batch 256, 1 warm-up + 3 timed steps)
+    under four executor configurations: HEADLINE's Top-K 1% with fusion
+    'grouped' (28 groups: each chunk Top-K kernel 28 times a step, two
+    gathers a group), bench_all.py's topk1pct_64mib (2 buckets, one launch
+    of each kernel over both) and qsgd4_packed_bucketed_pallas_bs256 (143
+    buckets of 1024 bytes over the ring: quantize-and-pack twice a
+    bucket), verbatim, and HEADLINE's params with the 106 BatchNorm leaves
+    routed to a dense fp16 all-reduce; assert each row's launches and the
+    exchange's collectives a step. Then, on two steps of real ResNet-50
+    gradients: 'grouped' equals fusion=None bit for bit (outputs and
+    residuals), the bucketed none and fp16 steps on integer-valued
+    gradients equal 'flat', and the routed step equals, leaf for leaf, the
+    two unrouted steps it is made of.
+22. Train full-width ResNet-50 under torch.optim.SGD(lr=1e-3) wrapped by
+    DistributedOptimizer with HEADLINE's Top-K grace, at bucket_cap_mb=32
+    and None (1 warm-up + 3 timed steps each): img/s, device ms, the chunk
+    kernels' launches (one a bucket a step), the host ms from backward's
+    return to the end of synchronize. Then the optimizer's synchronized
+    gradients equal, bit for bit, GraceBridge over the same bucket buffers
+    (seed + bi) and the same optimizer with use_pallas=False.
+23. Run grace_tpu_torch/examples/torch_synthetic_benchmark.py under Top-K
+    1% chunk for a few iterations: it must exit 0 and print its img/s.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -356,13 +382,13 @@ CATALOG_CHECKS = [
     ("threshold-allgather", {"compressor": "threshold", "threshold": 0.01,
                              "memory": "residual",
                              "communicator": "allgather"}, None),
-    # Bit for bit on the CPU, where each bin's sum adds in element order;
-    # the card adds it with atomics in any order, up to ~37,000 values a
-    # bin on the largest leaves, so a mean moves by more ulps than one
-    # sum over a leaf does (1.0e-05 and 1.08e-05 at most in two calls).
+    # Each bin's sum adds in one fixed order on both devices (a segmented
+    # sum over the ids sorted stably), the CPU's in element order: within
+    # the CPU tests' tolerance, and the same bits in two runs on the card
+    # (REPEATED).
     ("sketch-allgather", {"compressor": "sketch", "quantum_num": 64,
                           "memory": "none", "communicator": "allgather"},
-     (1e-4, 1e-6)),
+     (1e-5, 1e-6)),
     ("u8bit-allgather", {"compressor": "u8bit", "memory": "none",
                          "communicator": "allgather"}, None),
     ("adaq-allgather", {"compressor": "adaq", "compress_ratio": 0.3,
@@ -377,6 +403,9 @@ CATALOG_CHECKS = [
                                   "communicator": "allgather"}, None),
 ]
 POWERSGD_ORTHO_ATOL = 1e-4
+# Phase 19 runs these configurations twice on the card: every tensor of the
+# two runs must be the same bits.
+REPEATED = ("sketch-allgather",)
 # Phase 20: full-width ResNet-50 under bench_all.py's powersgd_r4, onebit,
 # terngrad and topk1pct_approx rows and the registry configurations of the
 # other new codecs, params verbatim, batch 256, 1 warm-up + 3 timed steps.
@@ -403,6 +432,54 @@ CATALOG_PATH = [
                      "topk1pct_approx-per-leaf")]
 for _cfg in CATALOG_PATH:
     _cfg["per_step"] = {}
+# The executors (phase 21): bench.py HEADLINE's Top-K 1% main path with
+# fusion 'grouped' (28 groups over the 161 leaves: one grouped compress, two
+# gathers and one grouped aggregate a group), bench_all.py's topk1pct_64mib
+# (2 buckets, one grouped launch over both) and
+# qsgd4_packed_bucketed_pallas_bs256 (1024-byte buckets over the ring,
+# verbatim), and HEADLINE's params with the 106 BatchNorm leaves routed to a
+# dense fp16 all-reduce (the routing grace_tpu/helper.py's docstring gives
+# for norm leaves). Launches and the exchange's collectives a step are set
+# from the plans in phase 21 ("per_group", "per_bucket").
+_TOPK1 = HEADLINE[1]["params"]
+EXEC_PATH = [
+    {"name": "topk1pct_grouped", "per_device_bs": 256,
+     "params": {**_TOPK1, "fusion": "grouped"},
+     "per_group": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1,
+                   "collectives": 2}},
+    {"name": "topk1pct_64mib", "per_device_bs": 256,
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "chunk", "memory": "residual",
+                "communicator": "allgather", "fusion": 64 * 2**20},
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1},
+     "collectives_per_step": 2},
+    {"name": "qsgd4_packed_bucketed_pallas_bs256", "per_device_bs": 256,
+     "params": {"compressor": "qsgd", "quantum_num": 7,
+                "use_pallas": True, "memory": "none",
+                "communicator": "ring", "fusion": 1024},
+     # Stage 1 and the owned shard's encode a bucket; the collectives are
+     # those of one ring step, counted in phase 21.
+     "per_bucket": {"quantize_pack_stochastic": 2}},
+    {"name": "topk1pct_routed_bn_fp16", "per_device_bs": 256,
+     "params": {**_TOPK1, "route": [("*bn*", {
+         "compressor": "fp16", "memory": "none",
+         "communicator": "allreduce"})]},
+     # 55 leaves through the grouped Top-K (two gathers), 106 through one
+     # all-reduce each.
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1},
+     "collectives_per_step": 2 + 106},
+]
+EXEC_GROUPS = 28          # (shape, dtype) groups of the 161 ResNet-50 leaves
+EXEC_BN_LEAVES = 106
+# The front end (phase 22): torch.optim.SGD(lr=1e-3) wrapped with
+# HEADLINE's Top-K grace by DistributedOptimizer, at these bucket caps.
+OPTIMIZER_CAPS = (32, None)
+# Phase 23: the synthetic benchmark example under Top-K 1% chunk.
+EXAMPLE_ARGV = ["--compressor", "topk", "--topk-algorithm", "chunk",
+                "--compress-ratio", "0.01", "--memory", "residual",
+                "--num-iters", "3", "--num-batches-per-iter", "5",
+                "--num-warmup-batches", "3"]
+EXAMPLE_TIMEOUT_S = 300
 # Phase 18: (label, S, Kr, R) of a W=8 world.
 HIER_LAYOUTS = (("S=4 K=2", 4, 2, 1), ("S=2 Kr=2 R=2", 2, 2, 2))
 IMAGE_HW = 224
@@ -410,6 +487,7 @@ NUM_CLASSES = 1000
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
 TIMING_RUNS = 25          # CUDA-event timings per kernel; the median is kept
+PROFILER_ATTEMPTS = 6     # profiler sessions a kernel reading may take
 SEED = 0
 
 # Published H100 SXM rates (NVIDIA data sheet, at the full 700 W limit):
@@ -1043,6 +1121,52 @@ def profile_step(step, state, batch, label):
     return {"wall_ms": wall_ms, "device_ms": total_ms, "kernels": kernels}
 
 
+# Collectives issued, counted by the torch.distributed entry points the
+# port calls (install_collective_counter): a batch of point-to-point calls
+# counts once.
+COLLECTIVES = [0]
+_COLLECTIVE_CALLS = ("all_reduce", "all_gather_into_tensor",
+                     "all_gather_single", "all_gather", "all_to_all_single",
+                     "batch_isend_irecv", "broadcast")
+
+
+@functools.cache
+def install_collective_counter() -> None:
+    import torch.distributed as dist
+    from grace_tpu_torch import comm
+
+    def counted(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            COLLECTIVES[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in _COLLECTIVE_CALLS:
+        if hasattr(dist, name):
+            setattr(dist, name, counted(getattr(dist, name)))
+    # comm binds its all-gather at import.
+    comm._all_gather_into = counted(comm._all_gather_into)
+
+
+class CountedTransform:
+    """A GRACE transform whose ``update`` counts the collectives it issues
+    (the exchange's, not the train step's buffer and loss averages)."""
+
+    def __init__(self, tx):
+        install_collective_counter()
+        self.tx, self.collectives = tx, 0
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state):
+        before = COLLECTIVES[0]
+        out = self.tx.update(grads, state)
+        self.collectives += COLLECTIVES[0] - before
+        return out
+
+
 def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     import torch
     from grace_tpu_torch import grace_from_params, ops
@@ -1056,7 +1180,7 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     if n_leaves != 161 or n_params != 25_557_032:
         fail(f"ResNet-50 has {n_leaves} leaves / {n_params} parameters")
     grace = grace_from_params(cfg["params"], group=group)
-    tx = grace.transform(seed=SEED)
+    tx = CountedTransform(grace.transform(seed=SEED))
     opt = torch.optim.SGD(model.parameters(), lr=1e-3)
     state = init_stateful_train_state(model, tx, opt, group)
     step = make_stateful_train_step(loss_fn, tx, group)
@@ -1064,6 +1188,7 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()                 # just before the main path
+    tx.collectives = 0
     losses = []
     for _ in range(warmup):
         state, loss = step(state, (x, y))
@@ -1076,17 +1201,20 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()            # just after it
+    collectives = tx.collectives
     profiled = profile_step(step, state, (x, y), cfg["name"])
     steps = warmup + timed
     res = {"name": cfg["name"], "img_per_s": x.shape[0] * timed / seconds,
            "step_ms": seconds / timed * 1e3, "first_loss": losses[0],
            "last_loss": losses[-1],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "launches": launches, "steps": steps, "profiled": profiled}
+           "launches": launches, "steps": steps, "profiled": profiled,
+           "collectives_per_step": collectives / steps}
     log(f"  {cfg['name']}: {res['img_per_s']:.1f} img/s "
         f"({res['step_ms']:.1f} ms/step), loss {res['first_loss']:.4f} -> "
         f"{res['last_loss']:.4f}, peak {res['peak_mem_gb']:.2f} GB, "
-        f"launches {launches} over {steps} steps")
+        f"launches {launches} over {steps} steps, {collectives} exchange "
+        "collectives")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{cfg['name']}: non-finite loss {losses}")
     for name, count in launches.items():
@@ -1095,6 +1223,10 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
             fail(f"{cfg['name']}: {name} launched {count} times over {steps} "
                  f"steps, expected {want} ({cfg['per_step'].get(name, 0)} a "
                  "step)")
+    want = cfg.get("collectives_per_step")
+    if want is not None and collectives != want * steps:
+        fail(f"{cfg['name']}: the exchange issued {collectives} collectives "
+             f"over {steps} steps, expected {want * steps} ({want} a step)")
     return res
 
 
@@ -2045,7 +2177,7 @@ def profiled_kernel_launches(step, state, batch, words) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     warm_profiler()
-    for _ in range(3):
+    for _ in range(PROFILER_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step(state, batch)
             torch.cuda.synchronize()
@@ -2053,6 +2185,7 @@ def profiled_kernel_launches(step, state, batch, words) -> dict:
                   if e.device_type == DeviceType.CUDA]
         if events:
             break
+        warm_profiler.__wrapped__()
     return {w: sum(e.count for e in events if w in e.key) for w in words}
 
 
@@ -2425,9 +2558,13 @@ def check_catalog_steps(dev, group):
         for name, params, tol in CATALOG_CHECKS:
             t0 = time.perf_counter()
             runs = {}
-            for d, grp in (("cpu", cpu_group), (dev, group)):
+            sides = [("cpu", cpu_group), (dev, group)]
+            if name in REPEATED:
+                sides.append(("again", group))
+            for d, grp in sides:
+                d_ = dev if d == "again" else d
                 tx = grace_from_params(params, group=grp).transform(SEED)
-                g = {n: t.to(d) for n, t in grads.items()}
+                g = {n: t.to(d_) for n, t in grads.items()}
                 state = tx.init(g)
                 upd, state = tx.update({n: t.clone() for n, t in g.items()},
                                        state)
@@ -2435,6 +2572,13 @@ def check_catalog_steps(dev, group):
                            **_state_tensors("mem ", state.mem),
                            **_state_tensors("comp ", state.comp)}
             torch.cuda.synchronize()
+            if name in REPEATED:
+                again = runs.pop("again")
+                for key, got in runs[dev].items():
+                    if not same_bits(got, again[key]):
+                        fail(f"[19] {name}: {key} differs between two runs "
+                             f"on the card (max abs err "
+                             f"{max_abs_err(got, again[key])})")
             if sorted(runs["cpu"]) != sorted(runs[dev]):
                 fail(f"[19] {name}: the card's and the CPU's states differ "
                      "in structure")
@@ -2457,7 +2601,9 @@ def check_catalog_steps(dev, group):
             results[name] = (worst, time.perf_counter() - t0)
             log(f"    {name}: {len(runs['cpu'])} tensors "
                 f"{'bit for bit' if tol is None else f'within {tol}'}, max "
-                f"abs err {worst:.3g}, {results[name][1]:.1f} s")
+                f"abs err {worst:.3g}, {results[name][1]:.1f} s"
+                + ("; two runs on the card the same bits"
+                   if name in REPEATED else ""))
     finally:
         T.LeafKey = patched
         dist.destroy_process_group(cpu_group)
@@ -2478,6 +2624,311 @@ def check_catalog_steps(dev, group):
         fail(f"[19] PowerSGD rank 4: P or Q off orthonormal by {worst}")
     results["powersgd_orthonormal"] = (worst, checked)
     return results
+
+
+# -- phases 21 to 23: the executors and the front end ------------------------
+
+def resnet50_plan():
+    """ResNet-50's (shape, dtype) leaves in leaf order, and its names."""
+    import torch
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.transform import leaf_order
+    params = dict(resnet50(NUM_CLASSES, device="cpu").named_parameters())
+    names = leaf_order(params)
+    return names, [(tuple(params[n].shape), torch.float32) for n in names]
+
+
+def exec_path(dev, group):
+    """EXEC_PATH with each row's launches and exchange collectives a step
+    set from its plan: 28 groups, the buckets of 1024 bytes (the ring
+    step's collectives counted on one small buffer), 106 routed leaves."""
+    import torch
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.core import LeafKey
+    from grace_tpu_torch.transform import _bucketize, _group_views
+
+    names, specs = resnet50_plan()
+    groups = len(_group_views(specs))
+    if groups != EXEC_GROUPS:
+        fail(f"[21] ResNet-50's leaves form {groups} groups, not "
+             f"{EXEC_GROUPS}")
+    if sum("bn" in n for n in names) != EXEC_BN_LEAVES:
+        fail("[21] the BatchNorm route does not take 106 leaves")
+    rows = []
+    for cfg in EXEC_PATH:
+        cfg = dict(cfg)
+        if "per_group" in cfg:
+            per = dict(cfg.pop("per_group"))
+            cfg["collectives_per_step"] = per.pop("collectives") * groups
+            cfg["per_step"] = {k: v * groups for k, v in per.items()}
+            cfg["plan"] = f"{groups} groups"
+        elif "per_bucket" in cfg:
+            per = dict(cfg.pop("per_bucket"))
+            buckets = len(_bucketize(specs, cfg["params"]["fusion"])[0])
+            grace = grace_from_params({**cfg["params"], "fusion": "flat"},
+                                      group=group)
+            install_collective_counter()
+            before = COLLECTIVES[0]
+            grace.communicator.step(
+                torch.ones(1000, device=dev), None, None, grace.memory,
+                grace.compressor, LeafKey(SEED, 0, 0))
+            cfg["collectives_per_step"] = (COLLECTIVES[0] - before) * buckets
+            cfg["per_step"] = {k: v * buckets for k, v in per.items()}
+            cfg["plan"] = f"{buckets} buckets"
+        else:
+            cfg["plan"] = {"topk1pct_64mib": "2 buckets"}.get(
+                cfg["name"], f"{EXEC_BN_LEAVES} routed leaves")
+        rows.append(cfg)
+    return rows
+
+
+def resnet50_leaf_grads(dev, count=2, batch=32):
+    """``count`` real ResNet-50 gradients (name → tensor), one a batch of
+    synthetic images each."""
+    import numpy as np
+    import torch
+    from grace_tpu_torch.models.resnet import resnet50
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    rng = np.random.default_rng(SEED + 21)
+    grads = []
+    for _ in range(count):
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, IMAGE_HW, IMAGE_HW, 3), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, NUM_CLASSES, (batch,))).to(dev)
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, (x, y)).backward()
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()})
+    return grads
+
+
+def _two_steps(params, group, grads):
+    """Two steps of ``params``' transform over ``grads``: each step's
+    updates and the final state."""
+    from grace_tpu_torch import grace_from_params
+    tx = grace_from_params(params, group=group).transform(seed=SEED)
+    state = tx.init(grads[0])
+    outs = []
+    for g in grads:
+        upd, state = tx.update({n: t.clone() for n, t in g.items()}, state)
+        outs.append(upd)
+    return outs, state
+
+
+def _check_leaves(label, got, want):
+    for n, w in want.items():
+        if not same_bits(got[n], w):
+            fail(f"[21] {label}: leaf {n} differs (max abs err "
+                 f"{max_abs_err(got[n], w)})")
+
+
+def check_executors(dev, group):
+    """Phase 21, second part, on two steps of real ResNet-50 gradients:
+    'grouped' equals fusion=None bit for bit (outputs and residuals); the
+    bucketed none and fp16 steps on integer-valued gradients equal 'flat';
+    the routed step equals, leaf for leaf, the two unrouted steps it is
+    made of. Returns the number of tensors compared."""
+    import torch
+    from grace_tpu_torch.transform import _group_views, leaf_order
+
+    grads = resnet50_leaf_grads(dev)
+    names = leaf_order(grads[0])
+    compared = 0
+    # grouped against per leaf
+    g_outs, g_state = _two_steps({**_TOPK1, "fusion": "grouped"}, group,
+                                 grads)
+    n_outs, n_state = _two_steps(_TOPK1, group, grads)
+    torch.cuda.synchronize()
+    for s in range(2):
+        _check_leaves(f"grouped step {s}", g_outs[s], n_outs[s])
+        compared += len(names)
+    groups = _group_views([grads[0][n] for n in names])
+    for gi, idxs in enumerate(groups):
+        for j, i in enumerate(idxs):
+            if not same_bits(g_state.mem[gi][j], n_state.mem[i]):
+                fail(f"[21] grouped: the residual of {names[i]} differs "
+                     "from the per-leaf one")
+            compared += 1
+    # bucketed against flat, on integer-valued gradients (exact in fp16)
+    ints = [{n: torch.round(t / t.abs().max().clamp_min(1e-30) * 1000)
+             for n, t in g.items()} for g in grads]
+    for codec in ("none", "fp16"):
+        base = {"compressor": codec, "memory": "none",
+                "communicator": "allreduce"}
+        flat, _ = _two_steps({**base, "fusion": "flat"}, group, ints)
+        for fusion in (64 * 2**20, 1024):
+            outs, state = _two_steps({**base, "fusion": fusion}, group, ints)
+            for s in range(2):
+                _check_leaves(f"{codec} bucketed at {fusion} B step {s}",
+                              outs[s], flat[s])
+                compared += len(names)
+    # routed against its two unrouted steps
+    r_outs, r_state = _two_steps(EXEC_PATH[3]["params"], group, grads)
+    d_outs, d_state = _two_steps(EXEC_PATH[3]["params"]["route"][0][1],
+                                 group, grads)
+    for s in range(2):
+        for n in names:
+            ref = d_outs if "bn" in n else n_outs
+            _check_leaves(f"routed step {s}", {n: r_outs[s][n]},
+                          {n: ref[s][n]})
+            compared += 1
+    for i, n in enumerate(names):
+        want = d_state.mem[i] if "bn" in n else n_state.mem[i]
+        if (want is None) != (r_state.mem[i] is None) or (
+                want is not None and not same_bits(r_state.mem[i], want)):
+            fail(f"[21] routed: the state of {n} differs")
+        compared += 1
+    return compared
+
+
+def train_optimizer(dev, group, cap, x, y, warmup=HIER_WARMUP_STEPS,
+                    timed=HIER_TIMED_STEPS):
+    """Phase 22: full-width ResNet-50 under torch.optim.SGD(lr=1e-3)
+    wrapped by DistributedOptimizer with HEADLINE's Top-K grace at
+    ``bucket_cap_mb=cap``: img/s, the chunk kernels' launches, the buckets,
+    the host ms from backward's return to the end of ``synchronize``, and
+    one profiled step."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.interop.torch import DistributedOptimizer
+    from grace_tpu_torch.models.resnet import resnet50
+
+    label = f"optimizer_topk1pct_cap{cap}"
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-3),
+        grace_from_params(_TOPK1, group=group),
+        named_parameters=model.named_parameters(), group=group, seed=SEED,
+        bucket_cap_mb=cap)
+    sync_ms = []
+
+    def step(_state, batch):
+        opt.zero_grad()
+        loss = loss_fn(model, batch)
+        loss.backward()
+        t = time.perf_counter()
+        opt.synchronize()
+        sync_ms.append((time.perf_counter() - t) * 1e3)
+        with opt.skip_synchronize():
+            opt.step()
+        return None, loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()                 # just before the main path
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(step(None, (x, y))[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        _, loss = step(None, (x, y))
+    losses.append(float(loss))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()            # just after it
+    steps = warmup + timed
+    buckets = len(opt._buckets)
+    profiled = profile_step(step, None, (x, y), label)
+    res = {"name": label, "img_per_s": x.shape[0] * timed / seconds,
+           "step_ms": seconds / timed * 1e3, "first_loss": losses[0],
+           "last_loss": losses[-1], "buckets": buckets,
+           "sync_host_ms": statistics.median(sync_ms[warmup:steps]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches, "steps": steps, "profiled": profiled}
+    log(f"  {label}: {buckets} buckets, {res['img_per_s']:.1f} img/s "
+        f"({res['step_ms']:.1f} ms/step), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, backward's return to synchronize's end "
+        f"{res['sync_host_ms']:.2f} host ms (median of {timed}), peak "
+        f"{res['peak_mem_gb']:.2f} GB, launches {launches} over {steps} "
+        "steps")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"[22] {label}: non-finite loss {losses}")
+    for name in ("chunk_compress_feedback", "chunk_aggregate_dense"):
+        if launches.get(name) != buckets * steps:
+            fail(f"[22] {label}: {name} launched {launches.get(name)} times "
+                 f"over {steps} steps, expected {buckets * steps} (one a "
+                 "bucket a step)")
+    return res
+
+
+def check_optimizer(dev, group):
+    """Phase 22, second part: the optimizer's synchronized gradients, two
+    steps of real ResNet-50 gradients at bucket_cap_mb=32, equal bit for
+    bit GraceBridge over the same bucket buffers seeded seed + bi, and the
+    same optimizer with use_pallas=False (the staged chunk path). Returns
+    the bucket count."""
+    import torch
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.interop import GraceBridge
+    from grace_tpu_torch.interop.torch import DistributedOptimizer
+    from grace_tpu_torch.models.resnet import resnet50
+
+    grads = resnet50_leaf_grads(dev)
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    named = dict(model.named_parameters())
+    name_of = {id(p): n for n, p in named.items()}
+
+    def synchronized(params):
+        opt = DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=1e-3),
+            grace_from_params(params, group=group),
+            named_parameters=model.named_parameters(), group=group,
+            seed=SEED, bucket_cap_mb=OPTIMIZER_CAPS[0])
+        outs = []
+        for g in grads:
+            for n, p in named.items():
+                p.grad = g[n].clone()
+            opt.synchronize()
+            outs.append({n: p.grad.clone() for n, p in named.items()})
+        for h in opt._hook_handles:
+            h.remove()
+        return opt, outs
+
+    opt, kernel = synchronized(_TOPK1)
+    _, staged = synchronized({**_TOPK1, "use_pallas": False})
+    grace = grace_from_params(_TOPK1, group=group)
+    bridges = [GraceBridge(grace, n=sum(p.numel() for p in b), group=group,
+                           seed=SEED + bi, device=dev)
+               for bi, b in enumerate(opt._buckets)]
+    for s, g in enumerate(grads):
+        for bi, (bucket, bridge) in enumerate(zip(opt._buckets, bridges)):
+            names = [name_of[id(p)] for p in bucket]
+            want = bridge.exchange(torch.cat([g[n].reshape(-1)
+                                              for n in names]))
+            got = torch.cat([kernel[s][n].reshape(-1) for n in names])
+            if not same_bits(got, want):
+                fail(f"[22] step {s} bucket {bi}: the optimizer's gradients "
+                     f"differ from GraceBridge's (max abs err "
+                     f"{max_abs_err(got, want)})")
+        for n in named:
+            if not same_bits(kernel[s][n], staged[s][n]):
+                fail(f"[22] step {s}: {n} differs between the kernels and "
+                     "the staged chunk path")
+    torch.cuda.synchronize()
+    return len(opt._buckets)
+
+
+def run_example(dev) -> float:
+    """Phase 23: the synthetic benchmark example under Top-K 1% chunk, in a
+    process of its own on the card; its img/s line."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m",
+           "grace_tpu_torch.examples.torch_synthetic_benchmark"] + EXAMPLE_ARGV
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT_S,
+                         env={**os.environ, "PYTHONPATH": str(root)})
+    for line in out.stdout.splitlines():
+        log(f"    {line}")
+    if out.returncode != 0:
+        fail(f"[23] the example exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    lines = [l for l in out.stdout.splitlines()
+             if l.startswith("Img/sec per process:")]
+    if not lines:
+        fail("[23] the example printed no img/s line")
+    return float(lines[-1].split(":")[1].split()[0])
 
 
 def kernel_named(fn, word: str) -> str:
@@ -2534,7 +2985,7 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
     fn()
     torch.cuda.synchronize()
     want = runs * launches_per_call
-    for _ in range(3):
+    for attempt in range(PROFILER_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
@@ -2545,10 +2996,13 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
         if want // 2 <= seen <= want:
             break
         # A profiler session now and then records few launches or none (the
-        # first session of a process most of all); another session
-        # measures the same calls.
+        # first session of a process most of all, and on a fast host
+        # several in a row); a short session first, as at the start of a
+        # process, then another session measures the same calls.
         log(f"  (the profiler recorded {seen} launches of {kernel_name} in "
             f"{runs} calls of {launches_per_call}; profiling them again)")
+        warm_profiler.__wrapped__()
+        time.sleep(0.1 * (attempt + 1))
     if not want // 2 <= seen <= want:
         kernels = sorted({e.key[:60] for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA})
@@ -2822,6 +3276,50 @@ def main() -> int:
         runs["catalog_checks"] = {"launches": {}, "max_abs_err": {
             k: v[0] for k, v in catalog.items()},
             "powersgd_orthonormal_err": worst}
+        # -- 21. the executors ----------------------------------------------
+        rows = exec_path(dev, group)
+        log(f"[21] ResNet-50 under the executors' configurations, batch {bs}, "
+            f"{HIER_WARMUP_STEPS} warm-up + {HIER_TIMED_STEPS} timed steps: "
+            + "; ".join(f"{c['name']} ({c['plan']})" for c in rows))
+        t0 = time.perf_counter()
+        for cfg in rows:
+            runs[cfg["name"]] = train(dev, group, cfg, x, y,
+                                      HIER_WARMUP_STEPS, HIER_TIMED_STEPS)
+            runs[cfg["name"]]["plan"] = cfg["plan"]
+            torch.cuda.empty_cache()
+        compared = check_executors(dev, group)
+        torch.cuda.empty_cache()
+        log(f"[21] on two steps of real ResNet-50 gradients, {compared} "
+            f"tensors bit for bit: 'grouped' equals fusion=None (outputs and "
+            f"residuals), the none and fp16 buckets (64 MiB, 1024 B) on "
+            f"integer-valued gradients equal 'flat', the routed step equals "
+            f"its two unrouted steps leaf for leaf; "
+            f"{time.perf_counter() - t0:.1f} s")
+        # -- 22. the DistributedOptimizer ------------------------------------
+        log(f"[22] ResNet-50 under DistributedOptimizer(SGD lr 1e-3) with "
+            f"topk1pct's grace, batch {bs}, {HIER_WARMUP_STEPS} warm-up + "
+            f"{HIER_TIMED_STEPS} timed steps, bucket_cap_mb in "
+            f"{OPTIMIZER_CAPS}")
+        t0 = time.perf_counter()
+        for cap in OPTIMIZER_CAPS:
+            res = train_optimizer(dev, group, cap, x, y)
+            runs[res["name"]] = res
+            torch.cuda.empty_cache()
+        buckets = check_optimizer(dev, group)
+        torch.cuda.empty_cache()
+        log(f"[22] the optimizer's synchronized gradients ({buckets} buckets, "
+            f"two steps) equal GraceBridge's over the same bucket buffers "
+            f"(seed + bi) and the staged chunk path's, bit for bit; "
+            f"{time.perf_counter() - t0:.1f} s")
+        # -- 23. the example --------------------------------------------------
+        log(f"[23] grace_tpu_torch/examples/torch_synthetic_benchmark.py "
+            f"{' '.join(EXAMPLE_ARGV)}")
+        t0 = time.perf_counter()
+        example_ips = run_example(dev)
+        runs["torch_synthetic_benchmark"] = {"launches": {},
+                                             "img_per_s": example_ips}
+        log(f"[23] exited 0: {example_ips:.1f} img/s; "
+            f"{time.perf_counter() - t0:.1f} s")
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

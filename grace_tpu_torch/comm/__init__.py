@@ -149,12 +149,14 @@ def _is_identity_memory(memory) -> bool:
 
 
 def _vote_step_leaves(comm: Communicator, xs, mem_states, comp_states,
-                      memory, compressor, rngs, vote_dtype: str):
-    """``step_leaves`` of the all-reduce vote: the leaves that the codec's
-    grouped compress takes (signsgd under linear error feedback or no
-    memory) go through one grouped sign-pack, one decode of the
-    concatenated payload, one all-reduce and one re-sign; the other leaves
-    run ``comm.step``. Bit-identical to ``step`` leaf by leaf."""
+                      memory, compressor, rngs, vote_dtype: str,
+                      fallback=Communicator.step_leaves):
+    """``step_leaves`` (and ``step_rows``) of the all-reduce vote: the
+    leaves that the codec's grouped compress takes (signsgd under linear
+    error feedback or no memory) go through one grouped sign-pack, one
+    decode of the concatenated payload, one all-reduce and one re-sign; the
+    other leaves run ``comm.step``. Bit-identical to ``step`` leaf by leaf.
+    When the codec takes no leaf, ``fallback`` runs them all."""
     compress = getattr(compressor, "fused_feedback_compress_leaves", None)
     coeffs = getattr(memory, "linear_feedback_coeffs", None)
     grouped = None
@@ -162,8 +164,8 @@ def _vote_step_leaves(comm: Communicator, xs, mem_states, comp_states,
             and (coeffs is not None or _is_identity_memory(memory))):
         grouped = compress(xs, mem_states, coeffs, rngs)
     if grouped is None:
-        return Communicator.step_leaves(comm, xs, mem_states, comp_states,
-                                        memory, compressor, rngs)
+        return fallback(comm, xs, mem_states, comp_states, memory,
+                        compressor, rngs)
     taken, payload, ctx, new_mem = grouped
     # Every rank takes the same leaves (the gates read shapes and dtypes
     # only), so the collectives line up.
@@ -224,6 +226,29 @@ def _rank_payload(gathered: Payload, j: int) -> Payload:
     return tuple(t[j] for t in gathered)
 
 
+def _stack_rows(payloads) -> Optional[Payload]:
+    """G rows' payloads stacked tensor by tensor along a new leading axis,
+    or None where a row has no tensor (PowerSGD) or the rows' tensors
+    differ in shape or dtype."""
+    first = payloads[0]
+    if not first or any(
+            len(p) != len(first) or any(
+                t.shape != f.shape or t.dtype != f.dtype
+                for t, f in zip(p, first))
+            for p in payloads):
+        return None
+    return tuple(torch.stack([p[i] for p in payloads])
+                 for i in range(len(first)))
+
+
+def _vote_rows(comm: Communicator, payloads, ctxs, compressor, vote_dtype):
+    """The vote of G rows: each row decoded to ±1, one all-reduce of the
+    stack, one re-sign."""
+    dec = torch.stack([compressor.decompress(p, c)
+                       for p, c in zip(payloads, ctxs)])
+    return list(_psum_majority_vote(dec, comm.group, vote_dtype).unbind(0))
+
+
 @dataclasses.dataclass(frozen=True)
 class Allreduce(Communicator):
     """Sum payloads across ranks, divide by the world size if
@@ -262,11 +287,30 @@ class Allreduce(Communicator):
         return _vote_step_leaves(self, xs, mem_states, comp_states, memory,
                                  compressor, rngs, self.vote_dtype)
 
-    def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
-                 ) -> torch.Tensor:
+    def step_rows(self, xs, mem_states, comp_states, memory, compressor,
+                  rngs):
+        return _vote_step_leaves(self, xs, mem_states, comp_states, memory,
+                                 compressor, rngs, self.vote_dtype,
+                                 fallback=Communicator.step_rows)
+
+    def exchange_rows(self, payloads, ctxs, compressor):
+        """One all-reduce a payload tensor for G rows (one for the vote);
+        each row then decodes as :meth:`exchange` decodes it."""
         if getattr(compressor, "vote_aggregate", False):
-            return _psum_majority_vote(compressor.decompress(payload, ctx),
-                                       self.group, self.vote_dtype)
+            return _vote_rows(self, payloads, ctxs, compressor,
+                              self.vote_dtype)
+        stacked = (_stack_rows(payloads)
+                   if getattr(compressor, "summable_payload", False)
+                   else None)
+        if stacked is None:
+            return super().exchange_rows(payloads, ctxs, compressor)
+        self._check_summable(compressor)
+        for t in stacked:
+            _all_reduce_sum(t, self.group)
+        return [self._decode_sum(_rank_payload(stacked, j), ctx, compressor)
+                for j, ctx in enumerate(ctxs)]
+
+    def _check_summable(self, compressor: Compressor) -> None:
         if not getattr(compressor, "summable_payload", False):
             raise TypeError(
                 f"Allreduce requires a payload that sums meaningfully across "
@@ -274,8 +318,7 @@ class Allreduce(Communicator):
                 "summable_payload=True (its per-rank payloads decode "
                 "differently, e.g. per-rank indices or norms). Use "
                 "Allgather/Broadcast instead.")
-        homo = _algebra(compressor) in _HOMOMORPHIC
-        if homo:
+        if _algebra(compressor) in _HOMOMORPHIC:
             world = self.world_size()
             _check_payload_sum_world(compressor, world, "Allreduce")
             if world > 1 and getattr(compressor, "packed_fields", False):
@@ -286,12 +329,24 @@ class Allreduce(Communicator):
                     "fields (a carry crosses into the next field). Use "
                     "'ring' or 'rscatter', which sum the fields in payload "
                     "space, or an unpacked accum_dtype.")
+
+    def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
+                 ) -> torch.Tensor:
+        if getattr(compressor, "vote_aggregate", False):
+            return _psum_majority_vote(compressor.decompress(payload, ctx),
+                                       self.group, self.vote_dtype)
+        self._check_summable(compressor)
         # An empty payload (PowerSGD, which all-reduced inside compress)
         # goes straight to decompress.
         for t in payload:
             _all_reduce_sum(t, self.group)
-        summed = tuple(payload)
-        if homo:
+        return self._decode_sum(tuple(payload), ctx, compressor)
+
+    def _decode_sum(self, summed: Payload, ctx: Ctx, compressor: Compressor
+                    ) -> torch.Tensor:
+        """Decode the ranks' summed payload: the mean, then decompress."""
+        if _algebra(compressor) in _HOMOMORPHIC:
+            world = self.world_size()
             # One decode of the summed levels or tables; an integer or
             # sketch payload cannot carry the mean, so it scales the
             # decoded tensor (out / world).
@@ -323,7 +378,7 @@ class Allgather(Communicator):
     """
 
     def step_leaves(self, xs, mem_states, comp_states, memory, compressor,
-                    rngs):
+                    rngs, fallback=Communicator.step_leaves):
         coeffs = getattr(memory, "linear_feedback_coeffs", None)
         compress = getattr(compressor, "fused_feedback_compress_leaves", None)
         aggregate = getattr(compressor, "fused_aggregate_decompress_leaves",
@@ -332,8 +387,8 @@ class Allgather(Communicator):
         if coeffs is not None and compress is not None and aggregate is not None:
             grouped = compress(xs, mem_states, coeffs, rngs)
         if grouped is None:
-            return super().step_leaves(xs, mem_states, comp_states, memory,
-                                       compressor, rngs)
+            return fallback(self, xs, mem_states, comp_states, memory,
+                            compressor, rngs)
         taken, payload, ctx, new_mem = grouped
         # Concatenated payloads gather as one tensor each; every rank takes
         # the same leaves (the gates read shapes and dtypes only), so the
@@ -342,13 +397,37 @@ class Allgather(Communicator):
         return _merge_leaves(self, xs, mem_states, comp_states, memory,
                              compressor, rngs, taken, outs, new_mem)
 
+    def step_rows(self, xs, mem_states, comp_states, memory, compressor,
+                  rngs):
+        """A group's rows through the grouped Top-K hooks where they apply
+        (one compress, one gather a payload tensor, one aggregate), else
+        encoded row by row and gathered as one stack."""
+        return self.step_leaves(xs, mem_states, comp_states, memory,
+                                compressor, rngs,
+                                fallback=Communicator.step_rows)
+
+    def exchange_rows(self, payloads, ctxs, compressor):
+        """One gather a payload tensor for G rows' stacked payloads; each
+        row then aggregates as :meth:`exchange` aggregates it."""
+        stacked = _stack_rows(payloads)
+        if stacked is None:
+            return super().exchange_rows(payloads, ctxs, compressor)
+        gathered = _gather(stacked, self.group)        # (W, G, ...)
+        return [self._aggregate(tuple(t[:, j].contiguous()
+                                      for t in gathered), ctx, compressor)
+                for j, ctx in enumerate(ctxs)]
+
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
         if not payload:
             # PowerSGD: the exchange already ran inside compress.
             return compressor.decompress(payload, ctx)
+        return self._aggregate(_gather(payload, self.group), ctx, compressor)
+
+    def _aggregate(self, gathered: Payload, ctx: Ctx, compressor: Compressor
+                   ) -> torch.Tensor:
+        """The W gathered payloads → this rank's averaged aggregate."""
         world = self.world_size()
-        gathered = _gather(payload, self.group)
         fused = getattr(compressor, "fused_aggregate_decompress", None)
         if fused is not None:
             out = fused(gathered, ctx, world)
@@ -408,16 +487,30 @@ class SignAllreduce(Communicator):
         return _vote_step_leaves(self, xs, mem_states, comp_states, memory,
                                  compressor, rngs, self.vote_dtype)
 
+    def step_rows(self, xs, mem_states, comp_states, memory, compressor,
+                  rngs):
+        return _vote_step_leaves(self, xs, mem_states, comp_states, memory,
+                                 compressor, rngs, self.vote_dtype,
+                                 fallback=Communicator.step_rows)
+
+    def exchange_rows(self, payloads, ctxs, compressor):
+        self._check_vote(compressor)
+        return _vote_rows(self, payloads, ctxs, compressor, self.vote_dtype)
+
     def exchange(self, payload: Payload, ctx: Ctx, compressor: Compressor
                  ) -> torch.Tensor:
+        self._check_vote(compressor)
+        return _psum_majority_vote(compressor.decompress(payload, ctx),
+                                   self.group, self.vote_dtype)
+
+    @staticmethod
+    def _check_vote(compressor: Compressor) -> None:
         if not getattr(compressor, "vote_aggregate", False):
             raise TypeError(
                 "SignAllreduce implements majority-vote aggregation; "
                 f"{type(compressor).__name__} does not declare "
                 "vote_aggregate=True (its aggregate carries scaling the "
                 "re-sign would drop): use Allreduce/Allgather instead.")
-        return _psum_majority_vote(compressor.decompress(payload, ctx),
-                                   self.group, self.vote_dtype)
 
 
 # -- the compressed ring -----------------------------------------------------

@@ -50,6 +50,21 @@ def quantile_linear(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(s[-1]), s[-1], out)
 
 
+def bin_sums(flat: torch.Tensor, ids: torch.Tensor, bins: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each bin's sum and count of ``flat`` by ``ids`` (JAX's
+    ``segment_sum``), in one fixed order on every device: the ids sorted
+    stably, so each bin's elements keep their index order, then a segmented
+    sum over the sorted values. The counts are integers and exact. An
+    atomic ``index_add_`` adds in whatever order the card schedules, and
+    its sums differ from run to run."""
+    order = torch.sort(ids, stable=True).indices
+    lengths = torch.bincount(ids, minlength=bins)
+    sums = torch.segment_reduce(flat[order], "sum", lengths=lengths,
+                                unsafe=True)
+    return sums, lengths.to(flat.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class SketchCompressor(Compressor):
     # Ids against per-rank edges: no algebra (the mergeable sketch is
@@ -74,10 +89,7 @@ class SketchCompressor(Compressor):
         ids = torch.clamp(torch.searchsorted(edges[1:-1].contiguous(), flat,
                                              right=True),
                           0, self.bins - 1)
-        sums = torch.zeros(self.bins, dtype=flat.dtype, device=flat.device)
-        sums.index_add_(0, ids, flat)
-        counts = torch.zeros(self.bins, dtype=flat.dtype, device=flat.device)
-        counts.index_add_(0, ids, torch.ones_like(flat))
+        sums, counts = bin_sums(flat, ids, self.bins)
         means = sums / torch.clamp_min(counts, 1.0)
         if self.bins <= 256:
             ids = ids.to(torch.uint8)

@@ -6,7 +6,9 @@ dout)`` dense weights, BatchNorm ``scale``/``bias`` and ``mean``/``var``),
 so the conversion is the identity on values: nested dicts of numpy arrays
 become flat mappings from dotted names to tensors. Both keep the GRACE
 state's ``mem``/``comp`` entries in the same order (one per leaf in the
-flatten order, or one for the flat buffer), so a JAX run's residuals,
+flatten order, one per bucket of a bucketed or flat run, or one per
+``'grouped'`` group, stacked along a leading axis of the group's size), so
+a JAX run's residuals,
 Signum momenta, PowerSGD's Q factors and the DGC memory's
 ``{"residual", "gradient"}`` dicts carry over entry for entry.
 """

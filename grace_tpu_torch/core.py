@@ -319,6 +319,8 @@ class LeafKey:
     :meth:`fold` is the counterpart of a further ``jax.random.fold_in(key,
     i)`` (a ring's per-shard and per-hop keys): each folded ``i`` adds one
     more step, ``s = splitmix64(s ^ i)``, after the three above.
+    :meth:`split` is ``fold`` over ``range(n)``; the grouped executor keys
+    a group's rows with it (``leaf`` is then the group's index).
     :meth:`seed_int32` is the counterpart of ``jax.random.randint(key, (),
     0, 2**31 - 1, int32)``: a host-side seed for the kernels' counter hash.
     """
@@ -379,10 +381,13 @@ class LeafKey:
         return torch.randn(tuple(shape), generator=self.generator(device),
                            device=device, dtype=torch.float32)
 
-    def split(self) -> Tuple["LeafKey", "LeafKey"]:
-        """Two independent sub-keys, ``fold(0)`` and ``fold(1)`` (the
-        counterpart of ``jax.random.split(key)``)."""
-        return self.fold(0), self.fold(1)
+    def split(self, n: int = 2) -> Tuple["LeafKey", ...]:
+        """``n`` independent sub-keys, ``fold(0)`` to ``fold(n - 1)`` (the
+        counterpart of ``jax.random.split(key, n)``). ``fusion='grouped'``
+        gives row ``j`` of group ``g`` the key ``LeafKey(seed, count,
+        g).split(G)[j]``, where JAX gives it ``split(fold_in(step_key, g),
+        G)[j]``."""
+        return tuple(self.fold(i) for i in range(n))
 
 
 _HALF = (torch.float16, torch.bfloat16)
@@ -621,10 +626,44 @@ class Communicator:
             comps.append(cs)
         return outs, mems, comps
 
+    def step_rows(self, xs: Sequence[torch.Tensor],
+                  mem_states: Sequence[State], comp_states: Sequence[State],
+                  memory: Memory, compressor: Compressor,
+                  rngs: Sequence[LeafKey]) -> tuple[list, list, list]:
+        """``fusion='grouped'``'s pipeline over the rows of one group, G
+        leaves of one shape and dtype: each row encoded as :meth:`step`
+        encodes it, then the G payloads exchanged together
+        (:meth:`exchange_rows`). Every row's result is the one its own
+        :meth:`step` gives."""
+        encoded = [self.encode(x, ms, cs, memory, compressor, rng)
+                   for x, ms, cs, rng in zip(xs, mem_states, comp_states,
+                                             rngs)]
+        outs = self.exchange_rows([e[0] for e in encoded],
+                                  [e[1] for e in encoded], compressor)
+        return outs, [e[2] for e in encoded], [e[3] for e in encoded]
+
+    def exchange_rows(self, payloads: Sequence[Payload], ctxs: Sequence[Ctx],
+                      compressor: Compressor) -> list:
+        """:meth:`exchange` of G rows' payloads, equal row for row to G
+        calls of it. The default makes those G calls; the exchange-based
+        communicators stack the rows and make one collective a payload
+        tensor."""
+        return [self.exchange(p, c, compressor)
+                for p, c in zip(payloads, ctxs)]
+
     def step(self, x: torch.Tensor, mem_state: State, comp_state: State,
              memory: Memory, compressor: Compressor, rng: LeafKey
              ) -> tuple[torch.Tensor, State, State]:
-        """compensate → compress → memory update → exchange.
+        """compensate → compress → memory update → exchange."""
+        payload, ctx, mem_state, comp_state = self.encode(
+            x, mem_state, comp_state, memory, compressor, rng)
+        return self.exchange(payload, ctx, compressor), mem_state, comp_state
+
+    def encode(self, x: torch.Tensor, mem_state: State, comp_state: State,
+               memory: Memory, compressor: Compressor, rng: LeafKey
+               ) -> tuple[Payload, Ctx, State, State]:
+        """The local half of :meth:`step`: compensate → compress → memory
+        update, ``(payload, ctx, mem_state, comp_state)``.
 
         Fused fast path: when the memory declares linear error feedback
         (``linear_feedback_coeffs``: compensate = β·state + γ·x, update =
@@ -640,8 +679,7 @@ class Communicator:
             fused_out = fused(x, mem_state, coeffs, rng)
             if fused_out is not None:
                 payload, ctx, mem_state = fused_out
-                return (self.exchange(payload, ctx, compressor), mem_state,
-                        comp_state)
+                return payload, ctx, mem_state, comp_state
         compensated, mem_state = memory.compensate(x, mem_state)
         # The negotiation runs before the encode, on the compensated
         # tensor: the shared value (and so the decode ctx) is the same on
@@ -659,4 +697,4 @@ class Communicator:
                 compensated, comp_state, rng, shared=shared)
         mem_state = memory.update(compensated, payload, ctx, compressor,
                                   mem_state)
-        return self.exchange(payload, ctx, compressor), mem_state, comp_state
+        return payload, ctx, mem_state, comp_state

@@ -3,12 +3,14 @@ package's ``helper.py``.
 
 The params-dict schema is the JAX package's, so its dicts (the benchmark's
 ``HEADLINE`` pair among them) build verbatim: every codec name and memory
-name, with the JAX defaults. A key that the port does not carry yet (the
-resilience and observability keys, ``route``) or an unknown name raises
-``ValueError`` naming it, instead of being dropped. PowerSGD's and the DGC
-memory's collectives run over the ``group`` given here. ``world_size`` is accepted and ignored, as in the JAX package:
-the world is the process group's. The process group itself is passed as
-``group=`` (the JAX package's ``axis_name``).
+name, with the JAX defaults, every ``fusion`` setting (None, ``'flat'``,
+``'grouped'``, bucket bytes) and per-leaf ``route`` tables. A key that the
+port does not carry yet (the resilience and observability keys,
+``fsdp_axis``) or an unknown name raises ``ValueError`` naming it, instead
+of being dropped. PowerSGD's and the DGC memory's collectives run over the
+``group`` given here. ``world_size`` is accepted and ignored, as in the
+JAX package: the world is the process group's. The process group itself
+is passed as ``group=`` (the JAX package's ``axis_name``).
 
 A hierarchical run names its layout and, for three levels, its WAN codec
 as a nested params dict::
@@ -23,13 +25,18 @@ as a nested params dict::
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from grace_tpu_torch import comm
 from grace_tpu_torch import compressors as C
 from grace_tpu_torch import memories as M
-from grace_tpu_torch.core import Communicator, Compressor, Memory, Topology
-from grace_tpu_torch.transform import GraceTransform, grace_transform
+from grace_tpu_torch.core import (Communicator, Compressor, LinkBytes, Memory,
+                                  Topology, negotiation_bytes_for)
+from grace_tpu_torch.transform import (GraceTransform, _struct,
+                                       check_fusion, grace_transform,
+                                       leaf_order, leaf_path_str,
+                                       normalize_routes, route_for)
 
 # Keys of the JAX schema that this port reads.
 PORTED_KEYS = frozenset({
@@ -39,7 +46,7 @@ PORTED_KEYS = frozenset({
     "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size",
     "slice_size", "region_size", "wan_compressor", "compress_rank",
     "threshold", "capacity_ratio", "lr", "gradient_clipping",
-    "recall_target"})
+    "recall_target", "route"})
 
 COMPRESSORS = ("none", "fp16", "bf16", "bfloat16", "cyclictopk", "topk",
                "randomk", "threshold", "qsgd", "homoqsgd", "countsketch",
@@ -61,18 +68,23 @@ class Grace:
     ``topology`` is the link layout that ``slice_size`` and ``region_size``
     declare (None when neither is given), the JAX package's ``Grace``
     field. Nothing in the port reads it yet: its readers, the telemetry
-    ring's per-link wire split among them, come with their own slices."""
+    ring's per-link wire split among them, come with their own slices.
+    ``routes`` is the normalized per-leaf routing table
+    (``((pattern, compressor, memory, communicator), ...)``) that
+    ``params["route"]`` builds."""
 
     compressor: Compressor
     memory: Memory
     communicator: Communicator
-    fusion: Optional[str] = None
+    fusion: Any = None        # None | 'flat' | 'grouped' | bucket bytes
     topology: Optional[Topology] = None
+    routes: Tuple = ()
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
                                self.communicator, seed=seed,
-                               fusion=self.fusion)
+                               fusion=self.fusion,
+                               routes=self.routes or None)
 
 
 def _build_compressor(params: Dict[str, Any], group=None) -> Compressor:
@@ -207,7 +219,23 @@ def _build_communicator(params: Dict[str, Any], group) -> Communicator:
 
 def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
                       ) -> Grace:
-    """Configure the triad from the JAX package's params-dict schema."""
+    """Configure the triad from the JAX package's params-dict schema.
+
+    ``fusion`` is None, ``'flat'``, ``'grouped'`` or an integer count of
+    bucket bytes (``transform.grace_transform``). ``route`` is
+    ``[(pattern, overrides), ...]``: each ``overrides`` dict is merged over
+    this config's own params (minus the route itself) and built into a
+    whole sub-triad; ``pattern`` is an fnmatch glob over the leaf's
+    ``"/"``-joined path (``transform.leaf_path_str``). First match wins;
+    unmatched leaves ride the base triad. Routes need ``fusion=None``. For
+    example, BatchNorm leaves sent dense::
+
+        {"compressor": "topk", "compress_ratio": 0.01,
+         "topk_algorithm": "chunk", "memory": "residual",
+         "communicator": "allgather",
+         "route": [("*bn*", {"compressor": "fp16", "memory": "none",
+                             "communicator": "allreduce"})]}
+    """
     unported = sorted(set(params) - PORTED_KEYS)
     if unported:
         raise ValueError(f"params keys not ported to grace_tpu_torch yet: "
@@ -215,21 +243,16 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
     fusion = params.get("fusion")
     if fusion in ("none", "None", ""):     # CLI spelling of "no fusion"
         fusion = None
+    check_fusion(fusion, bool(params.get("route")))
     communicator = _build_communicator(params, group)
-    if fusion == "grouped" and communicator.shard_parallel:
-        raise ValueError(
-            "fusion='grouped' runs the per-leaf pipeline over stacks of "
-            "leaves, and "
-            f"{type(communicator).__name__} re-chunks the gradient into "
-            "per-rank shards inside step() (shard-parallel family: "
-            "TwoShotAllreduce/RingAllreduce/HierarchicalAllreduce); use "
-            "fusion=None or 'flat', which hand the communicator whole "
-            "buffers to shard.")
-    if fusion is not None and fusion != "flat":
-        raise ValueError(f"fusion {fusion!r} is not ported to "
-                         "grace_tpu_torch yet (ported: None, 'none', "
-                         "'flat'; 'grouped' and bucket bytes are queued in "
-                         "ROADMAP queue 1)")
+    routes: Tuple = ()
+    if params.get("route"):
+        entries = []
+        for pattern, overrides in params["route"]:
+            merged = {k: v for k, v in params.items() if k != "route"}
+            merged.update(dict(overrides))
+            entries.append((str(pattern), grace_from_params(merged, group)))
+        routes = normalize_routes(entries, communicator)
     slice_size, region_size = params.get("slice_size"), \
         params.get("region_size")
     topology = (Topology(
@@ -239,4 +262,43 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
     return Grace(compressor=_build_compressor(params, group),
                  memory=_build_memory(params, group),
                  communicator=communicator,
-                 fusion=fusion, topology=topology)
+                 fusion=fusion, topology=topology, routes=routes)
+
+
+def route_leaves(grace: Grace, tree: Mapping[str, Any]) -> list:
+    """Each leaf's route in leaf order: ``[(path, (shape, dtype),
+    compressor, memory, communicator), ...]`` for a mapping of dotted names
+    to tensors or ``(shape, dtype)`` pairs."""
+    base = (grace.compressor, grace.memory, grace.communicator)
+    out = []
+    for name in leaf_order(tree):
+        path = leaf_path_str(name)
+        comp, mem, cm = route_for(grace.routes or (), path, base)
+        out.append((path, _struct(tree[name]), comp, mem, cm))
+    return out
+
+
+def routed_recv_link_bytes(grace: Grace, tree: Mapping[str, Any], world: int,
+                           topology: Optional[Topology] = None) -> LinkBytes:
+    """One rank's received bytes of one routed step, by link class: the sum
+    of every leaf's price through its own codec and communicator, the
+    negotiation collectives included (on the worst tier the group spans).
+    Unrouted bundles price every leaf through the base triad. Equal to the
+    JAX package's integers."""
+    from grace_tpu_torch.utils.metrics import payload_nbytes
+
+    topo = topology if topology is not None else Topology()
+    ici = dcn = wan = 0
+    for _path, s, comp, _mem, cm in route_leaves(grace, tree):
+        ne = math.prod(s[0])
+        vote = bool(getattr(comp, "vote_aggregate", False))
+        lb = cm.recv_link_bytes(payload_nbytes(comp, s), ne, world,
+                                topology=topology, vote=vote)
+        neg = negotiation_bytes_for(comp, ne, world)
+        if neg:
+            tier = topo.flat_tier(world)
+            lb = lb._replace(**{tier: getattr(lb, tier) + neg})
+        ici += lb.ici
+        dcn += lb.dcn
+        wan += lb.wan
+    return LinkBytes(ici=ici, dcn=dcn, wan=wan)

@@ -249,12 +249,13 @@ def test_topk_over_allreduce_raises_type_error():
 @pytest.mark.parametrize("params,match", [
     ({"telemetry": True}, "telemetry"),
     ({"compressor": "nonsense"}, "nonsense"),
-    ({"route": [("b*", {"compressor": "fp16"})]}, "route"),
+    ({"route": [("b*", {"compressor": "fp16"})], "fusion": "flat"},
+     "route"),
     ({"communicator": "ring", "pipeline": 0}, "ring"),
     ({"compressor": "qsgd", "quantum_num": 40000}, "quantum_num"),
     ({"escape": "fp16"}, "escape"),
     ({"fusion": "flatten"}, "flat"),
-    ({"fusion": 1 << 20}, "1048576"),
+    ({"fusion": "1048576"}, "1048576"),
 ])
 def test_unported_names_raise_value_error(params, match):
     with pytest.raises(ValueError, match=match):
@@ -262,9 +263,11 @@ def test_unported_names_raise_value_error(params, match):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="fusion"):
+    with pytest.raises(ValueError, match="fusion"):
         grace_transform(NoneCompressor(), NoneMemory(), comm.Identity(),
-                        fusion="grouped")
+                        fusion="bucketed")
+    with pytest.raises(ValueError, match="fsdp_axis"):
+        grace_from_params({"fsdp_axis": "fsdp"})
     with pytest.raises(ValueError):
         TopKCompressor(use_pallas=1)
     with pytest.raises(ValueError):

@@ -52,6 +52,12 @@ CATALOG_MODULES = {
     f"grace_tpu_torch.compressors.{m}" for m in (
         "powersgd", "dgc", "efsignsgd", "cyclictopk", "onebit", "terngrad",
         "natural", "threshold", "u8bit", "sketch", "adaq", "inceptionn")}
+# The front end: the bridge, the optimizer, the loggers and the examples.
+FRONT_END_MODULES = {
+    "grace_tpu_torch.interop", "grace_tpu_torch.interop.bridge",
+    "grace_tpu_torch.interop.torch", "grace_tpu_torch.utils.logging",
+    "grace_tpu_torch.examples.common", "grace_tpu_torch.examples.torch_mnist",
+    "grace_tpu_torch.examples.torch_synthetic_benchmark"}
 
 
 def test_every_module_imports_without_jax_or_triton():
@@ -66,6 +72,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert MNIST_PATH_MODULES <= names
     assert HIER_PATH_MODULES <= names
     assert CATALOG_MODULES <= names
+    assert FRONT_END_MODULES <= names
     assert leaked.strip() == "[]"
 
 
