@@ -170,7 +170,7 @@ The rest of the codec catalog:
     P, and the Q that the next step orthogonalises, are orthonormal within
     1e-4.
 20. Train full-width ResNet-50 (batch 256, as the other rows, 1 warm-up +
-    3 timed steps) under bench_all.py's powersgd_r4, onebit, terngrad and
+    2 timed steps) under bench_all.py's powersgd_r4, onebit, terngrad and
     topk1pct_approx rows and the registry configurations of DGC,
     EF-SignSGD, cyclic Top-K over the ring, natural, threshold, the sketch,
     u8bit, AdaQ and inceptionn, params verbatim. None launches a kernel.
@@ -199,6 +199,35 @@ The executors and the front end:
     (seed + bi) and the same optimizer with use_pallas=False.
 23. Run grace_tpu_torch/examples/torch_synthetic_benchmark.py under Top-K
     1% chunk for a few iterations: it must exit 0 and print its img/s.
+
+The rest of the model zoo:
+
+24. A 12-layer tiny BERT in float32 on the card (TF32 off) against the CPU:
+    logits and MLM logits under a mask, and every leaf's gradient, within
+    rtol 1e-4 and 1e-5 of each leaf's largest value. The chunk Top-K pair
+    over BERT-base's 150 leaves (2 to 23,440,896 elements) in one launch
+    of each, bit for bit against the plain versions. Then BERT-base (150
+    leaves, 108,793,346 parameters; sequence 384, batch 32, bfloat16
+    compute over float32 parameters, AdamW 5e-5, the span loss of
+    tools/tpu_bert_bench.py) under that tool's four configurations, params
+    verbatim (dense, PowerSGD rank 4, Top-K 1% chunk over the reduce-
+    scatter, and routed with BERT_ROUTE), and topk1pct's params (the
+    grouped chunk kernels once each a step), 1 warm-up + 3 timed steps a
+    row: tokens/s, step ms, device ms and kernels in one profiled step,
+    peak GB, busy share, beside the step's matmul operations.
+25. Run python -m grace_tpu_torch.examples.bert_powersgd at its defaults
+    (one epoch, 32 steps): it must exit 0 with finite losses and print its
+    seq/s.
+26. cifar10_dawn at one rank with its defaults (24 epochs, batch 512,
+    synthetic 8,192 / 2,048 images), dense and Top-K 1% chunk + residual
+    over the flat buffer (each chunk kernel once a step): each must reach
+    0.99 test accuracy at epoch 24; every epoch's accuracy is printed.
+27. The chunk Top-K pair over VGG-16's 45 leaves (fc1: 102,760,448
+    elements) bit for bit, as in 24; VGG-16 with BatchNorm (45 leaves,
+    138,361,768 parameters), batch 32 at 224x224, dense and topk1pct (the grouped chunk kernels once each a
+    step over the 45 leaves), 1 warm-up + 3 timed steps; then
+    grace_tpu_torch/examples/synthetic_benchmark.py on VGG-16 under Top-K
+    1% chunk per leaf: it must exit 0 and print its img/s.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -350,6 +379,9 @@ HIER_PATH = [
 ]
 HIER_WARMUP_STEPS = 1
 HIER_TIMED_STEPS = 3
+# Phase 20's catalog rows, host-bound (up to ~1.8 s a step): 2 timed steps,
+# to keep the call near its time with phases 24-27 added.
+CATALOG_TIMED_STEPS = 2
 # The rest of the codec catalog (phases 19 and 20). Phase 19: one step of
 # each new codec over the 161 ResNet-50 leaves on the card against the
 # same step on the CPU, under the analysis registry's configuration of the
@@ -480,6 +512,72 @@ EXAMPLE_ARGV = ["--compressor", "topk", "--topk-algorithm", "chunk",
                 "--num-iters", "3", "--num-batches-per-iter", "5",
                 "--num-warmup-batches", "3"]
 EXAMPLE_TIMEOUT_S = 300
+# Phase 24: BERT-base (base(num_classes=2, max_len=384)) under the four
+# configurations of tools/tpu_bert_bench.py:52-80, params verbatim (its
+# BERT_ROUTE too), and topk1pct's HEADLINE params; the span loss of
+# tools/tpu_bert_bench.py:188-196 in bfloat16 over float32 parameters,
+# AdamW 5e-5, sequence 384 and batch 32 (the BERT example's defaults).
+_FP16_DENSE = {"compressor": "fp16", "memory": "none",
+               "communicator": "allreduce"}
+BERT_ROUTE = [("*ln*", _FP16_DENSE), ("*bias*", _FP16_DENSE),
+              ("*/b", _FP16_DENSE)]
+BERT_PATH = [
+    {"name": "bert_dense", "params": {"compressor": "none", "memory": "none",
+                                      "communicator": "allreduce",
+                                      "fusion": "none"}},
+    {"name": "bert_powersgd_r4", "params": {"compressor": "powersgd",
+                                            "compress_rank": 4,
+                                            "memory": "powersgd",
+                                            "communicator": "allreduce",
+                                            "fusion": "none"}},
+    {"name": "bert_topk1pct_rscatter",
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "chunk", "memory": "residual",
+                "communicator": "rscatter", "fusion": "none"}},
+    {"name": "bert_routed_rscatter",
+     "params": {"compressor": "topk", "compress_ratio": 0.01,
+                "topk_algorithm": "chunk", "memory": "residual",
+                "communicator": "rscatter", "fusion": "none",
+                "route": BERT_ROUTE}},
+    {"name": "bert_topk1pct", "params": HEADLINE[1]["params"],
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}},
+]
+BERT_SEQ, BERT_BATCH, BERT_LR = 384, 32, 5e-5
+BERT_SHAPE = (150, 108_793_346)           # leaves, parameters (JAX's count)
+BERT_WARMUP_STEPS, BERT_TIMED_STEPS = 1, 3
+# The 12-layer tiny BERT, float32 on the card against the CPU.
+BERT_TINY_RTOL, BERT_TINY_ATOL = 1e-4, 1e-5     # atol: × each leaf's max
+# Phase 25: the BERT example at its defaults, in a process of its own.
+BERT_EXAMPLE_TIMEOUT_S = 300
+# Phase 26: cifar10_dawn at one rank with its defaults (24 epochs, batch
+# 512, 8,192 train and 2,048 test images), dense and Top-K 1% chunk over the
+# flat buffer; the JAX 8-device synthetic curves read 100.00 from epochs 13
+# and 5 (examples/logs/cifar10_dawn_24ep_{,topk1pct_}synthetic.tsv).
+CIFAR_PATH = [
+    {"name": "cifar10_dawn_dense", "argv": [], "per_step": {}},
+    {"name": "cifar10_dawn_topk1pct", "argv": [
+        "--compressor", "topk", "--topk-algorithm", "chunk", "--memory",
+        "residual"],
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}},
+]
+CIFAR_FLOOR = 0.99                        # test accuracy at epoch 24
+CIFAR_SHAPE = (25, 6_573_120)             # leaves, parameters: the flat buffer
+# Phase 27: VGG-16 with BatchNorm, batch 32 at 224x224, dense and topk1pct
+# (HEADLINE params), then the synthetic benchmark example on VGG-16.
+VGG_PATH = [
+    {"name": "vgg16_bn_dense", "params": HEADLINE[0]["params"]},
+    {"name": "vgg16_bn_topk1pct", "params": HEADLINE[1]["params"],
+     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}},
+]
+for _cfg in BERT_PATH + VGG_PATH:
+    _cfg.setdefault("per_step", {})
+VGG_BATCH = 32
+VGG_SHAPE = (45, 138_361_768)
+VGG_EXAMPLE_SHAPE = (32, 138_357_544)     # the example's VGG-16, no BatchNorm
+VGG_EXAMPLE_ARGV = ["--model", "vgg16", "--compressor", "topk",
+                    "--topk-algorithm", "chunk", "--memory", "residual",
+                    "--fusion", "none", "--num-iters", "3",
+                    "--num-batches-per-iter", "5", "--num-warmup-batches", "3"]
 # Phase 18: (label, S, Kr, R) of a W=8 world.
 HIER_LAYOUTS = (("S=4 K=2", 4, 2, 1), ("S=2 Kr=2 R=2", 2, 2, 2))
 IMAGE_HW = 224
@@ -494,6 +592,7 @@ SEED = 0
 # device-memory bandwidth and the FP32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12                  # dense, on the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -1167,23 +1266,33 @@ class CountedTransform:
         return out
 
 
-def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
+          model=None, loss=loss_fn, shape=(161, 25_557_032),
+          optimizer=None):
+    """Train ``model`` (full-width ResNet-50 by default, which must have
+    ``shape``: leaves, parameters) under ``cfg`` on the batch ``(x, y)``
+    with ``optimizer(parameters)`` (SGD lr 1e-3 by default): warm-up and
+    timed steps, the launches and exchange collectives between them
+    asserted against ``cfg``, then one profiled step."""
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.models.resnet import resnet50
     from grace_tpu_torch.train import (init_stateful_train_state,
                                        make_stateful_train_step)
 
-    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    if model is None:
+        model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
     n_leaves = sum(1 for _ in model.parameters())
     n_params = sum(p.numel() for p in model.parameters())
-    if n_leaves != 161 or n_params != 25_557_032:
-        fail(f"ResNet-50 has {n_leaves} leaves / {n_params} parameters")
+    if (n_leaves, n_params) != shape:
+        fail(f"{cfg['name']}: the model has {n_leaves} leaves / {n_params} "
+             f"parameters, expected {shape}")
     grace = grace_from_params(cfg["params"], group=group)
     tx = CountedTransform(grace.transform(seed=SEED))
-    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    opt = (optimizer or (lambda ps: torch.optim.SGD(ps, lr=1e-3)))(
+        model.parameters())
     state = init_stateful_train_state(model, tx, opt, group)
-    step = make_stateful_train_step(loss_fn, tx, group)
+    step = make_stateful_train_step(loss, tx, group)
     _flush_buffer.cache_clear()           # the timing phases' L2 flush buffer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2169,9 +2278,13 @@ def check_lenet_kernels(dev, errs):
     return cases, leaves
 
 
-def profiled_kernel_launches(step, state, batch, words) -> dict:
+def profiled_kernel_launches(step, state, batch, words, want) -> dict:
     """Launches of the kernels whose names hold each of ``words`` in one
-    more step under torch.profiler (the profiler's own count)."""
+    more step under torch.profiler (the profiler's own count). A session
+    that records no kernels, or fewer launches of a word than ``want``
+    gives it (the launches the wrappers count a step), is a fault of the
+    profiler: the step is profiled again, up to PROFILER_ATTEMPTS times
+    (as kernel_device_ms does); the last session's counts are returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2183,10 +2296,14 @@ def profiled_kernel_launches(step, state, batch, words) -> dict:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        if events:
+        counts = {w: sum(e.count for e in events if w in e.key)
+                  for w in words}
+        if events and all(counts[w] >= want.get(w, 0) for w in words):
             break
+        log(f"  (the profiler recorded {len(events)} kernels and {counts} "
+            f"in one step; profiling another step)")
         warm_profiler.__wrapped__()
-    return {w: sum(e.count for e in events if w in e.key) for w in words}
+    return counts
 
 
 def final_test_acc(tsv: Path) -> float:
@@ -2213,7 +2330,8 @@ def train_mnist(dev, group, cfg):
     launches = ops.launch_counts()            # just after it
     profiled = profiled_kernel_launches(
         res["step"], res["state"], res["batch"],
-        ("chunk_compress_feedback", "chunk_aggregate_dense"))
+        ("chunk_compress_feedback", "chunk_aggregate_dense"),
+        cfg["per_step"])
     cpu_acc = final_test_acc(MNIST_LOGS / cfg["cpu_log"])
     floor = cpu_acc - MNIST_FLOOR
     accs = res["accs"]
@@ -2910,25 +3028,342 @@ def check_optimizer(dev, group):
     return len(opt._buckets)
 
 
-def run_example(dev) -> float:
-    """Phase 23: the synthetic benchmark example under Top-K 1% chunk, in a
-    process of its own on the card; its img/s line."""
+def run_example(module, argv, prefix, timeout, phase) -> str:
+    """Runs ``python -m grace_tpu_torch.examples.<module> <argv>`` in a
+    process of its own on the card; the last stdout line that starts with
+    ``prefix``. Phases 23, 25 and 27."""
     root = Path(__file__).resolve().parent
-    cmd = [sys.executable, "-m",
-           "grace_tpu_torch.examples.torch_synthetic_benchmark"] + EXAMPLE_ARGV
+    cmd = [sys.executable, "-m", f"grace_tpu_torch.examples.{module}"] + argv
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                         timeout=EXAMPLE_TIMEOUT_S,
+                         timeout=timeout,
                          env={**os.environ, "PYTHONPATH": str(root)})
     for line in out.stdout.splitlines():
         log(f"    {line}")
     if out.returncode != 0:
-        fail(f"[23] the example exited {out.returncode}: "
+        fail(f"{phase} {module} exited {out.returncode}: "
              f"{out.stderr[-2000:]}")
-    lines = [l for l in out.stdout.splitlines()
-             if l.startswith("Img/sec per process:")]
+    lines = [l for l in out.stdout.splitlines() if l.startswith(prefix)]
     if not lines:
-        fail("[23] the example printed no img/s line")
-    return float(lines[-1].split(":")[1].split()[0])
+        fail(f"{phase} {module} printed no {prefix!r} line")
+    return lines[-1]
+
+
+def rate(line: str) -> float:
+    """The number after the colon of an example's rate line."""
+    return float(line.split(":")[1].split(";")[0].split()[0])
+
+
+# -- phases 24 to 27: BERT-base, its example, DAWNBench, VGG-16 --------------
+
+def check_bert_tiny(dev):
+    """A 12-layer tiny BERT in float32 on the card (TF32 off) against the
+    same model on the CPU: classification and MLM logits under a mask, and
+    every leaf's gradient of a loss over both heads."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from grace_tpu_torch.models import transformer as T
+
+    cfg = T.tiny(num_layers=12, num_classes=3)
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)))
+    mask = torch.from_numpy(rng.random((4, 32)) < 0.8)
+    y = torch.from_numpy(rng.integers(0, 3, (4,)))
+    r = torch.from_numpy(rng.standard_normal(
+        (4, 32, cfg.vocab_size)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        model = T.Transformer(cfg, device=d, seed=SEED)
+        logits = model(ids.to(d), mask.to(d))
+        mlm = model.mlm_logits(ids.to(d), mask.to(d))
+        loss = F.cross_entropy(logits, y.to(d)) + (mlm * r.to(d)).mean()
+        loss.backward()
+        out[str(d)] = {"logits": logits.detach().cpu(),
+                       "mlm": mlm.detach().cpu(),
+                       **{n: q.grad.cpu() for n, q in model.named_parameters()}}
+    want, got = out["cpu"], out[str(dev)]
+    worst = 0.0
+    for name, w in want.items():
+        atol = BERT_TINY_ATOL * float(w.abs().max())
+        torch.testing.assert_close(got[name], w, rtol=BERT_TINY_RTOL,
+                                   atol=atol, msg=lambda m: f"[24] tiny "
+                                   f"BERT {name}: {m}")
+        worst = max(worst, float(((got[name] - w).abs()
+                                  / (atol + BERT_TINY_RTOL * w.abs())).max()))
+    return len(want) - 2, worst
+
+
+def model_leaves(model):
+    """(name, numel) of a model's leaves in the GRACE leaf order."""
+    from grace_tpu_torch.transform import leaf_order
+    params = dict(model.named_parameters())
+    return [(n, params[n].numel()) for n in leaf_order(params)]
+
+
+def check_model_kernels(dev, leaves, errs, label):
+    """The chunk Top-K pair at a model's shapes, as topk1pct runs it: every
+    leaf at 1% in one grouped launch of the compress (residual feedback)
+    and of the aggregate (W=1, averaged), bit for bit against the grouped
+    plain versions."""
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    ns = [n for _, n in leaves]
+    ks = [static_k(n, 0.01) for n in ns]
+    gs = [torch.randn(n, generator=gen, device=dev) for n in ns]
+    rs = [torch.randn(n, generator=gen, device=dev) * 0.1 for n in ns]
+    want = ck.chunk_compress_feedback_grouped_plain(gs, rs, ks)
+    ck.reset_launch_counts()
+    got = ck.chunk_compress_feedback_grouped(gs, [r.clone() for r in rs], ks)
+    agg_want = ck.chunk_aggregate_dense_grouped_plain(
+        want[0][None], want[1][None], ks, ns, True)
+    agg = ck.chunk_aggregate_dense_grouped(want[0][None], want[1][None], ks,
+                                           ns, True)
+    torch.cuda.synchronize()
+    counts = (ck.chunk_compress_feedback_grouped.launches,
+              ck.chunk_aggregate_dense_grouped.launches)
+    ck.reset_launch_counts()
+    if counts != (1, 1):
+        fail(f"{label}: {counts} launches over {len(ns)} leaves, expected "
+             "one of each kernel")
+    pairs = [("chunk_compress_feedback", "values", want[0], got[0]),
+             ("chunk_compress_feedback", "rows", want[1], got[1]),
+             ("chunk_aggregate_dense", "aggregate", agg_want, agg)]
+    pairs += [("chunk_compress_feedback", f"residual of {name}", w,
+               o.reshape(-1)) for (name, _), w, o in zip(leaves, want[2],
+                                                         got[2])]
+    for kname, what, w, o in pairs:
+        if not same_bits(w, o):
+            fail(f"{label}: {kname} {what} differs from the plain version "
+                 f"(max abs err {max_abs_err(w, o)})")
+        if w.is_floating_point():
+            errs[kname] = max(errs[kname], max_abs_err(w, o))
+    return len(pairs)
+
+
+def bert_batch(dev, cfg):
+    """tools/tpu_bert_bench.py's batch: token ids and (start, end) spans
+    from numpy seed 0."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ))
+    spans = np.stack([rng.integers(0, BERT_SEQ // 2, BERT_BATCH),
+                      rng.integers(BERT_SEQ // 2, BERT_SEQ, BERT_BATCH)], 1)
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(spans).to(dev))
+
+
+def train_bert(dev, group, runs, errs):
+    """Phase 24: the chunk Top-K pair at BERT-base's 150 leaves, then
+    BERT-base under each BERT_PATH row, 1 warm-up + 3 timed steps a row,
+    from one seeded init."""
+    import copy
+
+    import torch
+    from grace_tpu_torch.examples.bert_powersgd import adamw, span_loss
+    from grace_tpu_torch.models import transformer as T
+
+    cfg = T.base(num_classes=2, max_len=BERT_SEQ)
+    flops = T.n_flops(cfg, BERT_BATCH, BERT_SEQ)
+    template = T.Transformer(cfg, device=dev, seed=SEED)
+    leaves = model_leaves(template)
+    cases = check_model_kernels(dev, leaves, errs, "[24] BERT-base")
+    log(f"[24] the chunk Top-K pair bit for bit against its plain versions "
+        f"over BERT-base's {len(leaves)} leaves ({min(n for _, n in leaves)}"
+        f" to {max(n for _, n in leaves):,} elements) in one launch each: "
+        f"{cases} tensors")
+    ids, spans = bert_batch(dev, cfg)
+    loss = functools.partial(span_loss, dtype=torch.bfloat16)
+    log(f"[24] BERT-base, {BERT_SHAPE[0]} leaves, {BERT_SHAPE[1]:,} "
+        f"parameters, sequence {BERT_SEQ}, batch {BERT_BATCH}, bf16 compute, "
+        f"AdamW {BERT_LR}; {flops / 1e12:.3f} TFLOP a step (projections and "
+        f"attention, forward and backward), bound "
+        f"{flops / BF16_FLOP_PER_S * 1e3:.2f} ms at {BF16_FLOP_PER_S / 1e12:g}"
+        f" bf16 TFLOP/s")
+    rows = []
+    for c in BERT_PATH:
+        res = train(dev, group, c, ids, spans, BERT_WARMUP_STEPS,
+                    BERT_TIMED_STEPS, model=copy.deepcopy(template),
+                    loss=loss, shape=BERT_SHAPE,
+                    optimizer=lambda ps: adamw(ps, BERT_LR))
+        prof = res["profiled"]
+        res["tokens_per_s"] = res["img_per_s"] * BERT_SEQ
+        res["flops_per_step"] = flops
+        res["busy_share"] = prof["device_ms"] / prof["wall_ms"]
+        log(f"  {c['name']}: {res['tokens_per_s']:.0f} tokens/s, "
+            f"{res['step_ms']:.1f} ms a step, {prof['device_ms']:.1f} device "
+            f"ms and {prof['kernels']} kernels in the profiled step (busy "
+            f"share <= {res['busy_share']:.2f}), peak {res['peak_mem_gb']:.2f}"
+            f" GB; {flops / (res['step_ms'] * 1e-3) / 1e12:.1f} TFLOP/s of "
+            "step time")
+        runs[c["name"]] = res
+        rows.append(res)
+        torch.cuda.empty_cache()
+    del template
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_bert_example() -> dict:
+    """Phase 25: python -m grace_tpu_torch.examples.bert_powersgd at its
+    defaults, in a process of its own: exit 0, finite losses, seq/s."""
+    line = run_example("bert_powersgd", [], "Seq/sec:",
+                       BERT_EXAMPLE_TIMEOUT_S, "[25]")
+    # "Seq/sec: S; train loss A -> B over N steps"
+    words = line.replace(";", "").split()
+    seq_s, first, last, steps = (float(words[1]), float(words[4]),
+                                 float(words[6]), int(words[8]))
+    if not (math.isfinite(first) and math.isfinite(last)) or steps != 32:
+        fail(f"[25] the BERT example: {line!r}")
+    return {"launches": {}, "seq_per_s": seq_s, "first_loss": first,
+            "last_loss": last, "steps": steps}
+
+
+def train_cifar(dev, group, cfg, tmp) -> dict:
+    """Phase 26: one cifar10_dawn run at its defaults through the entry
+    point's train(), the kernels' launches counted over the run."""
+    import torch
+    from grace_tpu_torch import ops
+    from grace_tpu_torch.examples import cifar10_dawn as ex
+
+    args = ex.build_parser().parse_args(
+        cfg["argv"] + ["--tsv", str(Path(tmp) / f"{cfg['name']}.tsv")])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                 # just before the run
+    t0 = time.perf_counter()
+    res = ex.train(args, group, dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()            # just after it
+    accs = [r["test acc"] for r in res["rows"]]
+    train_s = res["rows"][-1]["total time"]
+    log(f"  {cfg['name']}: test accuracy by epoch "
+        f"{' '.join(f'{a:.4f}' for a in accs)}")
+    log(f"  {cfg['name']}: {res['steps']} steps, {train_s:.1f} s of training "
+        f"(evaluation excluded; {train_s / res['steps'] * 1e3:.2f} ms a step), "
+        f"{seconds:.1f} s in all; final loss "
+        f"{res['rows'][-1]['train loss']:.4f}; launches {launches}")
+    if len(accs) != args.epochs or accs[-1] < CIFAR_FLOOR:
+        fail(f"[26] {cfg['name']}: test accuracy {accs[-1]:.4f} at epoch "
+             f"{len(accs)}, under {CIFAR_FLOOR}")
+    for name, count in launches.items():
+        want = cfg["per_step"].get(name, 0) * res["steps"]
+        if count != want:
+            fail(f"[26] {cfg['name']}: {name} launched {count} times over "
+                 f"{res['steps']} steps, expected {want}")
+    return {"name": cfg["name"], "accs": accs, "final_acc": accs[-1],
+            "steps": res["steps"], "train_seconds": train_s,
+            "seconds": seconds, "launches": launches,
+            "losses": [r["train loss"] for r in res["rows"]]}
+
+
+def train_vgg(dev, group, runs, errs):
+    """Phase 27: the chunk Top-K pair at VGG-16_bn's 45 leaves, then VGG-16
+    with BatchNorm under VGG_PATH, batch 32 at 224x224, 1 warm-up + 3
+    timed steps a row."""
+    import numpy as np
+    import torch
+    from grace_tpu_torch.models.vgg import vgg
+
+    leaves = model_leaves(vgg("vgg16_bn", NUM_CLASSES, device="cpu"))
+    cases = check_model_kernels(dev, leaves, errs, "[27] VGG-16_bn")
+    log(f"[27] the chunk Top-K pair bit for bit against its plain versions "
+        f"over VGG-16_bn's {len(leaves)} leaves (up to "
+        f"{max(n for _, n in leaves):,} elements) in one launch each: "
+        f"{cases} tensors")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal(
+        (VGG_BATCH, IMAGE_HW, IMAGE_HW, 3), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, NUM_CLASSES, (VGG_BATCH,))).to(dev)
+    rows = []
+    for c in VGG_PATH:
+        res = train(dev, group, c, x, y, HIER_WARMUP_STEPS, HIER_TIMED_STEPS,
+                    model=vgg("vgg16_bn", NUM_CLASSES, device=dev, seed=SEED),
+                    shape=VGG_SHAPE)
+        prof = res["profiled"]
+        res["busy_share"] = prof["device_ms"] / prof["wall_ms"]
+        log(f"  {c['name']}: {res['img_per_s']:.1f} img/s, "
+            f"{prof['device_ms']:.1f} device ms and {prof['kernels']} kernels "
+            f"in the profiled step (busy share <= {res['busy_share']:.2f})")
+        runs[c["name"]] = res
+        rows.append(res)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def new_model_phases(dev, group, runs, errs) -> None:
+    """Phases 24 to 27, each driven with the kernels' counts set to 0 just
+    before it and read just after it (inside ``train`` and
+    ``train_cifar``)."""
+    import tempfile
+
+    import torch
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    leaves, worst = check_bert_tiny(dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    log(f"[24] a 12-layer tiny BERT in float32 on the card agrees with the "
+        f"CPU (TF32 off): logits, MLM logits and {leaves} gradients within "
+        f"rtol {BERT_TINY_RTOL} and {BERT_TINY_ATOL} of each leaf's largest "
+        f"value ({worst:.2f} of the bound at worst)")
+    t0 = time.perf_counter()
+    train_bert(dev, group, runs, errs)
+    log(f"[24] {len(BERT_PATH)} BERT-base rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("[25] python -m grace_tpu_torch.examples.bert_powersgd (defaults: "
+        "base, sequence 384, batch 32, AdamW 5e-5, PowerSGD rank 4, "
+        "allreduce, fusion none, one epoch)")
+    t0 = time.perf_counter()
+    runs["bert_powersgd_example"] = run_bert_example()
+    log(f"[25] exited 0: {runs['bert_powersgd_example']['seq_per_s']:.1f} "
+        f"seq/s; {time.perf_counter() - t0:.1f} s")
+    log(f"[26] cifar10_dawn on synthetic CIFAR-10, one rank, its defaults "
+        f"(24 epochs, batch 512, 8,192 / 2,048 images); limit "
+        f"{CIFAR_FLOOR} at epoch 24")
+    t0 = time.perf_counter()
+    from grace_tpu_torch.models.resnet_cifar import ResNetCifar
+    leaves = model_leaves(ResNetCifar(device="cpu", seed=SEED))
+    flat = sum(n for _, n in leaves)
+    if (len(leaves), flat) != CIFAR_SHAPE:
+        fail(f"[26] resnet_cifar: {len(leaves)} leaves, {flat:,} parameters, "
+             f"expected {CIFAR_SHAPE}")
+    cases = check_model_kernels(dev, [("flat", flat)], errs,
+                                "[26] resnet_cifar flat")
+    log(f"[26] the chunk Top-K pair bit for bit against its plain versions "
+        f"over resnet_cifar's flat buffer ({len(leaves)} leaves, {flat:,} "
+        f"elements; fusion='flat') in one launch each: {cases} tensors")
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg in CIFAR_PATH:
+            runs[cfg["name"]] = train_cifar(dev, group, cfg, tmp)
+            torch.cuda.empty_cache()
+    log(f"[26] both runs in {time.perf_counter() - t0:.1f} s")
+    log(f"[27] VGG-16 with BatchNorm, batch {VGG_BATCH}, {IMAGE_HW}x"
+        f"{IMAGE_HW} bf16, SGD lr 1e-3, {HIER_WARMUP_STEPS} warm-up + "
+        f"{HIER_TIMED_STEPS} timed steps")
+    t0 = time.perf_counter()
+    train_vgg(dev, group, runs, errs)
+    from grace_tpu_torch.models.vgg import vgg
+    leaves = model_leaves(vgg("vgg16", NUM_CLASSES, device="cpu"))
+    if (len(leaves), sum(n for _, n in leaves)) != VGG_EXAMPLE_SHAPE:
+        fail(f"[27] VGG-16: {len(leaves)} leaves, expected "
+             f"{VGG_EXAMPLE_SHAPE}")
+    cases = check_model_kernels(dev, leaves, errs, "[27] VGG-16 (no BN)")
+    torch.cuda.empty_cache()
+    log(f"[27] the chunk Top-K pair bit for bit against its plain versions "
+        f"over the example's VGG-16 (no BatchNorm), {len(leaves)} leaves, in "
+        f"one launch each: {cases} tensors")
+    log(f"[27] grace_tpu_torch/examples/synthetic_benchmark.py "
+        f"{' '.join(VGG_EXAMPLE_ARGV)}")
+    ips = rate(run_example("synthetic_benchmark", VGG_EXAMPLE_ARGV,
+                           "img/sec:", EXAMPLE_TIMEOUT_S, "[27]"))
+    runs["synthetic_benchmark_vgg16"] = {"launches": {}, "img_per_s": ips}
+    log(f"[27] exited 0: {ips:.1f} img/s; {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_named(fn, word: str) -> str:
@@ -3265,11 +3700,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- 20. train the catalog ------------------------------------------
         log(f"[20] ResNet-50 under the catalog's configurations, batch {bs}, "
-            f"{HIER_WARMUP_STEPS} warm-up + {HIER_TIMED_STEPS} timed steps")
+            f"{HIER_WARMUP_STEPS} warm-up + {CATALOG_TIMED_STEPS} timed steps")
         t0 = time.perf_counter()
         for cfg in CATALOG_PATH:
             runs[cfg["name"]] = train(dev, group, cfg, x, y,
-                                      HIER_WARMUP_STEPS, HIER_TIMED_STEPS)
+                                      HIER_WARMUP_STEPS, CATALOG_TIMED_STEPS)
             torch.cuda.empty_cache()
         log(f"[20] {len(CATALOG_PATH)} rows trained in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -3315,11 +3750,16 @@ def main() -> int:
         log(f"[23] grace_tpu_torch/examples/torch_synthetic_benchmark.py "
             f"{' '.join(EXAMPLE_ARGV)}")
         t0 = time.perf_counter()
-        example_ips = run_example(dev)
+        example_ips = rate(run_example(
+            "torch_synthetic_benchmark", EXAMPLE_ARGV, "Img/sec per process:",
+            EXAMPLE_TIMEOUT_S, "[23]"))
         runs["torch_synthetic_benchmark"] = {"launches": {},
                                              "img_per_s": example_ips}
         log(f"[23] exited 0: {example_ips:.1f} img/s; "
             f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # -- 24 to 27. BERT-base, its example, DAWNBench, VGG-16 ------------
+        new_model_phases(dev, group, runs, errs)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -3,8 +3,9 @@ port.
 
 Both packages keep the same parameter layout (HWIO kernels, ``(din,
 dout)`` dense weights, BatchNorm ``scale``/``bias`` and ``mean``/``var``),
-so the conversion is the identity on values: nested dicts of numpy arrays
-become flat mappings from dotted names to tensors. Both keep the GRACE
+so the conversion is the identity on values: nested dicts and lists of
+numpy arrays become flat mappings from dotted names to tensors (a list's
+members by index, as ``nn.ModuleList`` names them). Both keep the GRACE
 state's ``mem``/``comp`` entries in the same order (one per leaf in the
 flatten order, one per bucket of a bucketed or flat run, or one per
 ``'grouped'`` group, stacked along a leading axis of the group's size), so
@@ -22,10 +23,14 @@ import torch
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Dicts by key and lists by index (``layers.<i>.``, the names an
+    ``nn.ModuleList`` gives its members), down to the arrays."""
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
     out = {}
-    for key, value in tree.items():
+    for key, value in items:
         name = f"{prefix}{key}"
-        if isinstance(value, Mapping):
+        if isinstance(value, (Mapping, list, tuple)):
             out.update(_flatten(value, name + "."))
         else:
             out[name] = torch.from_numpy(np.array(value, copy=True))

@@ -1,10 +1,12 @@
-"""Host data for the MNIST example: the idx reader, the bundled 8,000/2,000
-split, normalisation and the shuffled minibatch iterator.
+"""Host data for the examples: the MNIST idx reader, the bundled
+8,000/2,000 split, the CIFAR-10 binary reader, normalisation and the
+shuffled minibatch iterator.
 
 Counterpart of the in-memory half of the JAX package's
 ``data/__init__.py`` (``MemoryDataset``, ``_read_idx``, ``mnist_dataset``,
-``mnist_split_dataset``) and of the example helpers ``batches``,
-``load_mnist_idx`` and ``load_mnist_auto`` in ``examples/common.py``,
+``mnist_split_dataset``, ``cifar10_dataset``) and of the example helpers
+``batches``, ``load_mnist_idx``, ``load_mnist_auto`` and
+``load_cifar10_binary`` in ``examples/common.py``,
 which the port cannot import (they import the JAX package). Everything
 here is numpy, so both packages see the same arrays bit for bit. The
 native threaded loader and device prefetch are queued in ROADMAP.
@@ -22,7 +24,7 @@ import numpy as np
 
 __all__ = ["MemoryDataset", "mnist_dataset", "mnist_split_dataset",
            "split_indices", "load_mnist_idx", "load_mnist_auto", "batches",
-           "BUNDLED_MNIST_DIR"]
+           "cifar10_dataset", "load_cifar10_binary", "BUNDLED_MNIST_DIR"]
 
 # The public-domain MNIST t10k files the repository bundles.
 BUNDLED_MNIST_DIR = os.path.join(
@@ -111,6 +113,43 @@ def mnist_split_dataset(data_dir: str, train: bool = True,
     x, y = _read_idx(data_dir, train=False)
     sel = split_indices(len(x), train, split_seed, fraction)
     return MemoryDataset(x[sel], y[sel], mean=MNIST_MEAN, std=MNIST_STD)
+
+
+CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
+CIFAR10_STD = (0.2471, 0.2435, 0.2616)
+
+
+def _read_cifar10(data_dir: str, train: bool
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10 binary batches (``data_batch_{1..5}.bin`` or
+    ``test_batch.bin``; 3073-byte records, a label then CHW pixels) →
+    ``(n, 32, 32, 3)`` uint8 NHWC images and int32 labels."""
+    names = ([f"data_batch_{i}.bin" for i in range(1, 6)] if train
+             else ["test_batch.bin"])
+    xs, ys = [], []
+    for name in names:
+        raw = np.fromfile(os.path.join(data_dir, name), np.uint8)
+        raw = raw.reshape(-1, 3073)
+        ys.append(raw[:, 0].astype(np.int32))
+        xs.append(raw[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def cifar10_dataset(data_dir: str, train: bool = True) -> MemoryDataset:
+    """CIFAR-10 binary batches → MemoryDataset with the standard stats."""
+    x, y = _read_cifar10(data_dir, train)
+    return MemoryDataset(x, y, mean=CIFAR10_MEAN, std=CIFAR10_STD)
+
+
+def load_cifar10_binary(data_dir: str, train: bool = True
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10 binary batches, normalised ``(x/255 − mean) / std`` in
+    float32 (the example helper's arithmetic)."""
+    x, y = _read_cifar10(data_dir, train)
+    x = x.astype(np.float32) / 255.0
+    mean = np.array(CIFAR10_MEAN, np.float32)
+    std = np.array(CIFAR10_STD, np.float32)
+    return (x - mean) / std, y
 
 
 def load_mnist_idx(data_dir: str, train: bool = True

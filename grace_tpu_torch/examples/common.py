@@ -1,8 +1,10 @@
-"""Shared plumbing of the port's examples: the GRACE flags, the synthetic
-MNIST set, and the ranks. Its own copy of what it needs from the
-repository's ``examples/common.py`` (``add_grace_args``,
-``grace_params_from_args``, ``synthetic_mnist``), which imports the JAX
-package; the MNIST files and minibatches are in ``grace_tpu_torch.data``.
+"""Shared plumbing of the port's examples: the GRACE flags and their
+provenance, the synthetic MNIST and CIFAR-10 sets, the compute dtype, and
+the ranks. Its own copy of what it needs from the repository's
+``examples/common.py`` (``add_grace_args``, ``grace_params_from_args``,
+``grace_provenance``, ``synthetic_mnist``, ``synthetic_cifar10``,
+``compute_dtype``), which imports the JAX package; the MNIST and CIFAR-10
+files and the minibatches are in ``grace_tpu_torch.data``.
 """
 
 from __future__ import annotations
@@ -89,6 +91,27 @@ def grace_params_from_args(args) -> dict:
     return params
 
 
+def grace_provenance(args) -> dict:
+    """The GRACE fields every curve file carries: the triad, the fusion
+    (flat is one global k, none one k a tensor), the residual's storage
+    dtype when set, and the Top-K algorithm."""
+    prov = {"compressor": args.compressor, "memory": args.memory,
+            "communicator": args.communicator, "fusion": args.fusion}
+    if getattr(args, "memory_dtype", None):
+        prov["memory_dtype"] = args.memory_dtype
+    if args.compressor == "topk":
+        prov["topk_algorithm"] = args.topk_algorithm
+    return prov
+
+
+def compute_dtype(device) -> torch.dtype:
+    """bfloat16 on the card, float32 on the CPU: the port's counterpart of
+    the JAX examples' bf16 on the TPU and f32 elsewhere. Parameters stay
+    float32; the models cast them per call."""
+    return (torch.bfloat16 if torch.device(device).type == "cuda"
+            else torch.float32)
+
+
 def add_rank_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (NCCL, one card a rank) or cpu (gloo)")
@@ -112,6 +135,11 @@ def synthetic_mnist(n: int, seed: int = 0, proto_seed: int = 1234):
     """Synthetic 28×28×1 digits, separable enough that LeNet passes 95%
     quickly (NHWC, as the JAX package makes them)."""
     return _synthetic_classification(n, seed, (28, 28, 1), 0.3, proto_seed)
+
+
+def synthetic_cifar10(n: int, seed: int = 0, proto_seed: int = 1234):
+    """Synthetic 32×32×3 images of 10 classes (NHWC)."""
+    return _synthetic_classification(n, seed, (32, 32, 3), 0.5, proto_seed)
 
 
 def _worker(rank, world, init_method, main, argv, device):

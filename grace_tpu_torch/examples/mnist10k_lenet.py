@@ -42,7 +42,7 @@ from grace_tpu_torch.data import BUNDLED_MNIST_DIR, batches, load_mnist_auto
 from grace_tpu_torch.models.lenet import LeNet
 from grace_tpu_torch.parallel import init_process_group, resolve_device
 from grace_tpu_torch.train import (init_train_state, make_eval_step,
-                                   make_train_step)
+                                   make_train_step, set_lr)
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -169,16 +169,19 @@ def train(args, group, device, log=print) -> dict:
             torch.from_numpy(y_test[shares]).long().to(dev))
     steps_per_epoch = max(1, len(x_train) // args.batch_size)
     total_steps = args.epochs * steps_per_epoch
+
+    def cosine(count):                    # optax.cosine_decay_schedule
+        frac = min(count, total_steps) / total_steps
+        return args.lr * 0.5 * (1 + math.cos(math.pi * frac))
+
     rows, accs, steps, batch = ["epoch\ttrain_loss\ttest_acc"], [], 0, None
     t0 = time.perf_counter()
     for epoch in range(1, args.epochs + 1):
         losses = []
         for xb, yb in batches(x_train, y_train, args.batch_size,
                               shuffle=True, seed=args.seed + epoch):
-            if args.cosine_lr:            # optax.cosine_decay_schedule
-                frac = min(steps, total_steps) / total_steps
-                for g in opt.param_groups:
-                    g["lr"] = args.lr * 0.5 * (1 + math.cos(math.pi * frac))
+            if args.cosine_lr:
+                set_lr(opt, cosine, steps)
             rows_of = slice(rank * local, (rank + 1) * local)
             batch = (torch.from_numpy(xb[rows_of]).to(dev),
                      torch.from_numpy(yb[rows_of]).long().to(dev))

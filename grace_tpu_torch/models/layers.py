@@ -1,6 +1,8 @@
 """Layers with the JAX package's parameter layout and numerics.
 
-Counterpart of the JAX ``models/layers.py``. Parameters keep the JAX
+Counterpart of the JAX ``models/layers.py``: convolution, dense (with the
+``he``, ``glorot`` and truncated-normal inits, with or without a bias),
+BatchNorm, LayerNorm, embedding and the pools. Parameters keep the JAX
 layout at the public surface, so a parameter here is the same flat buffer
 as there: conv kernels HWIO, dense weights ``(din, dout)``, BatchNorm
 ``scale``/``bias`` with running ``mean``/``var`` buffers. Inside, the
@@ -50,6 +52,15 @@ def glorot_uniform(shape, fan_in: int, fan_out: int,
     return torch.empty(shape).uniform_(-limit, limit, generator=generator)
 
 
+def trunc_normal(shape, generator: torch.Generator,
+                 std: float = 0.02) -> torch.Tensor:
+    """A normal of ``std`` truncated at ±2·std: JAX draws
+    ``truncated_normal(-2, 2) · std``, and torch's bounds are absolute."""
+    return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std,
+                                       -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
 class Conv(nn.Module):
     """Convolution with an HWIO kernel ``w``, XLA ``padding`` (``"SAME"`` or
     ``"VALID"``) and, with ``use_bias``, a bias ``b``; takes and returns
@@ -91,24 +102,29 @@ class Conv(nn.Module):
 
 class Dense(nn.Module):
     """``x @ w + b`` with ``w`` of shape ``(din, dout)``, initialised by
-    ``init``: ``"glorot"`` (uniform) or ``"he"`` (normal). The JAX
-    ``dense_init`` defaults to ``"he"``; ResNet's fc passes ``"glorot"``
-    there, which is this layer's default."""
+    ``init``: ``"glorot"`` (uniform), ``"he"`` (normal) or ``"trunc"``
+    (:func:`trunc_normal`, std 0.02); ``use_bias=False`` drops ``b``. The
+    JAX ``dense_init`` defaults to ``"he"``; ResNet's fc passes
+    ``"glorot"`` there, which is this layer's default."""
 
     def __init__(self, din: int, dout: int, *, init: str = "glorot",
-                 generator: torch.Generator):
+                 use_bias: bool = True, generator: torch.Generator):
         super().__init__()
         if init == "glorot":
             w = glorot_uniform((din, dout), din, dout, generator)
         elif init == "he":
             w = he_normal((din, dout), din, generator)
+        elif init == "trunc":
+            w = trunc_normal((din, dout), generator)
         else:
-            raise ValueError(f"init must be 'glorot' or 'he'; got {init!r}")
+            raise ValueError(f"init must be 'glorot', 'he' or 'trunc'; got "
+                             f"{init!r}")
         self.w = nn.Parameter(w)
-        self.b = nn.Parameter(torch.zeros(dout))
+        self.b = nn.Parameter(torch.zeros(dout)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w.to(x.dtype) + self.b.to(x.dtype)
+        y = x @ self.w.to(x.dtype)
+        return y if self.b is None else y + self.b.to(y.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -145,10 +161,68 @@ class BatchNorm(nn.Module):
         return y
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with ``scale``/``bias`` and the JAX
+    layer's eps of 1e-6 (torch's default is 1e-5): statistics in float32
+    (biased variance), output in the input's dtype."""
+
+    eps = 1e-6
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+                         self.eps)
+        return y.to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """A ``(vocab, d)`` ``table`` (:func:`trunc_normal`, std 0.02), cast to
+    the compute dtype before the gather, as the JAX layer casts it."""
+
+    def __init__(self, vocab: int, d: int, *, generator: torch.Generator):
+        super().__init__()
+        self.table = nn.Parameter(trunc_normal((vocab, d), generator))
+
+    def forward(self, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+        t = self.table if dtype is None else self.table.to(dtype)
+        return F.embedding(ids, t)
+
+
 def max_pool(x: torch.Tensor, window: int = 2,
              stride: Optional[int] = None) -> torch.Tensor:
     """VALID max pool of an NCHW tensor."""
     return F.max_pool2d(x, window, stride or window)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
+             padding: str = "VALID") -> torch.Tensor:
+    """Average pool of an NCHW tensor over the real elements of each
+    window (XLA ``padding``; SAME padding is left out of the count, the
+    JAX layer's count-excluding-pad semantics)."""
+    stride = stride or window
+    if padding == "VALID":
+        return F.avg_pool2d(x, window, stride)
+    top, bottom = same_padding(x.shape[2], window, stride)
+    left, right = same_padding(x.shape[3], window, stride)
+    pad = (left, right, top, bottom)
+    summed = F.avg_pool2d(F.pad(x, pad), window, stride,
+                          divisor_override=1)
+    ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+    counts = F.avg_pool2d(ones, window, stride, divisor_override=1)
+    return summed / counts
+
+
+def adaptive_avg_pool(x: torch.Tensor, out: int) -> torch.Tensor:
+    """torchvision's ``AdaptiveAvgPool2d((out, out))`` of an NCHW tensor:
+    output cell ``i`` averages input rows ``[floor(i·h/out),
+    ceil((i+1)·h/out))``, and columns alike; a grid smaller than ``out``
+    repeats its cells. The JAX VGG's ``_adaptive_avg_pool`` has the same
+    bounds."""
+    return F.adaptive_avg_pool2d(x, out)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""ResNet v1.5 (stride on the bottleneck's 3×3); counterpart of the JAX
-``models/resnet.py``.
+"""ResNet-50/101/152 v1.5 (stride on the bottleneck's 3×3); counterpart of
+the JAX ``models/resnet.py``.
 
 Parameter names follow the JAX tree paths (``stem.w``, ``stem_bn.scale``,
 ``s0b0.conv1.w``, ``s0b0.proj_bn.bias``, ``fc.w``, …) and layouts stay
@@ -21,6 +21,8 @@ from grace_tpu_torch.models.layers import (BatchNorm, Conv, Dense,
 from grace_tpu_torch.parallel import resolve_device
 
 STAGES_50 = (3, 4, 6, 3)
+# depth -> blocks a stage, as the JAX package's ``_STAGES``.
+STAGES = {50: STAGES_50, 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 class Bottleneck(nn.Module):
@@ -88,4 +90,14 @@ class ResNet(nn.Module):
 
 def resnet50(num_classes: int = 1000, *, device="cuda", seed: int = 0
              ) -> ResNet:
-    return ResNet(STAGES_50, num_classes, device=device, seed=seed)
+    return ResNet(STAGES[50], num_classes, device=device, seed=seed)
+
+
+def resnet101(num_classes: int = 1000, *, device="cuda", seed: int = 0
+              ) -> ResNet:
+    return ResNet(STAGES[101], num_classes, device=device, seed=seed)
+
+
+def resnet152(num_classes: int = 1000, *, device="cuda", seed: int = 0
+              ) -> ResNet:
+    return ResNet(STAGES[152], num_classes, device=device, seed=seed)

@@ -9,8 +9,13 @@ step eagerly and the communicators' collectives join the ranks. One step:
 2. (stateful) the model's buffers, e.g. BatchNorm running stats, averaged
    over the group so they stay replicated;
 3. the GRACE exchange of every gradient leaf (``GraceTransform.update``);
-4. the optimizer step on the exchanged updates (``torch.optim.SGD(lr)``
-   is ``optax.sgd(lr)``);
+4. the optimizer step on the exchanged updates. ``torch.optim.SGD(lr)``
+   is ``optax.sgd(lr)``; ``torch.optim.AdamW(lr, betas=(0.9, 0.999),
+   eps=1e-8, weight_decay=1e-4)`` is ``optax.adamw(lr)`` (optax's decay
+   is 1e-4, torch's default 1e-2); ``torch.optim.SGD(lr, momentum=0.9,
+   nesterov=True, weight_decay=wd)`` is ``optax.chain(
+   add_decayed_weights(wd), sgd(lr, momentum=0.9, nesterov=True))``. A
+   schedule's rate is set before each update with :func:`set_lr`;
 5. the loss averaged over the group.
 
 The exchanged update replaces each parameter's ``.grad`` in place of the
@@ -29,7 +34,8 @@ from torch import nn
 from grace_tpu_torch.transform import GraceState, GraceTransform
 
 __all__ = ["TrainState", "make_train_step", "make_stateful_train_step",
-           "make_eval_step", "init_train_state", "init_stateful_train_state"]
+           "make_eval_step", "init_train_state", "init_stateful_train_state",
+           "warmup_schedule", "set_lr"]
 
 
 @dataclasses.dataclass
@@ -135,3 +141,36 @@ def make_eval_step(metric_fn: Callable[[nn.Module, Any], Any],
                                 .clone(), group)
 
     return eval_step
+
+
+def warmup_schedule(base_lr: float, world_size: int, warmup_steps: int,
+                    after: Optional[Callable[[int], float]] = None
+                    ) -> Callable[[int], float]:
+    """Linear-scaling warmup: ``schedule(count)`` ramps ``base_lr`` →
+    ``base_lr * world_size`` over ``warmup_steps`` updates, then gives
+    ``after(count - warmup_steps)`` (default: the scaled rate). The
+    boundary update belongs to ``after``: ``count == warmup_steps`` gives
+    ``after(0)``. ``warmup_steps=0`` means no warmup: ``after(count)``
+    from update 0, or the scaled rate. The JAX package's optax schedule,
+    as a plain function of the update count (see :func:`set_lr`)."""
+    scaled = base_lr * world_size
+
+    def schedule(count: int) -> float:
+        if warmup_steps <= 0:
+            return scaled if after is None else after(count)
+        if count >= warmup_steps and after is not None:
+            return after(count - warmup_steps)
+        frac = min(count / warmup_steps, 1.0)
+        return base_lr + (scaled - base_lr) * frac
+
+    return schedule
+
+
+def set_lr(optimizer: torch.optim.Optimizer,
+           schedule: Callable[[int], float], count: int) -> None:
+    """Set every parameter group's ``lr`` to ``schedule(count)`` before
+    update ``count`` (0, 1, …): the rate an optax schedule gives that
+    update, whose ``count`` is the number of updates made before it."""
+    lr = float(schedule(count))
+    for group in optimizer.param_groups:
+        group["lr"] = lr

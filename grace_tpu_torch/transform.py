@@ -24,7 +24,8 @@ updates. Four executors, as in JAX:
 Gradients and parameters are flat mappings from dotted names
 (``"s0b0.conv1.w"``, as ``nn.Module.named_parameters`` gives them) to
 tensors. Leaves are walked in the JAX flatten order of the same parameter
-tree: sorted keys at every level of the path. Per-leaf chunk Top-K selects
+tree: sorted keys at every level of the path, list indices in index order
+(:func:`leaf_order`). Per-leaf chunk Top-K selects
 over each leaf's flat order, so the two packages pick the same elements
 only when they walk the same leaves in the same order with the same
 layouts. :func:`leaf_path_str` spells a dotted name as JAX spells the
@@ -58,9 +59,20 @@ from grace_tpu_torch.core import (Communicator, Compressor, LeafKey, Memory,
 Fusion = Union[None, str, int]
 
 
+def _part_key(part: str):
+    # A part of decimal digits is a list index (an ``nn.ModuleList`` or
+    # ``nn.Sequential`` index in the port), which JAX flattens in index
+    # order; any other part is a dict key, which JAX sorts as a string.
+    # Digit parts go first, as they would among strings.
+    return (0, int(part)) if part.isdecimal() else (1, part)
+
+
 def leaf_order(names) -> List[str]:
-    """``names`` in the JAX flatten order of the nested tree they spell."""
-    return sorted(names, key=lambda name: tuple(name.split(".")))
+    """``names`` in the JAX flatten order of the nested tree they spell:
+    dict keys sorted as strings (``conv10`` before ``conv2``), list
+    indices as integers (``layers.2`` before ``layers.10``)."""
+    return sorted(names, key=lambda name: tuple(
+        _part_key(p) for p in name.split(".")))
 
 
 def leaf_path_str(name: str) -> str:

@@ -59,6 +59,14 @@ FRONT_END_MODULES = {
     "grace_tpu_torch.examples.common", "grace_tpu_torch.examples.torch_mnist",
     "grace_tpu_torch.examples.torch_synthetic_benchmark"}
 
+# The rest of the model zoo and its examples.
+MODEL_ZOO_MODULES = {
+    "grace_tpu_torch.models.transformer", "grace_tpu_torch.models.vgg",
+    "grace_tpu_torch.models.resnet_cifar",
+    "grace_tpu_torch.examples.bert_powersgd",
+    "grace_tpu_torch.examples.cifar10_dawn",
+    "grace_tpu_torch.examples.synthetic_benchmark"}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -73,6 +81,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert HIER_PATH_MODULES <= names
     assert CATALOG_MODULES <= names
     assert FRONT_END_MODULES <= names
+    assert MODEL_ZOO_MODULES <= names
     assert leaked.strip() == "[]"
 
 

@@ -264,7 +264,7 @@ def test_conv_valid_bias_and_dense_init_match_jax():
     assert abs(he.std().item() / np.sqrt(2 / 4000) - 1) < 0.02
     assert glorot.abs().max().item() <= np.sqrt(6 / 4050)
     with pytest.raises(ValueError):
-        L.Dense(2, 2, init="trunc", generator=torch.Generator())
+        L.Dense(2, 2, init="orthogonal", generator=torch.Generator())
     with pytest.raises(ValueError):
         L.Conv(3, 3, 1, 1, padding="FULL", generator=torch.Generator())
 
