@@ -229,6 +229,31 @@ The rest of the model zoo:
     grace_tpu_torch/examples/synthetic_benchmark.py on VGG-16 under Top-K
     1% chunk per leaf: it must exit 0 and print its img/s.
 
+The guarded training step:
+
+28. ResNet-50 (batch 256, SGD lr 1e-3) under topk1pct with the fp16
+    escape and the telemetry ring (capacity 128, compression error on)
+    through guarded_chain(fallback_after=2, fallback_steps=3) and
+    make_stateful_train_step, 12 steps, a NaN planted by a tensor hook in
+    one lane of fc.w's gradient at steps 4 and 5: after each bad step the
+    parameters, the SGD state and every mem/comp tensor are bit for bit
+    those after step 3 (both chunk kernels ran in it and wrote in place);
+    steps 6-8 run the escape with no chunk launch and mem/comp untouched;
+    9-11 compress again (two compress launches a step with the error's
+    round-trip, one aggregate). The ring, flushed by a TelemetryReader
+    through JSONL and TensorBoard sinks, holds 10 rows (fallback 1.0 on
+    the escape's three, their wire_bytes the escape's), guard_report reads
+    2 skips, last bad step 5, no window left, and tools/telemetry_report.py
+    renders the JSONL. Checkpoints at steps 3 (good) and 5 (not good):
+    restore_last_good gives step 3 back bit for bit, and one update from
+    it equals the same update from a copy kept in memory. A healthy
+    guarded + telemetry run of 5 steps equals the unguarded topk1pct run
+    bit for bit (parameters and residuals). Then topk1pct, +telemetry,
+    +guard and +guard+telemetry timed (1 warm-up + 3 steps; device ms,
+    kernels, busy share, host ms by stage, peak memory, launches a step),
+    and each row's exchange alone from an idle card (host ms to enqueue
+    it, ms until done, synchronizing calls counted).
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -237,6 +262,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import math
@@ -1188,10 +1214,22 @@ def check_reference(dev, group):
              "ones in two steps, expected 2 and 0")
 
 
+def device_events(prof) -> list:
+    """The profiler's kernel rows: CUDA events, less the device ranges of
+    the pipeline's named stages (``telemetry.scopes``' ``grace/...``
+    spans), which would count their kernels' time twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("grace/")]
+
+
 def profile_step(step, state, batch, label):
     """One more step under torch.profiler: the device time by kernel and
     its sum against the step's wall time (a busy share that counts
-    overlapping kernels twice, so an upper bound)."""
+    overlapping kernels twice, so an upper bound), and the host ms of each
+    named pipeline stage (``telemetry.scopes``' spans, nested ones
+    included in their parents)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1203,8 +1241,7 @@ def profile_step(step, state, batch, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernels only: an operator's own row repeats its kernels' time.
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    events = device_events(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -1217,7 +1254,15 @@ def profile_step(step, state, batch, label):
         f"{total_ms / wall_ms:.2f})")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": total_ms, "kernels": kernels}
+    stages = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU
+              and e.key.startswith("grace/")}
+    top = ("grace/forward_backward", "grace/optimizer", "grace/telemetry",
+           "grace/dense_escape")
+    log("    host ms by stage: " + ", ".join(
+        f"{k} {stages[k]:.2f}" for k in top if k in stages))
+    return {"wall_ms": wall_ms, "device_ms": total_ms, "kernels": kernels,
+            "stage_host_ms": stages}
 
 
 # Collectives issued, counted by the torch.distributed entry points the
@@ -1273,7 +1318,9 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     ``shape``: leaves, parameters) under ``cfg`` on the batch ``(x, y)``
     with ``optimizer(parameters)`` (SGD lr 1e-3 by default): warm-up and
     timed steps, the launches and exchange collectives between them
-    asserted against ``cfg``, then one profiled step."""
+    asserted against ``cfg``, then one profiled step. With ``cfg["guard"]``
+    (``guarded_chain``'s keywords) the step runs the guarded chain, whose
+    collectives are not counted."""
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.models.resnet import resnet50
@@ -1288,7 +1335,11 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
         fail(f"{cfg['name']}: the model has {n_leaves} leaves / {n_params} "
              f"parameters, expected {shape}")
     grace = grace_from_params(cfg["params"], group=group)
-    tx = CountedTransform(grace.transform(seed=SEED))
+    if cfg.get("guard") is None:
+        tx = CountedTransform(grace.transform(seed=SEED))
+    else:
+        from grace_tpu_torch.resilience import guarded_chain
+        tx = guarded_chain(grace, seed=SEED, **cfg["guard"])
     opt = (optimizer or (lambda ps: torch.optim.SGD(ps, lr=1e-3)))(
         model.parameters())
     state = init_stateful_train_state(model, tx, opt, group)
@@ -1297,7 +1348,9 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()                 # just before the main path
-    tx.collectives = 0
+    counted = isinstance(tx, CountedTransform)
+    if counted:
+        tx.collectives = 0
     losses = []
     for _ in range(warmup):
         state, loss = step(state, (x, y))
@@ -1310,7 +1363,7 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()            # just after it
-    collectives = tx.collectives
+    collectives = tx.collectives if counted else None
     profiled = profile_step(step, state, (x, y), cfg["name"])
     steps = warmup + timed
     res = {"name": cfg["name"], "img_per_s": x.shape[0] * timed / seconds,
@@ -1318,7 +1371,8 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
            "last_loss": losses[-1],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "launches": launches, "steps": steps, "profiled": profiled,
-           "collectives_per_step": collectives / steps}
+           "collectives_per_step": (collectives / steps if counted
+                                    else None)}
     log(f"  {cfg['name']}: {res['img_per_s']:.1f} img/s "
         f"({res['step_ms']:.1f} ms/step), loss {res['first_loss']:.4f} -> "
         f"{res['last_loss']:.4f}, peak {res['peak_mem_gb']:.2f} GB, "
@@ -2286,7 +2340,6 @@ def profiled_kernel_launches(step, state, batch, words, want) -> dict:
     profiler: the step is profiled again, up to PROFILER_ATTEMPTS times
     (as kernel_device_ms does); the last session's counts are returned."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     warm_profiler()
@@ -2294,8 +2347,7 @@ def profiled_kernel_launches(step, state, batch, words, want) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step(state, batch)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+        events = device_events(prof)
         counts = {w: sum(e.count for e in events if w in e.key)
                   for w in words}
         if events and all(counts[w] >= want.get(w, 0) for w in words):
@@ -3366,11 +3418,406 @@ def new_model_phases(dev, group, runs, errs) -> None:
     log(f"[27] exited 0: {ips:.1f} img/s; {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 28: the guarded training step -------------------------------------
+
+# HEADLINE's topk1pct with the dense fp16 escape and the telemetry ring, run
+# through guarded_chain(fallback_after=2, fallback_steps=3).
+GUARD_PARAMS = {**HEADLINE[1]["params"], "escape": "fp16",
+                "telemetry": {"capacity": 128, "compression_error": True}}
+GUARD_KW = {"fallback_after": 2, "fallback_steps": 3}
+GUARD_STEPS = 12
+GUARD_BAD = (4, 5)                 # steps whose gradient gets a NaN lane
+GUARD_WINDOW = (6, 7, 8)           # the dense fp16 steps that follow
+GUARD_LEAF = "fc.w"                # the poisoned leaf
+GUARD_HEALTHY_STEPS = 5
+_TOPK_ONCE = {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}
+# The round-trip of the compression error adds one compress launch a step.
+_TOPK_TELEM = {"chunk_compress_feedback": 2, "chunk_aggregate_dense": 1}
+GUARD_ROWS = [
+    {"name": "phase28_topk1pct", "params": HEADLINE[1]["params"],
+     "per_step": _TOPK_ONCE},
+    {"name": "phase28_telemetry",
+     "params": {**HEADLINE[1]["params"],
+                "telemetry": GUARD_PARAMS["telemetry"]},
+     "per_step": _TOPK_TELEM},
+    {"name": "phase28_guard",
+     "params": {**HEADLINE[1]["params"], "escape": "fp16"},
+     "guard": GUARD_KW, "per_step": _TOPK_ONCE},
+    {"name": "phase28_guard_telemetry", "params": GUARD_PARAMS,
+     "guard": GUARD_KW, "per_step": _TOPK_TELEM},
+]
+
+
+def _guard_tensors(state) -> dict:
+    """Copies of what a skipped step must leave as it was: the parameters,
+    the optimizer's state tensors and every GraceState tensor (mem, comp,
+    the ring), by path; plus the GRACE counter."""
+    import torch
+    from grace_tpu_torch.checkpoint import state_leaves
+
+    params = dict(state.model.named_parameters())
+    out = {}
+    for path, (leaf, _) in state_leaves(state).items():
+        if path.startswith("model/") and path[6:] not in params:
+            continue                      # BatchNorm statistics: forward's
+        if isinstance(leaf, torch.Tensor):
+            out[path] = leaf.detach().clone()
+        elif path.endswith("/count"):
+            out[path] = leaf
+    return out
+
+
+def _same_state(label, got: dict, want: dict, skip=()) -> int:
+    """Fail unless ``got`` equals ``want`` bit for bit, path by path (the
+    guard's counters and the paths under ``skip`` left out)."""
+    from grace_tpu_torch.resilience.guard import _COUNTERS
+
+    checked = 0
+    for path, w in want.items():
+        if path.rsplit("/", 1)[-1] in _COUNTERS or path.startswith(skip):
+            continue
+        g = got.get(path)
+        if isinstance(w, int):
+            if g != w:
+                fail(f"{label}: {path} is {g}, expected {w}")
+        elif g is None or not same_bits(g.cpu(), w.cpu()):
+            fail(f"{label}: {path} differs bit for bit")
+        checked += 1
+    return checked
+
+
+def guarded_injection_run(dev, group, x, y, tmp) -> dict:
+    """The guarded chain with NaN steps, its fallback window, its
+    telemetry through the sinks and the report tool, and its checkpoints
+    (phase 28's first half). Returns the run's launches."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.checkpoint import Checkpointer
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import guarded_chain
+    from grace_tpu_torch.telemetry import (JSONLSink, MultiSink,
+                                           TelemetryReader, TensorBoardSink)
+    from grace_tpu_torch.train import (init_stateful_train_state,
+                                       make_stateful_train_step)
+    from grace_tpu_torch.transform import leaf_order
+    from grace_tpu_torch.utils.logging import run_provenance
+    from grace_tpu_torch.utils.metrics import guard_report
+    import numpy as np
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    chain = guarded_chain(grace_from_params(GUARD_PARAMS, group=group),
+                          seed=SEED, **GUARD_KW)
+    state = init_stateful_train_state(model, chain, opt, group)
+    step = make_stateful_train_step(loss_fn, chain, group)
+    named = dict(model.named_parameters())
+    current = [0]
+
+    def poison(g):
+        if current[0] in GUARD_BAD:
+            g = g.clone(memory_format=torch.contiguous_format)
+            g.view(-1)[0] = float("nan")
+        return g
+
+    hook = named[GUARD_LEAF].register_hook(poison)
+    ckpt = Checkpointer(tmp / "ckpt", max_to_keep=None)
+    per_step, after3 = [], None
+    ops.reset_launch_counts()             # just before the main path
+    for i in range(GUARD_STEPS):
+        current[0] = i
+        before = ops.launch_counts()
+        state, loss = step(state, (x, y))
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - before[k] for k in now})
+        if i == 3:
+            after3 = _guard_tensors(state)
+            state.grace.settle()
+            memory = {"model": {k: v.clone()
+                                for k, v in model.state_dict().items()},
+                      "opt": copy.deepcopy(opt.state_dict()),
+                      "grace": copy.deepcopy(state.grace)}
+            ckpt.save(3, state, good=True)
+        if i in GUARD_BAD:
+            n = _same_state(f"[28] after bad step {i}", _guard_tensors(state),
+                            after3)
+            if i == GUARD_BAD[-1]:
+                ckpt.save(i, state, good=False)
+        if i == GUARD_WINDOW[-1]:
+            _same_state("[28] mem/comp after the fallback window",
+                        _guard_tensors(state), after3,
+                        skip=("model/", "optimizer/", "grace/inner/telem",
+                              "grace/inner/count"))
+    launches = ops.launch_counts()        # just after it
+    hook.remove()
+    if not math.isfinite(float(loss)):
+        fail(f"[28] non-finite loss {float(loss)} after {GUARD_STEPS} steps")
+    for i, got in enumerate(per_step):
+        want = ({} if i in GUARD_WINDOW else _TOPK_TELEM)
+        got = {k: v for k, v in got.items() if v}
+        if got != want:
+            fail(f"[28] step {i} launched {got}, expected {want}")
+    log(f"[28] injected run: {GUARD_STEPS} steps, a NaN lane in {GUARD_LEAF}'s "
+        f"gradient at steps {GUARD_BAD}: after each, {n} parameters, SGD and "
+        f"GraceState tensors bit for bit those after step 3 (both chunk "
+        f"kernels launched in them, writing in place); steps {GUARD_WINDOW} "
+        f"ran the fp16 escape with 0 chunk launches and mem/comp untouched; "
+        f"steps 9-11 compress again; per-step launches "
+        + " ".join(f"{i}:{p.get('chunk_compress_feedback', 0)}/"
+                   f"{p.get('chunk_aggregate_dense', 0)}"
+                   for i, p in enumerate(per_step)))
+    report = guard_report(state)
+    want = {"notfinite_count": 2, "last_bad_step": GUARD_BAD[-1],
+            "fallback_remaining": 0, "step": GUARD_STEPS}
+    if {k: report[k] for k in want} != want:
+        fail(f"[28] guard_report {report}, expected {want}")
+    # Telemetry: one flush through both sinks, then the report tool.
+    jsonl, tbdir = tmp / "telemetry.jsonl", tmp / "tb"
+    reader = TelemetryReader(MultiSink(
+        JSONLSink(jsonl, provenance=run_provenance(
+            "synthetic", tool="chip_smoke.py [28]")),
+        TensorBoardSink(tbdir)), every=GUARD_STEPS)
+    records = reader.update(GUARD_STEPS - 1, state)
+    reader.close()
+    inner = chain.inner
+    leaves = [named[n] for n in leaf_order(named)]
+    dense_b, link, esc_link, _ = inner._wire_plan(leaf_order(named), leaves,
+                                                  1)
+    accepted = GUARD_STEPS - len(GUARD_BAD)
+    if [r["step"] for r in records] != list(range(accepted)):
+        fail(f"[28] ring rows {[r['step'] for r in records]}, expected "
+             f"0..{accepted - 1} (no row for the skipped steps)")
+    window_rows = {GUARD_WINDOW[0] - len(GUARD_BAD) + j
+                   for j in range(len(GUARD_WINDOW))}
+    for r in records:
+        fb = r["step"] in window_rows
+        wire = esc_link.total if fb else link.total
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        if (bad or r["fallback"] != float(fb) or r["wire_bytes"] != wire
+                or r["dense_bytes"] != float(np.float32(dense_b))
+                or (r["compression_error"] == 0.0) != fb):
+            fail(f"[28] telemetry row {r}: expected fallback {float(fb)}, "
+                 f"wire_bytes {wire}, dense_bytes {dense_b}, a compression "
+                 f"error {'of 0' if fb else 'above 0'}, finite values")
+    if (records[-1].get("guard_notfinite_count"),
+            records[-1].get("guard_last_bad_step")) != (2, GUARD_BAD[-1]):
+        fail(f"[28] the flush's guard fields: {records[-1]}")
+    tool = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "tools" /
+                             "telemetry_report.py"), str(jsonl)],
+        capture_output=True, text=True, timeout=60)
+    events = list(tbdir.glob("events.out.tfevents.*"))
+    if tool.returncode or not tool.stdout.strip():
+        fail(f"[28] tools/telemetry_report.py exited {tool.returncode}: "
+             f"{tool.stderr[-2000:]}")
+    if len(events) != 1 or events[0].stat().st_size < 1000:
+        fail(f"[28] TensorBoard events: {events}")
+    log(f"[28] telemetry: {len(records)} rows (steps 0-{accepted - 1}; "
+        f"fallback 1.0 on rows {sorted(window_rows)}, where wire_bytes is the "
+        f"escape's {esc_link.total} B against Top-K's {link.total} B at W=1, "
+        f"dense_bytes {dense_b}); guard_report {report}; JSONL "
+        f"{jsonl.stat().st_size} B and TensorBoard {events[0].stat().st_size} "
+        f"B written; telemetry_report.py rendered "
+        f"{len(tool.stdout.splitlines())} lines")
+    for line in tool.stdout.splitlines()[:12]:
+        log(f"    | {line}")
+    # Last-known-good: step 3 back bit for bit, then one update from it
+    # equals the same update from the copy kept in memory.
+    if (ckpt.all_steps(), ckpt.last_good_step()) != ([3, 5], 3):
+        fail(f"[28] checkpoints {ckpt.all_steps()}, last good "
+             f"{ckpt.last_good_step()}")
+    restored = ckpt.restore_last_good(state)
+    n = _same_state("[28] restore_last_good", _guard_tensors(restored),
+                    after3)
+    for label, (k, v) in (("guard step", ("step", 4)),
+                          ("notfinite_count", ("notfinite_count", 0))):
+        if int(getattr(restored.grace, k)) != v:
+            fail(f"[28] restored {label} {int(getattr(restored.grace, k))}")
+    opt.zero_grad(set_to_none=True)
+    loss_fn(model, (x, y)).backward()
+    grads = {k: p.grad.detach().clone() for k, p in named.items()}
+    a = chain.apply(named, {k: g.clone() for k, g in grads.items()},
+                    restored.grace, opt)
+    got = {"params": {k: p.detach().clone() for k, p in named.items()},
+           "mem": [t.clone() for t in a.inner.mem]}
+    model.load_state_dict(memory["model"])
+    opt.load_state_dict(memory["opt"])
+    b = chain.apply(named, {k: g.clone() for k, g in grads.items()},
+                    memory["grace"], opt)
+    for k, p in named.items():
+        if not same_bits(p.detach().cpu(), got["params"][k].cpu()):
+            fail(f"[28] the update from the restored state differs at {k}")
+    for i, (m1, m2) in enumerate(zip(got["mem"], b.inner.mem)):
+        if not same_bits(m1.cpu(), m2.cpu()):
+            fail(f"[28] the residual after the restored update differs at "
+                 f"leaf {i}")
+    log(f"[28] checkpoints at steps 3 (good) and 5 (not good): "
+        f"restore_last_good gave step 3 back, {n} tensors bit for bit; one "
+        f"update on real gradients from it equals the update from the copy "
+        f"kept in memory (parameters and residuals)")
+    return launches
+
+
+def guarded_healthy_run(dev, group, x, y) -> dict:
+    """An uninjected guarded + telemetry run beside the unguarded topk1pct
+    one: one forward and backward a step, the same gradients to both;
+    their parameters and residuals must agree bit for bit after every
+    step. Returns the guarded side's launches."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import guarded_chain
+
+    ma = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    mb = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    na, nb = dict(ma.named_parameters()), dict(mb.named_parameters())
+    opt_a = torch.optim.SGD(ma.parameters(), lr=1e-3)
+    opt_b = torch.optim.SGD(mb.parameters(), lr=1e-3)
+    tx = grace_from_params(HEADLINE[1]["params"], group=group) \
+        .transform(seed=SEED)
+    chain = guarded_chain(grace_from_params(GUARD_PARAMS, group=group),
+                          seed=SEED, **GUARD_KW)
+    sa, sb = tx.init(na), chain.init(nb)
+    launches = {}
+    for s in range(GUARD_HEALTHY_STEPS):
+        opt_a.zero_grad(set_to_none=True)
+        loss_fn(ma, (x, y)).backward()
+        grads_b = {k: p.grad.detach().clone() for k, p in na.items()}
+        updates, sa = tx.update({k: p.grad for k, p in na.items()}, sa)
+        for k, p in na.items():
+            p.grad = updates[k]
+        opt_a.step()
+        ops.reset_launch_counts()
+        sb = chain.apply(nb, grads_b, sb, opt_b)
+        for k, v in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        for k in na:
+            if not same_bits(na[k].detach().cpu(), nb[k].detach().cpu()):
+                fail(f"[28] healthy guarded step {s}: parameter {k} differs "
+                     "from the unguarded run's")
+        for i, (m1, m2) in enumerate(zip(sa.mem, sb.inner.mem)):
+            if not same_bits(m1.cpu(), m2.cpu()):
+                fail(f"[28] healthy guarded step {s}: residual {i} differs "
+                     "from the unguarded run's")
+    if sb.inner.count != GUARD_HEALTHY_STEPS:
+        fail(f"[28] healthy guarded run: count {sb.inner.count}")
+    log(f"[28] healthy run: {GUARD_HEALTHY_STEPS} guarded + telemetry steps "
+        f"on the unguarded topk1pct run's gradients: parameters and "
+        f"residuals bit for bit those of the unguarded run after every step; "
+        f"launches {launches}")
+    return launches
+
+
+def exchange_host_ms(dev, group, x, y, reps=5) -> dict:
+    """Each of GUARD_ROWS' exchanges alone (the GRACE update and the SGD
+    step, guarded or not) on one set of real ResNet-50 gradients, started
+    on an idle card: the host ms to enqueue it and the ms until the card
+    finishes it, medians of ``reps``; any synchronizing call the exchange
+    makes is counted (``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+
+    import torch
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import guarded_chain
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    named = dict(model.named_parameters())
+    loss_fn(model, (x, y)).backward()
+    grads = {k: p.grad.detach().clone() for k, p in named.items()}
+    out = {}
+    for cfg in GUARD_ROWS:
+        grace = grace_from_params(cfg["params"], group=group)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        if cfg.get("guard") is None:
+            tx = grace.transform(seed=SEED)
+            st = [tx.init(named)]
+
+            def run():
+                updates, st[0] = tx.update(
+                    {k: g.clone() for k, g in grads.items()}, st[0])
+                for k, p in named.items():
+                    p.grad = updates[k]
+                opt.step()
+        else:
+            chain = guarded_chain(grace, seed=SEED, **cfg["guard"])
+            st = [chain.init(named)]
+
+            def run():
+                st[0] = chain.apply(named, {k: g.clone()
+                                            for k, g in grads.items()},
+                                    st[0], opt)
+        run()
+        run()
+        host, total = [], []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    host.append((t1 - t0) * 1e3)
+                    total.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message)[:120] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        out[cfg["name"]] = {"host_ms": statistics.median(host),
+                            "until_done_ms": statistics.median(total),
+                            "syncs": len(syncs) / reps}
+        log(f"  {cfg['name']}: the exchange alone enqueues in "
+            f"{out[cfg['name']]['host_ms']:.2f} ms of host time, done after "
+            f"{out[cfg['name']]['until_done_ms']:.2f} ms; "
+            f"{len(syncs) / reps:g} synchronizing calls a step"
+            + (f" ({syncs[0]})" if syncs else ""))
+    return out
+
+
+def guarded_phase(dev, group, x, y, runs) -> None:
+    """Phase 28, each part driven with the kernels' counts set to 0 just
+    before it and read just after it."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["phase28_injected"] = {"launches": guarded_injection_run(
+            dev, group, x, y, Path(tmp))}
+    torch.cuda.empty_cache()
+    runs["phase28_healthy"] = {"launches": guarded_healthy_run(dev, group,
+                                                               x, y)}
+    torch.cuda.empty_cache()
+    n_params = 25_557_032
+    log(f"[28] the guard's snapshot a step: the parameters and the residuals, "
+        f"2 x {n_params:,} float32 = {2 * 4 * n_params / 1e6:.1f} MB (SGD "
+        f"without momentum keeps no state)")
+    for cfg in GUARD_ROWS:
+        runs[cfg["name"]] = train(dev, group, cfg, x, y, HIER_WARMUP_STEPS,
+                                  HIER_TIMED_STEPS)
+        torch.cuda.empty_cache()
+    log("[28] the four rows' exchanges alone, from an idle card")
+    for name, t in exchange_host_ms(dev, group, x, y).items():
+        runs[name]["exchange"] = t
+    torch.cuda.empty_cache()
+    log("[28] " + "; ".join(
+        f"{c['name']}: device {runs[c['name']]['profiled']['device_ms']:.1f}"
+        f" ms, {runs[c['name']]['profiled']['kernels']} kernels, busy <= "
+        f"{runs[c['name']]['profiled']['device_ms'] / runs[c['name']]['profiled']['wall_ms']:.2f}, "
+        f"{runs[c['name']]['step_ms']:.1f} ms/step, peak "
+        f"{runs[c['name']]['peak_mem_gb']:.2f} GB, chunk launches a step "
+        f"{c['per_step']['chunk_compress_feedback']}+"
+        f"{c['per_step']['chunk_aggregate_dense']}"
+        for c in GUARD_ROWS) + f"; {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_named(fn, word: str) -> str:
     """The name of the one CUDA kernel whose name holds ``word`` among those
     one call of ``fn`` launches, as the profiler names it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3379,8 +3826,7 @@ def kernel_named(fn, word: str) -> str:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = sorted({e.key for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA})
+        names = sorted({e.key for e in device_events(prof)})
         hits = [n for n in names if word in n]
         if len(hits) == 1:
             return hits[0]
@@ -3411,7 +3857,6 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
     the L2 is flushed before each call (flush_l2, a kernel of another
     name)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     warm_profiler()
@@ -3425,8 +3870,7 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+        hits = [e for e in device_events(prof) if kernel_name in e.key]
         seen = sum(e.count for e in hits)
         if want // 2 <= seen <= want:
             break
@@ -3439,8 +3883,7 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
         warm_profiler.__wrapped__()
         time.sleep(0.1 * (attempt + 1))
     if not want // 2 <= seen <= want:
-        kernels = sorted({e.key[:60] for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA})
+        kernels = sorted({e.key[:60] for e in device_events(prof)})
         fail(f"the profiler saw {seen} launches of {kernel_name} in {runs} "
              f"calls of {launches_per_call} (kernels it saw: {kernels})")
     total = sum(getattr(e, "self_device_time_total",
@@ -3760,6 +4203,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- 24 to 27. BERT-base, its example, DAWNBench, VGG-16 ------------
         new_model_phases(dev, group, runs, errs)
+        # -- 28. the guarded training step -----------------------------------
+        log(f"[28] ResNet-50, batch {bs}, under topk1pct + fp16 escape + "
+            f"telemetry through guarded_chain(fallback_after=2, "
+            f"fallback_steps=3): {GUARD_STEPS} steps with NaN steps "
+            f"{GUARD_BAD}, checkpoints, a healthy run, four timed rows")
+        guarded_phase(dev, group, x, y, runs)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

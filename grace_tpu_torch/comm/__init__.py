@@ -30,6 +30,9 @@ import torch.distributed as dist
 from grace_tpu_torch.core import (SINGLE_SLICE, Communicator, Compressor,
                                   Ctx, LeafKey, LinkBytes, Memory, Payload,
                                   Topology, mean_scale)
+from grace_tpu_torch.telemetry.scopes import (STAGE_COMPRESS,
+                                              STAGE_DECOMPRESS,
+                                              STAGE_EXCHANGE, trace_stage)
 
 __all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
            "SignAllreduce", "TwoShotAllreduce", "RingAllreduce",
@@ -162,15 +165,18 @@ def _vote_step_leaves(comm: Communicator, xs, mem_states, comp_states,
     grouped = None
     if (getattr(compressor, "vote_aggregate", False) and compress is not None
             and (coeffs is not None or _is_identity_memory(memory))):
-        grouped = compress(xs, mem_states, coeffs, rngs)
+        with trace_stage(STAGE_COMPRESS):
+            grouped = compress(xs, mem_states, coeffs, rngs)
     if grouped is None:
         return fallback(comm, xs, mem_states, comp_states, memory,
                         compressor, rngs)
     taken, payload, ctx, new_mem = grouped
     # Every rank takes the same leaves (the gates read shapes and dtypes
     # only), so the collectives line up.
-    voted = _psum_majority_vote(compressor.decompress_leaves(payload, ctx),
-                                comm.group, vote_dtype)
+    with trace_stage(STAGE_DECOMPRESS):
+        dec = compressor.decompress_leaves(payload, ctx)
+    with trace_stage(STAGE_EXCHANGE):
+        voted = _psum_majority_vote(dec, comm.group, vote_dtype)
     return _merge_leaves(comm, xs, mem_states, comp_states, memory,
                          compressor, rngs, taken,
                          compressor.leaf_views(voted, ctx), new_mem)
@@ -385,7 +391,8 @@ class Allgather(Communicator):
                             None)
         grouped = None
         if coeffs is not None and compress is not None and aggregate is not None:
-            grouped = compress(xs, mem_states, coeffs, rngs)
+            with trace_stage(STAGE_COMPRESS):
+                grouped = compress(xs, mem_states, coeffs, rngs)
         if grouped is None:
             return fallback(self, xs, mem_states, comp_states, memory,
                             compressor, rngs)
@@ -393,7 +400,10 @@ class Allgather(Communicator):
         # Concatenated payloads gather as one tensor each; every rank takes
         # the same leaves (the gates read shapes and dtypes only), so the
         # collectives line up.
-        outs = aggregate(_gather(payload, self.group), ctx, self.world_size())
+        with trace_stage(STAGE_EXCHANGE):
+            gathered = _gather(payload, self.group)
+        with trace_stage(STAGE_DECOMPRESS):
+            outs = aggregate(gathered, ctx, self.world_size())
         return _merge_leaves(self, xs, mem_states, comp_states, memory,
                              compressor, rngs, taken, outs, new_mem)
 
@@ -430,12 +440,14 @@ class Allgather(Communicator):
         world = self.world_size()
         fused = getattr(compressor, "fused_aggregate_decompress", None)
         if fused is not None:
-            out = fused(gathered, ctx, world)
+            with trace_stage(STAGE_DECOMPRESS):
+                out = fused(gathered, ctx, world)
             if out is not None:        # handles aggregate + average itself
                 return out
-        stacked = torch.stack([
-            compressor.decompress(_rank_payload(gathered, i), ctx)
-            for i in range(world)])
+        with trace_stage(STAGE_DECOMPRESS):
+            stacked = torch.stack([
+                compressor.decompress(_rank_payload(gathered, i), ctx)
+                for i in range(world)])
         out = compressor.aggregate(stacked)
         if compressor.average:
             out = out * mean_scale(world)             # out / world

@@ -135,6 +135,29 @@ class TopKCompressor(Compressor):
                tuple(g.shape for g in grads))
         return taken, (values, indices), ctx, new_states
 
+    def fused_roundtrip_leaves(self, xs):
+        """The telemetry's compress → decompress round-trip of every leaf
+        the chunk kernels take, in ONE grouped compress launch without
+        feedback: its new residual is ``x − decompress(compress(x))``
+        exactly (``gamma = 1`` leaves ``x`` as it is, and the residual is
+        ``x`` with the kept lanes, wire-rounded, taken out). Returns
+        ``(taken, errors)`` or None where no leaf passes or the kernel
+        path is off."""
+        if not self._kernel_path():
+            return None
+        taken, ks = [], []
+        for i, x in enumerate(xs):
+            k = self._chunk_k(x.numel(), x.dtype)
+            if k is not None and x.is_contiguous():
+                taken.append(i)
+                ks.append(k)
+        if not taken:
+            return None
+        _, _, errors = chunk_topk.chunk_compress_feedback_grouped(
+            [xs[i] for i in taken], [None] * len(taken), ks,
+            wire_bf16=self.wire_dtype == "bfloat16")
+        return taken, errors
+
     def fused_aggregate_decompress_leaves(self, gathered: Payload, ctx,
                                           world: int):
         """The grouped aggregate of the leaves of

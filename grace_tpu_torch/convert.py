@@ -11,7 +11,8 @@ flatten order, one per bucket of a bucketed or flat run, or one per
 ``'grouped'`` group, stacked along a leading axis of the group's size), so
 a JAX run's residuals,
 Signum momenta, PowerSGD's Q factors and the DGC memory's
-``{"residual", "gradient"}`` dicts carry over entry for entry.
+``{"residual", "gradient"}`` dicts carry over entry for entry, with the
+fallback flag, the telemetry ring and a guard's counters.
 """
 
 from __future__ import annotations
@@ -60,17 +61,49 @@ def _state_leaf(value, rank: Optional[int]):
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _find_grace(tree):
+    """The first GraceState-like node (``count``, ``mem`` and ``comp``) in
+    a JAX optimizer state: a chain's tuple of states, or the state itself."""
+    if all(hasattr(tree, a) for a in ("count", "mem", "comp")):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            found = _find_grace(t)
+            if found is not None:
+                return found
+    return None
+
+
 def grace_state_from_jax(jax_state: Any, seed: int,
                          rank: Optional[int] = None):
     """A JAX ``GraceState`` (after ``jax.device_get``) → the port's
     :class:`~grace_tpu_torch.transform.GraceState`, to resume a JAX run in
-    the port. ``count``, ``mem`` and ``comp`` carry over; the JAX threefry
-    key does not (the port's streams hang off ``seed``, see
-    ``core.LeafKey``). ``rank`` picks one rank's slice of per-rank state
-    that carries a leading world axis (as ``init_train_state`` on a mesh
-    builds it); None takes the arrays as they are."""
+    the port. ``count``, ``mem``, ``comp``, ``fallback`` and the telemetry
+    ring carry over; the JAX threefry key does not (the port's streams hang
+    off ``seed``, see ``core.LeafKey``). A JAX guard's ``GuardState``
+    becomes the port's, its counters as int32 scalars, wrapping the
+    GraceState found in its chain state. ``rank`` picks one rank's slice
+    of per-rank state that carries a leading world axis (as
+    ``init_train_state`` on a mesh builds it); None takes the arrays as
+    they are. Everything lands on the CPU."""
+    from grace_tpu_torch.resilience.guard import _COUNTERS, GuardState
+    from grace_tpu_torch.telemetry.state import TelemetryState
     from grace_tpu_torch.transform import GraceState
+
+    if hasattr(jax_state, "notfinite_count"):
+        return GuardState(
+            inner=grace_state_from_jax(_find_grace(jax_state.inner), seed,
+                                       rank),
+            **{name: torch.tensor(int(np.asarray(getattr(jax_state, name))),
+                                  dtype=torch.int32)
+               for name in _COUNTERS})
+    telem = getattr(jax_state, "telem", None)
+    if telem is not None:
+        telem = TelemetryState(rings=_state_leaf(telem.rings, rank),
+                               steps=_state_leaf(telem.steps, rank))
     return GraceState(
         count=int(np.asarray(jax_state.count)), seed=int(seed),
         mem=[_state_leaf(m, rank) for m in jax_state.mem],
-        comp=[_state_leaf(c, rank) for c in jax_state.comp])
+        comp=[_state_leaf(c, rank) for c in jax_state.comp],
+        fallback=bool(np.asarray(getattr(jax_state, "fallback", False))),
+        telem=telem)

@@ -26,6 +26,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from grace_tpu_torch.telemetry.scopes import (STAGE_COMPENSATE,
+                                              STAGE_COMPRESS, STAGE_EXCHANGE,
+                                              STAGE_MEMORY_UPDATE,
+                                              trace_stage)
+
 # One rank's wire payload: a tuple of tensors.
 Payload = Tuple[torch.Tensor, ...]
 # Decode context, identical across ranks (static Python data).
@@ -654,10 +659,13 @@ class Communicator:
     def step(self, x: torch.Tensor, mem_state: State, comp_state: State,
              memory: Memory, compressor: Compressor, rng: LeafKey
              ) -> tuple[torch.Tensor, State, State]:
-        """compensate → compress → memory update → exchange."""
+        """compensate → compress → memory update → exchange, each stage a
+        named trace span (``telemetry.scopes``)."""
         payload, ctx, mem_state, comp_state = self.encode(
             x, mem_state, comp_state, memory, compressor, rng)
-        return self.exchange(payload, ctx, compressor), mem_state, comp_state
+        with trace_stage(STAGE_EXCHANGE):
+            out = self.exchange(payload, ctx, compressor)
+        return out, mem_state, comp_state
 
     def encode(self, x: torch.Tensor, mem_state: State, comp_state: State,
                memory: Memory, compressor: Compressor, rng: LeafKey
@@ -676,11 +684,13 @@ class Communicator:
         coeffs = getattr(memory, "linear_feedback_coeffs", None)
         fused = getattr(compressor, "fused_feedback_compress", None)
         if coeffs is not None and fused is not None and mem_state is not None:
-            fused_out = fused(x, mem_state, coeffs, rng)
+            with trace_stage(STAGE_COMPRESS):
+                fused_out = fused(x, mem_state, coeffs, rng)
             if fused_out is not None:
                 payload, ctx, mem_state = fused_out
                 return payload, ctx, mem_state, comp_state
-        compensated, mem_state = memory.compensate(x, mem_state)
+        with trace_stage(STAGE_COMPENSATE):
+            compensated, mem_state = memory.compensate(x, mem_state)
         # The negotiation runs before the encode, on the compensated
         # tensor: the shared value (and so the decode ctx) is the same on
         # every rank, payloads sum homomorphically, and error feedback
@@ -688,13 +698,17 @@ class Communicator:
         # here, a one-rank one included, so it always runs.
         shared = None
         if needs_negotiation(compressor):
-            shared = compressor.negotiate(compensated, self.group, rng=rng)
-        if shared is None:
-            payload, ctx, comp_state = compressor.compress(
-                compensated, comp_state, rng)
-        else:
-            payload, ctx, comp_state = compressor.compress(
-                compensated, comp_state, rng, shared=shared)
-        mem_state = memory.update(compensated, payload, ctx, compressor,
-                                  mem_state)
+            with trace_stage(f"{STAGE_EXCHANGE}/negotiate_scale"):
+                shared = compressor.negotiate(compensated, self.group,
+                                              rng=rng)
+        with trace_stage(STAGE_COMPRESS):
+            if shared is None:
+                payload, ctx, comp_state = compressor.compress(
+                    compensated, comp_state, rng)
+            else:
+                payload, ctx, comp_state = compressor.compress(
+                    compensated, comp_state, rng, shared=shared)
+        with trace_stage(STAGE_MEMORY_UPDATE):
+            mem_state = memory.update(compensated, payload, ctx, compressor,
+                                      mem_state)
         return payload, ctx, mem_state, comp_state

@@ -33,8 +33,8 @@ from grace_tpu_torch import compressors as C
 from grace_tpu_torch import memories as M
 from grace_tpu_torch.core import (Communicator, Compressor, LinkBytes, Memory,
                                   Topology, negotiation_bytes_for)
-from grace_tpu_torch.transform import (GraceTransform, _struct,
-                                       check_fusion, grace_transform,
+from grace_tpu_torch.transform import (GraceTransform, _normalize_telemetry,
+                                       _struct, check_fusion, grace_transform,
                                        leaf_order, leaf_path_str,
                                        normalize_routes, route_for)
 
@@ -46,7 +46,7 @@ PORTED_KEYS = frozenset({
     "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size",
     "slice_size", "region_size", "wan_compressor", "compress_rank",
     "threshold", "capacity_ratio", "lr", "gradient_clipping",
-    "recall_target", "route"})
+    "recall_target", "route", "escape", "telemetry"})
 
 COMPRESSORS = ("none", "fp16", "bf16", "bfloat16", "cyclictopk", "topk",
                "randomk", "threshold", "qsgd", "homoqsgd", "countsketch",
@@ -66,12 +66,13 @@ class Grace:
     """The configured triad; ``.transform(seed)`` builds the executor.
 
     ``topology`` is the link layout that ``slice_size`` and ``region_size``
-    declare (None when neither is given), the JAX package's ``Grace``
-    field. Nothing in the port reads it yet: its readers, the telemetry
-    ring's per-link wire split among them, come with their own slices.
-    ``routes`` is the normalized per-leaf routing table
+    declare (None when neither is given: the telemetry ring then prices
+    its per-link split under the detected layout), the JAX package's
+    ``Grace`` field. ``routes`` is the normalized per-leaf routing table
     (``((pattern, compressor, memory, communicator), ...)``) that
-    ``params["route"]`` builds."""
+    ``params["route"]`` builds. ``escape`` is the dense codec of the
+    guard's fallback window (None: no escape) and ``telemetry`` the ring's
+    setting (None, True, a capacity, a dict or a ``TelemetryConfig``)."""
 
     compressor: Compressor
     memory: Memory
@@ -79,12 +80,16 @@ class Grace:
     fusion: Any = None        # None | 'flat' | 'grouped' | bucket bytes
     topology: Optional[Topology] = None
     routes: Tuple = ()
+    escape: Optional[Compressor] = None
+    telemetry: Any = None
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
                                self.communicator, seed=seed,
                                fusion=self.fusion,
-                               routes=self.routes or None)
+                               routes=self.routes or None,
+                               escape=self.escape, telemetry=self.telemetry,
+                               topology=self.topology)
 
 
 def _build_compressor(params: Dict[str, Any], group=None) -> Compressor:
@@ -178,6 +183,21 @@ def _build_memory(params: Dict[str, Any], group=None) -> Memory:
     raise _unsupported("memory", name, MEMORIES)
 
 
+def _build_escape(escape) -> Optional[Compressor]:
+    """The escape codec a params dict names: ``"none"``/``"dense"`` (the
+    identity), ``"fp16"``, ``"bf16"``/``"bfloat16"``, or a compressor
+    object as it is."""
+    if not isinstance(escape, str):
+        return escape
+    if escape in ("none", "dense"):
+        return C.NoneCompressor()
+    if escape in ("fp16", "bf16", "bfloat16"):
+        return C.FP16Compressor(dtype="float16" if escape == "fp16"
+                                else "bfloat16")
+    raise ValueError(f"unknown escape compressor {escape!r} — use "
+                     "'none'/'dense', 'fp16', or 'bf16'")
+
+
 def _build_communicator(params: Dict[str, Any], group) -> Communicator:
     name = params.get("communicator", "allgather")
     if name == "allreduce":
@@ -262,7 +282,9 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
     return Grace(compressor=_build_compressor(params, group),
                  memory=_build_memory(params, group),
                  communicator=communicator,
-                 fusion=fusion, topology=topology, routes=routes)
+                 fusion=fusion, topology=topology, routes=routes,
+                 escape=_build_escape(params.get("escape")),
+                 telemetry=_normalize_telemetry(params.get("telemetry")))
 
 
 def route_leaves(grace: Grace, tree: Mapping[str, Any]) -> list:

@@ -20,6 +20,14 @@ step eagerly and the communicators' collectives join the ranks. One step:
 
 The exchanged update replaces each parameter's ``.grad`` in place of the
 local gradient, which the exchange consumes.
+
+Resilience: pass a guarded chain
+(``grace_tpu_torch.resilience.guarded_chain(grace, ...)``) where a
+``GraceTransform`` goes, as the JAX package's train step takes a guarded
+optax chain. Steps 3 and 4 then run inside the guard, which skips a bad
+step and rolls back the parameters, the optimizer state and the GRACE
+state together; ``TrainState.grace`` holds its ``GuardState``, and the
+loop reads its health with ``utils.metrics.guard_report(state)``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from grace_tpu_torch.telemetry.scopes import (STAGE_FWD_BWD,
+                                              STAGE_OPTIMIZER, trace_stage)
 from grace_tpu_torch.transform import GraceState, GraceTransform
 
 __all__ = ["TrainState", "make_train_step", "make_stateful_train_step",
@@ -42,7 +52,7 @@ __all__ = ["TrainState", "make_train_step", "make_stateful_train_step",
 class TrainState:
     model: nn.Module                  # parameters and buffers (BN stats)
     optimizer: torch.optim.Optimizer  # over model.parameters()
-    grace: GraceState                 # per-leaf error-feedback state
+    grace: Any                        # GraceState, or a guard's GuardState
 
 
 def _src_rank(group) -> int:
@@ -77,8 +87,9 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
         model.train()
         named = dict(model.named_parameters())
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
+        with trace_stage(STAGE_FWD_BWD):
+            loss = loss_fn(model, batch)
+            loss.backward()
         if sync_model_state:
             with torch.no_grad():
                 for buf in model.buffers():
@@ -89,10 +100,15 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
             if p.grad is None:
                 raise ValueError(f"parameter {name!r} got no gradient")
             grads[name] = p.grad
-        updates, grace = grace_tx.update(grads, state.grace)
-        for name, p in named.items():
-            p.grad = updates[name]
-        state.optimizer.step()
+        with trace_stage(STAGE_OPTIMIZER):
+            apply = getattr(grace_tx, "apply", None)
+            if apply is not None:         # a guarded chain steps itself
+                grace = apply(named, grads, state.grace, state.optimizer)
+            else:
+                updates, grace = grace_tx.update(grads, state.grace)
+                for name, p in named.items():
+                    p.grad = updates[name]
+                state.optimizer.step()
         loss = _mean_over_group(loss.detach().clone(), group)
         return TrainState(model, state.optimizer, grace), loss
 
@@ -102,7 +118,8 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
 def make_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
                     grace_tx: GraceTransform, group: Optional[Any] = None):
     """``step(state, batch) -> (state, loss)``. ``loss_fn(model, batch)``
-    returns the mean loss over the local batch."""
+    returns the mean loss over the local batch. ``grace_tx`` is a
+    GraceTransform or a guarded chain (module docstring)."""
     return _make_step(loss_fn, grace_tx, group, sync_model_state=False)
 
 

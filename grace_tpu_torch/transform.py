@@ -41,6 +41,22 @@ g), G)[j]``.
 
 Every rank walks the same plan (it reads names, shapes and dtypes only), so
 the collectives of the buckets, groups and routed triads line up.
+
+Two options ride on every executor, as in JAX:
+
+* ``escape=`` a dense codec (none, fp16, bf16): while the state's replicated
+  ``fallback`` flag is set, the update is a dense ``escape``-coded
+  all-reduce of the raw gradients instead, leaf by leaf, and ``mem`` and
+  ``comp`` pass through untouched. The flag is set by
+  :func:`grace_tpu_torch.resilience.guard_transform`; JAX branches with
+  ``lax.cond`` on it, the port reads it on the host where the exchange
+  begins (the guard makes it known there).
+* ``telemetry=``: one row of the device ring
+  (:mod:`grace_tpu_torch.telemetry`) at the end of each update: the norms,
+  the relative compression error (a compress → decompress round-trip over
+  the structures the executor compresses, without feedback), and the
+  effective wire bytes under the transform's :class:`Topology`, which flip
+  to the escape's price inside a fallback window.
 """
 
 from __future__ import annotations
@@ -53,8 +69,15 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
-from grace_tpu_torch.core import (Communicator, Compressor, LeafKey, Memory,
-                                  State)
+from grace_tpu_torch.core import (Communicator, Compressor, LeafKey,
+                                  LinkBytes, Memory, State, Topology,
+                                  negotiation_bytes_for)
+from grace_tpu_torch.telemetry.scopes import (STAGE_BUCKET,
+                                              STAGE_DENSE_ESCAPE,
+                                              STAGE_TELEMETRY, trace_stage)
+from grace_tpu_torch.telemetry.state import (TelemetryConfig,
+                                             TelemetryState, telemetry_init,
+                                             telemetry_record)
 
 Fusion = Union[None, str, int]
 
@@ -238,12 +261,38 @@ def _unstack_state(state, g: int) -> list:
 
 
 def _state_tensors(state) -> list:
+    """The tensors of a mem/comp entry, or of a list of them (None, a
+    tensor, or dicts, tuples and lists of them), in a fixed order."""
     if isinstance(state, torch.Tensor):
         return [state]
-    if isinstance(state, (dict, tuple)):
+    if isinstance(state, (dict, tuple, list)):
         values = state.values() if isinstance(state, dict) else state
         return [t for v in values for t in _state_tensors(v)]
     return []
+
+
+def _float32(tensors) -> list:
+    """The floating tensors among ``tensors`` as float32, empty ones left
+    out."""
+    return [t if t.dtype == torch.float32 else t.float() for t in tensors
+            if t.is_floating_point() and t.numel()]
+
+
+def _sqsum(tensors) -> torch.Tensor:
+    """Σ x² over every floating tensor, in float32, as a 0-d tensor on
+    their device (the JAX package's ``_sqsum``; the per-tensor norms run
+    as one multi-tensor launch, and the sum is squared norms, equal to
+    JAX's within float32 rounding)."""
+    ts = _float32(tensors)
+    if not ts:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(torch._foreach_norm(ts)).square().sum()
+
+
+def _absmax(tensors) -> torch.Tensor:
+    """max |x| over every floating tensor (NaN if any is NaN)."""
+    return torch.stack(torch._foreach_norm(_float32(tensors),
+                                           float("inf"))).amax()
 
 
 _REINIT = ("the state was built under a different fusion setting. Re-init "
@@ -257,6 +306,59 @@ class GraceState:
     seed: int                 # base of the per-(step, leaf) streams
     mem: List[State]          # memory state per leaf, group or bucket
     comp: List[State]         # compressor state likewise
+    # Replicated health flag: True routes the next update through the
+    # dense escape (grace_transform(escape=...)). Written by the guard via
+    # set_fallback_flag; without a guard it stays False.
+    fallback: bool = False
+    # The telemetry ring (per-rank data, like mem/comp) when the transform
+    # was built with telemetry=..., else None.
+    telem: Optional[TelemetryState] = None
+
+
+# The field split every layout-aware consumer agrees on, the JAX
+# package's under the port's field names (its rng_key is the port's seed;
+# the watch ring, the audit and the adaptive state are not ported yet).
+# VARYING fields hold per-rank data (a checkpoint writes them a file a
+# rank); REPLICATED fields are the same on every rank.
+GRACE_VARYING_FIELDS = ("mem", "comp", "telem")
+GRACE_REPLICATED_FIELDS = ("count", "seed", "fallback")
+# The observational varying fields: rings that record pipeline values as
+# they are, so the guard's state scan strips them (they still roll back).
+GRACE_OBSERVATIONAL_FIELDS = ("telem",)
+
+
+def _map_grace(fn, tree):
+    """``tree`` with ``fn`` applied to every GraceState in it (through
+    lists, tuples, dicts and the guard's state)."""
+    from grace_tpu_torch.resilience.guard import GuardState
+    if isinstance(tree, GraceState):
+        return fn(tree)
+    if isinstance(tree, GuardState):
+        return tree.replace(inner=_map_grace(fn, tree.inner))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_grace(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _map_grace(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def set_fallback_flag(tree, active: bool):
+    """``tree`` with ``active`` written into the ``fallback`` flag of every
+    GraceState in it; a tree without one comes back as it was."""
+    return _map_grace(
+        lambda g: dataclasses.replace(g, fallback=bool(active)), tree)
+
+
+def fallback_flags(tree) -> list:
+    """The ``fallback`` flags of every GraceState in ``tree``, in order."""
+    flags: list = []
+
+    def note(g):
+        flags.append(g.fallback)
+        return g
+
+    _map_grace(note, tree)
+    return flags
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,6 +369,11 @@ class GraceTransform:
     seed: int = 0
     fusion: Fusion = None     # None, 'flat', 'grouped' or bucket bytes
     routes: Tuple = ()        # normalized ((pattern, comp, mem, comm), ...)
+    escape: Optional[Compressor] = None         # the dense escape codec
+    telemetry: Optional[TelemetryConfig] = None
+    topology: Optional[Topology] = None         # prices the link split
+    _wire_plans: dict = dataclasses.field(default_factory=dict,
+                                          compare=False, repr=False)
 
     @property
     def _grouped(self) -> bool:
@@ -301,7 +408,11 @@ class GraceTransform:
                 leaves = self._bucket_buffers(leaves)[1]
             mem = [self.memory.init_state(p) for p in leaves]
             comp = [self.compressor.init_state(p) for p in leaves]
-        return GraceState(count=0, seed=self.seed, mem=mem, comp=comp)
+        device = leaves[0].device if leaves else None
+        return GraceState(
+            count=0, seed=self.seed, mem=mem, comp=comp,
+            telem=(telemetry_init(self.telemetry, device)
+                   if self.telemetry is not None else None))
 
     def _bucket_buffers(self, leaves):
         """The bucket plan of these leaves and each bucket's flat buffer at
@@ -315,13 +426,34 @@ class GraceTransform:
     def update(self, grads: Mapping[str, torch.Tensor], state: GraceState
                ) -> Tuple[Dict[str, torch.Tensor], GraceState]:
         """Local gradients → globally aggregated updates, by the executor
-        that ``fusion`` and ``routes`` select (module docstring)."""
+        that ``fusion`` and ``routes`` select (module docstring), or by the
+        dense escape while ``state.fallback`` is set."""
         names = leaf_order(grads)
         leaves = [grads[n] for n in names]
-        if self._grouped:
+        if self.telemetry is not None and state.telem is None:
+            raise ValueError(
+                "grace_transform was built with telemetry=... but the state "
+                "has no telemetry ring — it was initialized by a transform "
+                "without telemetry (or restored from such a checkpoint). "
+                "Re-init the optimizer state with the telemetry-enabled "
+                "transform.")
+        dense = self.escape is not None and bool(state.fallback)
+        plan = (self._bucket_buffers(leaves)
+                if self._bucketed and not dense else None)
+        if self.telemetry is not None:
+            # Before the exchange: an all-reduce may sum into the
+            # gradients in place (the identity codec's payload).
+            with trace_stage(STAGE_TELEMETRY):
+                grad_sq = _sqsum(leaves)
+                err_sq = (self._codec_error_sq(names, leaves, plan, state)
+                          if self.telemetry.compression_error and not dense
+                          else None)
+        if dense:
+            outs, mem, comp = self._run_dense(leaves, state)
+        elif self._grouped:
             outs, mem, comp = self._update_grouped(leaves, state)
         elif self._bucketed:
-            outs, mem, comp = self._update_bucketed(leaves, state)
+            outs, mem, comp = self._update_bucketed(leaves, state, plan)
         else:
             if len(state.mem) != len(names):
                 raise ValueError(
@@ -330,8 +462,190 @@ class GraceTransform:
                     "over these gradients: the state was built for another "
                     "parameter set or fusion setting. Re-init it.")
             outs, mem, comp = self._update_per_leaf(names, leaves, state)
+        telem = state.telem
+        if self.telemetry is not None:
+            with trace_stage(STAGE_TELEMETRY):
+                telem = self._telemetry_next(state, names, leaves, outs, mem,
+                                             grad_sq, err_sq)
         return dict(zip(names, outs)), GraceState(
-            count=state.count + 1, seed=state.seed, mem=mem, comp=comp)
+            count=state.count + 1, seed=state.seed, mem=mem, comp=comp,
+            fallback=state.fallback, telem=telem)
+
+    def _run_dense(self, leaves, state: GraceState):
+        """The escape: a dense ``escape``-coded all-reduce of the raw
+        gradients, leaf by leaf under each leaf's key; mem and comp pass
+        through untouched, so error feedback resumes where it paused."""
+        from grace_tpu_torch.comm import Allreduce
+
+        allreduce = Allreduce(group=self.communicator.group)
+        outs = []
+        with trace_stage(STAGE_DENSE_ESCAPE):
+            for i, g in enumerate(leaves):
+                payload, ctx, _ = self.escape.compress(
+                    g, self.escape.init_state(g),
+                    LeafKey(state.seed, state.count, i))
+                outs.append(allreduce.exchange(payload, ctx, self.escape)
+                            .to(g.dtype))
+        return outs, state.mem, state.comp
+
+    # -- telemetry -----------------------------------------------------------
+
+    def _roundtrip_items(self, names, leaves, plan, state: GraceState):
+        """``(x, comp_state, key, codec)`` of every compress call the active
+        executor makes, with the keys it makes them under (``plan``: the
+        bucket plan and buffers of a bucketed executor)."""
+        if self._grouped:
+            items = []
+            for gi, idxs in enumerate(_group_views(leaves)):
+                keys = LeafKey(state.seed, state.count, gi).split(len(idxs))
+                comps = _unstack_state(state.comp[gi], len(idxs))
+                items += [(leaves[i], cs, key, self.compressor)
+                          for i, cs, key in zip(idxs, comps, keys)]
+            return items
+        if self._bucketed:
+            return [(f, state.comp[b], LeafKey(state.seed, state.count, b),
+                     self.compressor) for b, f in enumerate(plan[1])]
+        codecs = ([c for c, _, _ in self.leaf_triads(names)] if self.routes
+                  else [self.compressor] * len(leaves))
+        return [(g, state.comp[i], LeafKey(state.seed, state.count, i), c)
+                for i, (g, c) in enumerate(zip(leaves, codecs))]
+
+    def _codec_error_sq(self, names, leaves, plan, state: GraceState
+                        ) -> torch.Tensor:
+        """Σ‖x − decompress(compress(x))‖² over the structures (and keys)
+        the active executor compresses, without error feedback. A codec
+        with a grouped round-trip (chunk Top-K's kernel) takes all of its
+        structures in one launch; the rest go one by one."""
+        items = self._roundtrip_items(names, leaves, plan, state)
+        diffs, by_codec = [], {}
+        for j, item in enumerate(items):
+            by_codec.setdefault(id(item[3]), []).append(j)
+        for idxs in by_codec.values():
+            codec = items[idxs[0]][3]
+            fused = getattr(codec, "fused_roundtrip_leaves", None)
+            done = set()
+            if fused is not None:
+                got = fused([items[j][0] for j in idxs])
+                if got is not None:
+                    taken, errs = got
+                    diffs += errs
+                    done = {idxs[t] for t in taken}
+            for j in idxs:
+                if j not in done:
+                    x, cs, key, _ = items[j]
+                    payload, ctx, _ = codec.compress(x, cs, key)
+                    diffs.append(x - codec.decompress(payload, ctx))
+        return _sqsum(diffs)
+
+    def _wire_plan(self, names, leaves, world: int):
+        """``(dense, link, escape_link, negotiation)`` bytes of one step of
+        these leaves under the active executor at ``world`` ranks, as the
+        JAX package prices them: the raw dense bytes, the received bytes
+        by link class (:meth:`Communicator.recv_link_bytes` under the
+        transform's topology; byte buckets priced a bucket at a time), the
+        escape's all-reduce, and the negotiation collectives. Integers,
+        cached per leaf signature and world."""
+        from grace_tpu_torch.comm import Allreduce
+        from grace_tpu_torch.utils.metrics import payload_nbytes
+
+        structs = [_struct(l) for l in leaves]
+        key = (tuple(names) if self.routes else None, tuple(structs), world)
+        plan = self._wire_plans.get(key)
+        if plan is not None:
+            return plan
+        topo = self.topology
+        n_elems = sum(math.prod(s) for s, _ in structs)
+        dense = sum(math.prod(s) * d.itemsize for s, d in structs)
+        if self.routes:
+            ici = dcn = wan = neg_b = 0
+            for s, (comp, _m, cm) in zip(structs, self.leaf_triads(names)):
+                ne = math.prod(s[0])
+                lb = cm.recv_link_bytes(
+                    payload_nbytes(comp, s), ne, world, topology=topo,
+                    vote=bool(getattr(comp, "vote_aggregate", False)))
+                ici, dcn, wan = ici + lb.ici, dcn + lb.dcn, wan + lb.wan
+                neg_b += negotiation_bytes_for(comp, ne, world)
+            link = LinkBytes(ici=ici, dcn=dcn, wan=wan)
+        else:
+            vote = bool(getattr(self.compressor, "vote_aggregate", False))
+            payloads = fusion_payload_structs(structs, self.fusion)
+            if self._bucketed and self.fusion != "flat":
+                # One collective chain a bucket: the sum of bucket prices
+                # (ring schedules round a collective at a time).
+                ici = dcn = wan = 0
+                for s, count in payloads:
+                    lb = self.communicator.recv_link_bytes(
+                        payload_nbytes(self.compressor, s), math.prod(s[0]),
+                        world, topology=topo, vote=vote)
+                    ici += count * lb.ici
+                    dcn += count * lb.dcn
+                    wan += count * lb.wan
+                link = LinkBytes(ici=ici, dcn=dcn, wan=wan)
+            else:
+                comp_b = sum(payload_nbytes(self.compressor, s) * count
+                             for s, count in payloads)
+                link = self.communicator.recv_link_bytes(
+                    comp_b, n_elems, world, topology=topo, vote=vote)
+            neg_b = sum(count * negotiation_bytes_for(
+                self.compressor, math.prod(s[0]), world)
+                for s, count in payloads)
+        esc_link = None
+        if self.escape is not None:
+            esc_b = sum(payload_nbytes(self.escape, s) for s in structs)
+            esc_link = Allreduce(group=self.communicator.group) \
+                .recv_link_bytes(esc_b, n_elems, world, topology=topo)
+        plan = self._wire_plans[key] = (dense, link, esc_link, neg_b)
+        return plan
+
+    def _telemetry_next(self, state: GraceState, names, leaves, outs,
+                        new_mem, grad_sq, err_sq) -> TelemetryState:
+        """The ring with this update's row: every value computed on the
+        device or known on the host, nothing read back."""
+        world = self.communicator.world_size()
+        dense_b, link, esc_link, neg_b = self._wire_plan(names, leaves,
+                                                         world)
+        fallback = bool(state.fallback)
+        grad_norm = torch.sqrt(grad_sq)
+        mem_leaves = [t for t in _state_tensors(new_mem)
+                      if t.is_floating_point()]
+        if mem_leaves:
+            residual_norm = torch.sqrt(_sqsum(mem_leaves))
+            residual_max = _absmax(mem_leaves)
+        else:
+            residual_norm = residual_max = 0.0
+        err = 0.0
+        if err_sq is not None:
+            err = torch.sqrt(err_sq) / torch.clamp(grad_norm, min=1e-20)
+        dense = self.escape is not None and fallback
+        eff = esc_link if dense else link
+        tiers = {"ici": float(eff.ici), "dcn": float(eff.dcn),
+                 "wan": float(eff.wan)}
+        wire = float(eff.total)
+        ngb = 0 if dense else neg_b
+        if neg_b:
+            # The negotiation is a flat full-group collective: its bytes
+            # ride the worst tier the group spans.
+            tier = (self.topology or Topology()).flat_tier(world)
+            tiers[tier] += float(ngb)
+            wire += float(ngb)
+        return telemetry_record(state.telem, state.count, {
+            "grad_norm": grad_norm,
+            "update_norm": torch.sqrt(_sqsum(outs)),
+            "residual_norm": residual_norm,
+            "residual_max": residual_max,
+            "compression_error": err,
+            "wire_bytes": wire,
+            "dense_bytes": float(dense_b),
+            "fallback": float(fallback),
+            "audit_bytes": 0.0,
+            "wire_bytes_ici": tiers["ici"],
+            "wire_bytes_dcn": tiers["dcn"],
+            "wire_bytes_wan": tiers["wan"],
+            "watch_bytes": 0.0,
+            "negotiation_bytes": float(ngb),
+            "adapt_rung": -1.0,
+            "adapt_bytes": 0.0,
+        })
 
     def _update_per_leaf(self, names, leaves, state: GraceState):
         """One pipeline a leaf. Routed leaves are partitioned by triad, in
@@ -386,20 +700,22 @@ class GraceTransform:
             comp.append(_stack_states(cs))
         return outs, mem, comp
 
-    def _update_bucketed(self, leaves, state: GraceState):
+    def _update_bucketed(self, leaves, state: GraceState, plan):
         """K independent pipelines, one a bucket: its leaves concatenated
-        at the common dtype, one ``step`` under ``LeafKey(seed, count, b)``
-        with the bucket's own states, the result split back into the leaves
-        and each cast to its dtype."""
-        buckets, flats = self._bucket_buffers(leaves)
+        at the common dtype (``plan``: :meth:`_bucket_buffers` of them),
+        one ``step`` under ``LeafKey(seed, count, b)`` with the bucket's own
+        states, the result split back into the leaves and each cast to its
+        dtype."""
+        buckets, flats = plan
         if len(state.mem) != len(buckets):
             raise ValueError(
                 f"grace state has {len(state.mem)} buffers but the fusion "
                 f"plan has {len(buckets)} buckets — {_REINIT}")
-        out_flats, mem, comp = self.communicator.step_leaves(
-            flats, state.mem, state.comp, self.memory, self.compressor,
-            [LeafKey(state.seed, state.count, b)
-             for b in range(len(buckets))])
+        with trace_stage(STAGE_BUCKET):
+            out_flats, mem, comp = self.communicator.step_leaves(
+                flats, state.mem, state.comp, self.memory, self.compressor,
+                [LeafKey(state.seed, state.count, b)
+                 for b in range(len(buckets))])
         outs = [None] * len(leaves)
         for idxs, out in zip(buckets, out_flats):
             off = 0
@@ -429,14 +745,40 @@ def check_fusion(fusion: Fusion, routed: bool = False) -> None:
             f"Got fusion={fusion!r}.")
 
 
+def _normalize_telemetry(telemetry) -> Optional[TelemetryConfig]:
+    """The telemetry knob's spellings: None/False (off), True (defaults),
+    an int (ring capacity), a dict (config kwargs) or a TelemetryConfig."""
+    if telemetry is None or telemetry is False:
+        return None
+    if telemetry is True:
+        return TelemetryConfig()
+    if isinstance(telemetry, TelemetryConfig):
+        return telemetry
+    if isinstance(telemetry, int):
+        return TelemetryConfig(capacity=telemetry)
+    if isinstance(telemetry, dict):
+        return TelemetryConfig(**telemetry)
+    raise TypeError(f"telemetry must be None/bool/int/dict/TelemetryConfig; "
+                    f"got {type(telemetry).__name__}")
+
+
 def grace_transform(compressor: Compressor, memory: Memory,
                     communicator: Communicator, seed: int = 0,
                     fusion: Fusion = None,
-                    routes: Optional[Sequence] = None) -> GraceTransform:
+                    routes: Optional[Sequence] = None,
+                    escape: Optional[Compressor] = None, telemetry=None,
+                    topology: Optional[Topology] = None) -> GraceTransform:
     """Build the compressed-exchange transform (module docstring): the
     executor is picked by ``fusion`` (None, ``'flat'``, ``'grouped'`` or
     bucket bytes) and ``routes`` (``[(pattern, triad), ...]``, see
-    :func:`normalize_routes`; they need ``fusion=None``)."""
+    :func:`normalize_routes`; they need ``fusion=None``).
+
+    ``escape`` is the dense codec of the fallback window (``NoneCompressor``
+    or ``FP16Compressor``); ``telemetry`` arms the ring (None, True, a
+    capacity, a dict or a :class:`TelemetryConfig`); ``topology`` is the
+    link layout the ring prices its per-link split under (None: detected
+    once, here, when telemetry is on: ``Topology.detect()``, a collective
+    of the default process group)."""
     routes = normalize_routes(routes, communicator) if routes else ()
     check_fusion(fusion, bool(routes))
     if fusion == "grouped" and communicator.shard_parallel:
@@ -451,5 +793,15 @@ def grace_transform(compressor: Compressor, memory: Memory,
             "HierarchicalAllreduce) — use fusion=None, 'flat', or integer "
             "byte buckets, which hand the communicator whole buffers to "
             "shard.")
+    if escape is not None and not (getattr(escape, "summable_payload", False)
+                                   and escape.average):
+        raise ValueError(
+            "escape must be a dense, summable, averaging compressor "
+            "(NoneCompressor/FP16Compressor) — the escape hatch psums its "
+            f"payload; got {type(escape).__name__}.")
+    telemetry = _normalize_telemetry(telemetry)
+    if topology is None and telemetry is not None:
+        topology = Topology.detect()
     return GraceTransform(compressor, memory, communicator, seed=seed,
-                          fusion=fusion, routes=routes)
+                          fusion=fusion, routes=routes, escape=escape,
+                          telemetry=telemetry, topology=topology)

@@ -2,7 +2,8 @@
 ``utils/logging.py`` (its ``Timer``, ``TableLogger``, ``TSVLogger``,
 rank-0 printing and run provenance). The rank is the ``torch.distributed``
 rank (0 outside a process group), where JAX reads the process index.
-``GuardMonitor`` and ``ConsensusMonitor`` come with the resilience slice.
+``GuardMonitor`` prints the step guard's transitions; ``ConsensusMonitor``
+waits for the consensus audit.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, Mapping, Optional, Sequence, TextIO
 import torch
 import torch.distributed as dist
 
-__all__ = ["Timer", "TableLogger", "TSVLogger", "localtime",
+__all__ = ["Timer", "TableLogger", "TSVLogger", "GuardMonitor", "localtime",
            "rank_zero_only", "rank_zero_print", "run_provenance",
            "git_commit"]
 
@@ -133,6 +134,56 @@ class TSVLogger:
     def write(self, path: str) -> None:
         with open(path, "w") as f:
             f.write(str(self) + "\n")
+
+
+class GuardMonitor:
+    """Emit the step guard's transitions: skipped steps, the fallback
+    window opening and closing.
+
+    Feed it the per-step dict of ``utils.metrics.guard_report``; it prints
+    (rank 0 only, through :func:`rank_zero_print` by default) only when
+    something changed, so a healthy run stays silent::
+
+        mon = GuardMonitor()
+        for i, batch in enumerate(batches):
+            state, loss = step(state, batch)
+            mon.update(i, guard_report(state))
+
+    ``sink`` (a ``grace_tpu_torch.telemetry`` sink) also receives each
+    transition as ``{"event": "guard_skip" | "guard_fallback_engaged" |
+    "guard_rearmed", "step": ..., **report}``, beside the telemetry rows.
+    Re-arm fires on the first report whose ``fallback_active`` is False
+    after a True."""
+
+    def __init__(self, printer: Optional[Callable[..., None]] = None,
+                 sink=None):
+        self._print = printer or rank_zero_print
+        self._sink = sink
+        self._last: Optional[dict] = None
+
+    def _event(self, name: str, step: int,
+               report: Mapping[str, object]) -> None:
+        if self._sink is not None:
+            self._sink.write({"event": name, "step": step, **report})
+
+    def update(self, step: int, report: Mapping[str, object]) -> None:
+        if not report:
+            return
+        prev, self._last = self._last, dict(report)
+        if prev is None:
+            return
+        if report["notfinite_count"] > prev["notfinite_count"]:
+            self._print(f"[guard] step {step}: non-finite/exploding update "
+                        f"skipped (total={report['notfinite_count']}, "
+                        f"consecutive={report['consecutive']})")
+            self._event("guard_skip", step, report)
+        if report["fallback_active"] and not prev["fallback_active"]:
+            self._print(f"[guard] step {step}: dense fallback engaged for "
+                        f"{report['fallback_remaining']} steps")
+            self._event("guard_fallback_engaged", step, report)
+        if prev["fallback_active"] and not report["fallback_active"]:
+            self._print(f"[guard] step {step}: compression re-armed")
+            self._event("guard_rearmed", step, report)
 
 
 def git_commit() -> Optional[str]:

@@ -1,7 +1,8 @@
 """Bytes-on-wire accounting; counterpart of the JAX package's
 ``utils/metrics.py`` (``payload_nbytes``, ``wire_report`` and its
-``CompressionReport``/``LeafReport``; ``guard_report`` and
-``debug_nan_residuals`` wait for the resilience slice).
+``CompressionReport``/``LeafReport``), and the guard's health readers
+``guard_report`` and ``debug_nan_residuals``, each one device-to-host
+transfer.
 
 The count is of *logical* payload bytes: what the codec's payload tensors
 hold, not what a collective pads them to.
@@ -18,7 +19,7 @@ import torch
 from grace_tpu_torch.core import Compressor, LeafKey
 
 __all__ = ["LeafReport", "CompressionReport", "payload_nbytes",
-           "wire_report"]
+           "wire_report", "guard_report", "debug_nan_residuals"]
 
 
 def _struct(x) -> Tuple[Tuple[int, ...], torch.dtype]:
@@ -113,3 +114,53 @@ def wire_report(compressor: Compressor,
                                  dense_bytes=math.prod(s[0]) * s[1].itemsize,
                                  wire_bytes=wire[s]))
     return CompressionReport(leaves=tuple(leaves))
+
+
+def guard_report(state: Any) -> Dict[str, Any]:
+    """The step guard's health in ``state`` (a ``TrainState``, a
+    ``GuardState`` or any tree holding one)::
+
+        {"step", "notfinite_count", "last_bad_step", "consecutive",
+         "fallback_remaining", "fallback_active"}
+
+    in one device-to-host transfer: the counters a loop logs each step
+    (``utils.logging.GuardMonitor``) and weighs at save time
+    (``Checkpointer.save(..., good=...)``). Empty without a guard."""
+    from grace_tpu_torch.resilience.guard import GuardState
+    from grace_tpu_torch.telemetry.reader import collect
+
+    found = collect(state, GuardState)
+    if not found:
+        return {}
+    nf, lb, cs, fr, st = found[0].counters().tolist()
+    return {"step": st, "notfinite_count": nf, "last_bad_step": lb,
+            "consecutive": cs, "fallback_remaining": fr,
+            "fallback_active": fr > 0}
+
+
+def debug_nan_residuals(state: Any) -> Dict[str, Dict[str, int]]:
+    """NaN and ±Inf census over every floating tensor of a state tree:
+    ``{path: {"nan": n, "inf": m}}`` for the tensors that hold any (paths
+    as ``checkpoint.state_leaves`` names them: ``grace/mem/3``,
+    ``model/fc.w``); an empty dict means clean. The chunk Top-K kernel
+    keeps a NaN gradient lane in the residual rather than on the wire, so
+    a poisoned residual is invisible in the loss. Every count comes back
+    in ONE device-to-host transfer."""
+    from grace_tpu_torch.checkpoint import state_leaves
+
+    paths, counts = [], []
+    for path, (leaf, _) in state_leaves(state).items():
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            paths.append(path)
+            counts.append(torch.stack([torch.isnan(leaf).sum(),
+                                       torch.isinf(leaf).sum()]))
+    # Host tensors (Adam's step) are read where they are; the device's
+    # counts come back stacked, in one transfer.
+    host = [c.tolist() if c.device.type == "cpu" else None for c in counts]
+    on_device = [i for i, h in enumerate(host) if h is None]
+    if on_device:
+        for i, c in zip(on_device, torch.stack(
+                [counts[i] for i in on_device]).tolist()):
+            host[i] = c
+    return {p: {"nan": int(c[0]), "inf": int(c[1])}
+            for p, c in zip(paths, host) if c[0] or c[1]}

@@ -247,13 +247,13 @@ def test_topk_over_allreduce_raises_type_error():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"telemetry": True}, "telemetry"),
+    ({"telemetry": {"capacity": 0}}, "telemetry"),
     ({"compressor": "nonsense"}, "nonsense"),
     ({"route": [("b*", {"compressor": "fp16"})], "fusion": "flat"},
      "route"),
     ({"communicator": "ring", "pipeline": 0}, "ring"),
     ({"compressor": "qsgd", "quantum_num": 40000}, "quantum_num"),
-    ({"escape": "fp16"}, "escape"),
+    ({"escape": "fp8"}, "escape"),
     ({"fusion": "flatten"}, "flat"),
     ({"fusion": "1048576"}, "1048576"),
 ])

@@ -67,6 +67,13 @@ MODEL_ZOO_MODULES = {
     "grace_tpu_torch.examples.cifar10_dawn",
     "grace_tpu_torch.examples.synthetic_benchmark"}
 
+# The guarded step: telemetry, the guard and the checkpoints.
+GUARDED_STEP_MODULES = {
+    "grace_tpu_torch.telemetry", "grace_tpu_torch.telemetry.scopes",
+    "grace_tpu_torch.telemetry.state", "grace_tpu_torch.telemetry.sinks",
+    "grace_tpu_torch.telemetry.reader", "grace_tpu_torch.resilience",
+    "grace_tpu_torch.resilience.guard", "grace_tpu_torch.checkpoint"}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -82,6 +89,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert CATALOG_MODULES <= names
     assert FRONT_END_MODULES <= names
     assert MODEL_ZOO_MODULES <= names
+    assert GUARDED_STEP_MODULES <= names
     assert leaked.strip() == "[]"
 
 
