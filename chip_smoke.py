@@ -254,6 +254,30 @@ The guarded training step:
     and each row's exchange alone from an idle card (host ms to enqueue
     it, ms until done, synchronizing calls counted).
 
+The cross-rank watch and the consistency audit:
+
+29. At W=1 on the card (NCCL refuses two ranks on one device; detection,
+    repair and escalation across ranks are held over gloo on the CPU):
+    topk1pct + telemetry + the watch ring (window 5) + the fp16 escape +
+    the consensus audit through guarded_chain(fallback_after=2,
+    fallback_steps=3), the audit at every step, beside the same chain
+    without the audit on the same gradients, 5 steps: parameters,
+    residuals, the guard's counters and the GRACE count bit for bit after
+    every step; audit_report 5 audits and no repair, ConsensusMonitor and
+    the reader's anomaly detectors silent, the reader's flush one
+    transfer with the watch ring armed, audit_bytes the W=1 gather's 64 B
+    a row, and Timeline.from_jsonl of the run's JSONL summarising it.
+    fingerprint_tree of the card's state against the same tensors on the
+    CPU (checksum words bit for bit, float folds within 1e-5 of each
+    segment's sum of |x|); ChaosParams(rank=0, at_steps=(2,)) flips
+    exactly its logged bit; masked_broadcast at W=1 is the identity; a
+    ChaosCompressor run launches no chunk kernel. The audit's cost on the
+    HEADLINE state and a fingerprint of BERT-base's parameters and AdamW
+    moments (1.31 GB). Then topk1pct + telemetry + watch, + guard +
+    consensus (audit every step) and all of them (audit every 5) timed as
+    [28]'s rows, each row's exchange with the consensus hook alone from an
+    idle card, synchronizing calls counted.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -1320,7 +1344,8 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     timed steps, the launches and exchange collectives between them
     asserted against ``cfg``, then one profiled step. With ``cfg["guard"]``
     (``guarded_chain``'s keywords) the step runs the guarded chain, whose
-    collectives are not counted."""
+    collectives are not counted; ``cfg["consensus"]`` is the train step's
+    audit config."""
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.models.resnet import resnet50
@@ -1343,7 +1368,8 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     opt = (optimizer or (lambda ps: torch.optim.SGD(ps, lr=1e-3)))(
         model.parameters())
     state = init_stateful_train_state(model, tx, opt, group)
-    step = make_stateful_train_step(loss, tx, group)
+    step = make_stateful_train_step(loss, tx, group,
+                                    consensus=cfg.get("consensus"))
     _flush_buffer.cache_clear()           # the timing phases' L2 flush buffer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3708,25 +3734,41 @@ def guarded_healthy_run(dev, group, x, y) -> dict:
     return launches
 
 
-def exchange_host_ms(dev, group, x, y, reps=5) -> dict:
-    """Each of GUARD_ROWS' exchanges alone (the GRACE update and the SGD
-    step, guarded or not) on one set of real ResNet-50 gradients, started
-    on an idle card: the host ms to enqueue it and the ms until the card
-    finishes it, medians of ``reps``; any synchronizing call the exchange
-    makes is counted (``torch.cuda.set_sync_debug_mode``)."""
+def _sync_count(fn):
+    """``fn()``'s result and the synchronizing calls it made
+    (``torch.cuda.set_sync_debug_mode``)."""
     import warnings
 
     import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
+def exchange_host_ms(dev, group, x, y, reps=5, rows=GUARD_ROWS) -> dict:
+    """Each of ``rows``' exchanges alone (the GRACE update and the SGD
+    step, guarded or not, and the consensus hook where the row has one) on
+    one set of real ResNet-50 gradients, started on an idle card: the host
+    ms to enqueue it and the ms until the card finishes it, medians of
+    ``reps``; any synchronizing call the exchange makes is counted
+    (``torch.cuda.set_sync_debug_mode``)."""
+    import torch
     from grace_tpu_torch import grace_from_params
     from grace_tpu_torch.models.resnet import resnet50
-    from grace_tpu_torch.resilience import guarded_chain
+    from grace_tpu_torch.resilience import consensus_step, guarded_chain
 
     model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
     named = dict(model.named_parameters())
     loss_fn(model, (x, y)).backward()
     grads = {k: p.grad.detach().clone() for k, p in named.items()}
     out = {}
-    for cfg in GUARD_ROWS:
+    for cfg in rows:
         grace = grace_from_params(cfg["params"], group=group)
         opt = torch.optim.SGD(model.parameters(), lr=1e-3)
         if cfg.get("guard") is None:
@@ -3747,33 +3789,32 @@ def exchange_host_ms(dev, group, x, y, reps=5) -> dict:
                 st[0] = chain.apply(named, {k: g.clone()
                                             for k, g in grads.items()},
                                     st[0], opt)
+                if cfg.get("consensus"):
+                    st[0] = consensus_step((model, opt, st[0]),
+                                           cfg["consensus"], group)[2]
         run()
         run()
         host, total = [], []
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                for _ in range(reps):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    run()
-                    t1 = time.perf_counter()
-                    torch.cuda.synchronize()
-                    host.append((t1 - t0) * 1e3)
-                    total.append((time.perf_counter() - t0) * 1e3)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = [str(w.message)[:120] for w in caught
-                 if "called a synchronizing" in str(w.message)]
+
+        def timed():
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append((t1 - t0) * 1e3)
+                total.append((time.perf_counter() - t0) * 1e3)
+
+        # torch.cuda.synchronize() is not a call the debug mode flags.
+        _, syncs = _sync_count(timed)
         out[cfg["name"]] = {"host_ms": statistics.median(host),
                             "until_done_ms": statistics.median(total),
-                            "syncs": len(syncs) / reps}
+                            "syncs": syncs / reps}
         log(f"  {cfg['name']}: the exchange alone enqueues in "
             f"{out[cfg['name']]['host_ms']:.2f} ms of host time, done after "
             f"{out[cfg['name']]['until_done_ms']:.2f} ms; "
-            f"{len(syncs) / reps:g} synchronizing calls a step"
-            + (f" ({syncs[0]})" if syncs else ""))
+            f"{syncs / reps:g} synchronizing calls a step")
     return out
 
 
@@ -3812,6 +3853,370 @@ def guarded_phase(dev, group, x, y, runs) -> None:
         f"{c['per_step']['chunk_compress_feedback']}+"
         f"{c['per_step']['chunk_aggregate_dense']}"
         for c in GUARD_ROWS) + f"; {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 29: the cross-rank watch and the consistency audit ----------------
+
+WATCH_WINDOW = 5
+AUDIT_EVERY = 5
+# HEADLINE's topk1pct with the telemetry ring and the watch ring; the
+# consensus row adds the fp16 escape, the guard and the audit at every
+# step; the last row is the slice's path: all of them, audit every 5.
+WATCH_PARAMS = {**HEADLINE[1]["params"],
+                "telemetry": GUARD_PARAMS["telemetry"],
+                "watch": WATCH_WINDOW}
+ALL_PARAMS = {**WATCH_PARAMS, "escape": "fp16", "consensus": True}
+WATCH_ROWS = [
+    {"name": "phase29_watch", "params": WATCH_PARAMS,
+     "per_step": _TOPK_TELEM},
+    {"name": "phase29_consensus",
+     "params": {**HEADLINE[1]["params"], "escape": "fp16",
+                "consensus": True},
+     "guard": GUARD_KW, "consensus": {"audit_every": 1},
+     "per_step": _TOPK_ONCE},
+    {"name": "phase29_all", "params": ALL_PARAMS, "guard": GUARD_KW,
+     "consensus": {"audit_every": AUDIT_EVERY}, "per_step": _TOPK_TELEM},
+]
+WATCH_HEALTHY_STEPS = 5
+FP_FOLD_RTOL = 1e-5          # the float fold, of each segment's sum of |x|
+
+
+def check_fingerprint_on_the_card(tree, segments=8) -> int:
+    """fingerprint_tree of ``tree`` on the card against the same tensors'
+    fingerprint on the CPU: checksum words bit for bit, each float fold
+    within FP_FOLD_RTOL of its segment's sum of |x|. Returns the leaves."""
+    import numpy as np
+    from grace_tpu_torch.resilience import fingerprint_tree, replicated_view
+
+    leaves = replicated_view(tree)
+    dev_fp = fingerprint_tree(leaves, segments).cpu().numpy()
+    host = [t.detach().cpu() for t in leaves]
+    cpu_fp = fingerprint_tree(host, segments).numpy()
+    if not np.array_equal(dev_fp[:segments], cpu_fp[:segments]):
+        fail(f"[29] fingerprint checksum words differ between the card and "
+             f"the CPU: {dev_fp[:segments]} vs {cpu_fp[:segments]}")
+    mags = np.zeros(segments)
+    for i, t in enumerate(host):
+        if t.is_floating_point():
+            mags[i % segments] += float(t.double().abs().sum())
+    dev_v = dev_fp[segments:].astype(np.uint32).view(np.float32)
+    cpu_v = cpu_fp[segments:].astype(np.uint32).view(np.float32)
+    err = np.abs(dev_v.astype(np.float64) - cpu_v)
+    if not np.all(err <= FP_FOLD_RTOL * mags + 1e-6):
+        fail(f"[29] fingerprint float folds differ beyond {FP_FOLD_RTOL} of "
+             f"the segments' sum of |x|: {dev_v} vs {cpu_v}")
+    return len(leaves)
+
+
+def consensus_healthy_run(dev, group, x, y, tmp) -> dict:
+    """The slice's path (ALL_PARAMS, guarded, the audit at every step)
+    beside the same chain without the audit, on the same gradients: bit
+    for bit after every step; the reader (anomaly detectors armed),
+    audit_report and ConsensusMonitor silent; the timeline of the run's
+    JSONL; the reader's flush one transfer. Returns the audited side's
+    launches and its state, for the checks that follow."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import (ConsensusConfig, audit_report,
+                                            consensus_step, guarded_chain)
+    from grace_tpu_torch.telemetry import (JSONLSink, TelemetryReader,
+                                           Timeline)
+    from grace_tpu_torch.utils.logging import ConsensusMonitor, run_provenance
+
+    ma = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    mb = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    na, nb = dict(ma.named_parameters()), dict(mb.named_parameters())
+    opt_a = torch.optim.SGD(ma.parameters(), lr=1e-3)
+    opt_b = torch.optim.SGD(mb.parameters(), lr=1e-3)
+    chain_a = guarded_chain(grace_from_params(ALL_PARAMS, group=group),
+                            seed=SEED, **GUARD_KW)
+    chain_b = guarded_chain(grace_from_params(
+        {**ALL_PARAMS, "consensus": None}, group=group), seed=SEED,
+        **GUARD_KW)
+    audit = ConsensusConfig(audit_every=1)
+    sa, sb = chain_a.init(na), chain_b.init(nb)
+    jsonl = tmp / "phase29.jsonl"
+    sink = JSONLSink(jsonl, provenance=run_provenance(
+        "synthetic", tool="chip_smoke.py [29]"))
+    reader = TelemetryReader(sink, every=WATCH_HEALTHY_STEPS, anomaly=True)
+    printed = []
+    monitor = ConsensusMonitor(printer=printed.append, sink=sink)
+    launches, records = {}, []
+    for s in range(WATCH_HEALTHY_STEPS):
+        opt_a.zero_grad(set_to_none=True)
+        loss_fn(ma, (x, y)).backward()
+        grads_b = {k: p.grad.detach().clone() for k, p in na.items()}
+        ops.reset_launch_counts()
+        sa = chain_a.apply(na, {k: p.grad for k, p in na.items()}, sa,
+                           opt_a)
+        sa = consensus_step((ma, opt_a, sa), audit, group)[2]
+        for k, v in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        sb = chain_b.apply(nb, grads_b, sb, opt_b)
+        monitor.update(s, audit_report(sa))
+        if s == WATCH_HEALTHY_STEPS - 1:
+            calls = [0]
+            cpu = torch.Tensor.cpu
+
+            def counting(self, *a, **k):
+                calls[0] += 1
+                return cpu(self, *a, **k)
+
+            torch.Tensor.cpu = counting
+            try:
+                out, syncs = _sync_count(lambda: reader.update(s, sa))
+            finally:
+                torch.Tensor.cpu = cpu
+            if calls[0] != 1:
+                fail(f"[29] the reader's flush made {calls[0]} device-to-host"
+                     " transfers with the watch ring armed, expected 1")
+            records += out
+        else:
+            records += reader.update(s, sa)
+        for k in na:
+            if not same_bits(na[k].detach().cpu(), nb[k].detach().cpu()):
+                fail(f"[29] healthy step {s}: parameter {k} differs between "
+                     "the audited and the unaudited run")
+        for i, (m1, m2) in enumerate(zip(sa.inner.mem, sb.inner.mem)):
+            if not same_bits(m1.cpu(), m2.cpu()):
+                fail(f"[29] healthy step {s}: residual {i} differs between "
+                     "the audited and the unaudited run")
+        if not same_bits(sa.counters().cpu(), sb.counters().cpu()) or \
+                sa.inner.count != sb.inner.count:
+            fail(f"[29] healthy step {s}: the guard's counters or the GRACE "
+                 "count differ between the audited and the unaudited run")
+    reader.close()
+    report = audit_report(sa)
+    want = {"audits": WATCH_HEALTHY_STEPS, "repairs": 0, "escalations": 0,
+            "last_divergent_rank": -1, "last_repair_step": -1}
+    if report != want or printed:
+        fail(f"[29] healthy run: audit_report {report} (expected {want}), "
+             f"ConsensusMonitor printed {printed}")
+    anomalies = [r for r in records if r.get("event") == "watch_anomaly"]
+    watch_rows = [r for r in records if r.get("event") == "watch"]
+    metric_rows = [r for r in records if "wire_bytes" in r]
+    if anomalies or [r["step"] for r in watch_rows] != list(
+            range(0, WATCH_HEALTHY_STEPS, WATCH_WINDOW)):
+        fail(f"[29] healthy run: anomalies {anomalies}, watch rows at "
+             f"{[r['step'] for r in watch_rows]}")
+    audit_bytes = [r["audit_bytes"] for r in metric_rows]
+    if audit_bytes != [float(1 * 2 * 8 * 4)] * WATCH_HEALTHY_STEPS:
+        fail(f"[29] audit_bytes {audit_bytes}: expected the W=1 gather's "
+             "64 B on every row")
+    summary = Timeline.from_jsonl(str(jsonl)).summary()
+    want = {"events": len(records),
+            "kind_counts": {"telemetry": len(metric_rows),
+                            "watch": len(watch_rows)},
+            "step_span": [0, WATCH_HEALTHY_STEPS - 1], "anomalies": 0,
+            "anomalies_by_kind": {}, "anomaly_max_score": {},
+            "anomalous_ranks": []}
+    if summary != want:
+        fail(f"[29] Timeline.from_jsonl summary {summary}, expected {want}")
+    log(f"[29] healthy run: {WATCH_HEALTHY_STEPS} steps of the slice's path "
+        f"with the audit at every step, and without it, on the same "
+        f"gradients: parameters, residuals, the guard's counters and the "
+        f"GRACE count bit for bit after every step; audit_report {report}; "
+        f"ConsensusMonitor and the anomaly detectors silent; the reader's "
+        f"flush one transfer ({syncs} synchronizing calls); the JSONL's "
+        f"timeline: {summary['kind_counts']}, steps {summary['step_span']}; "
+        f"launches {launches}")
+    del mb, opt_b, sb, chain_b
+    return {"launches": launches, "model": ma, "opt": opt_a, "state": sa}
+
+
+def check_chaos_on_the_card(dev, group, x, y, healthy) -> dict:
+    """ChaosParams flips exactly the logged (leaf, element, bit) of rank 0's
+    parameters; masked_broadcast at W=1 is the identity; a ChaosCompressor
+    run launches no chunk kernel. Returns the chaos run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.comm import masked_broadcast
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import ChaosCompressor, ChaosParams
+    from grace_tpu_torch.train import (TrainState, init_stateful_train_state,
+                                       make_stateful_train_step)
+    from grace_tpu_torch.transform import leaf_order
+
+    model, opt = healthy["model"], healthy["opt"]
+    named = dict(model.named_parameters())
+    order = leaf_order(named)
+    before = {k: p.detach().clone() for k, p in named.items()}
+    chaos = ChaosParams(rank=0, at_steps=(2,), seed=SEED, group=group)
+    state = TrainState(model, opt, healthy["state"])
+    chaos(state, 1)
+    chaos(state, 2)
+    if len(chaos.injections) != 1:
+        fail(f"[29] ChaosParams injections {chaos.injections}")
+    _, li, pos, bit = chaos.injections[0]
+    for i, k in enumerate(order):
+        diff = (named[k].detach().reshape(-1).view(torch.int32)
+                ^ before[k].reshape(-1).view(torch.int32)).cpu().numpy()
+        hits = np.flatnonzero(diff)
+        want = [pos] if i == li else []
+        if hits.tolist() != want or (
+                want and int(diff[pos]) & 0xFFFFFFFF != 1 << bit):
+            fail(f"[29] ChaosParams: leaf {k} changed at {hits.tolist()}, "
+                 f"expected one bit ({bit}) of element {want}")
+    with torch.no_grad():
+        named[order[li]].copy_(before[order[li]])       # undo the flip
+    probe = torch.randn(4099, device=dev)
+    probe[3] = -0.0
+    probe.view(torch.int32)[5] = 0x7FC00123
+    for t in (probe, probe.to(torch.bfloat16), probe > 0,
+              torch.arange(-7, 9, device=dev, dtype=torch.int64)):
+        if not same_bits(masked_broadcast(t, 0, group).cpu(), t.cpu()):
+            fail(f"[29] masked_broadcast at W=1 changed a {t.dtype} tensor")
+    grc = grace_from_params(WATCH_PARAMS, group=group)
+    grc = dataclasses.replace(grc, compressor=ChaosCompressor(
+        inner=grc.compressor, drift_scale=0.5, rank=0, group=group))
+    m = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    o = torch.optim.SGD(m.parameters(), lr=1e-3)
+    tx = grc.transform(seed=SEED)
+    st = init_stateful_train_state(m, tx, o, group)
+    step = make_stateful_train_step(loss_fn, tx, group)
+    ops.reset_launch_counts()             # just before the chaos run
+    for _ in range(2):
+        st, loss = step(st, (x, y))
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches or not math.isfinite(float(loss)):
+        fail(f"[29] the ChaosCompressor run launched {launches} (expected no "
+             f"chunk kernel: the wrapper takes the staged path), loss "
+             f"{float(loss)}")
+    log(f"[29] ChaosParams(rank=0, at_steps=(2,)) flipped bit {bit} of "
+        f"element {pos} of {order[li]} and nothing else; masked_broadcast at "
+        f"W=1 the identity bit for bit (float32 with -0.0 and a NaN payload, "
+        f"bf16, bool, int64); a ChaosCompressor (drift 0.5) run of 2 steps "
+        f"launched no chunk kernel, loss {float(loss):.4f}")
+    return {"launches": ops.launch_counts()}
+
+
+def kernels_in(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches, by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof))
+
+
+def audit_cost(dev, group, healthy) -> dict:
+    """One audit of the HEADLINE state and one fingerprint of it, and one
+    fingerprint of BERT-base's parameters and AdamW moments: ms (medians
+    of 5), synchronizing calls, bytes and the bound."""
+    import torch
+    from grace_tpu_torch.models import transformer as T
+    from grace_tpu_torch.resilience import (ConsensusConfig, fingerprint_tree,
+                                            force_audit, replicated_view)
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        host, total = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(host), statistics.median(total)
+
+    tree = (healthy["model"], healthy["opt"], healthy["state"])
+    cfg = ConsensusConfig()
+    leaves = replicated_view(tree)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    audit_host, audit_ms = timed(lambda: force_audit(tree, cfg, group))
+    _, audit_syncs = _sync_count(lambda: force_audit(tree, cfg, group))
+    audit_kernels = kernels_in(lambda: force_audit(tree, cfg, group))
+    fp_host, fp_ms = timed(lambda: fingerprint_tree(leaves))
+    n_leaves = check_fingerprint_on_the_card(tree)
+    out = {"resnet50": {"leaves": n_leaves, "bytes": nbytes,
+                        "audit_ms": audit_ms, "audit_host_ms": audit_host,
+                        "audit_syncs": audit_syncs,
+                        "audit_kernels": audit_kernels,
+                        "fingerprint_ms": fp_ms,
+                        "fingerprint_host_ms": fp_host,
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}}
+    log(f"[29] one audit of the HEADLINE state ({n_leaves} leaves, "
+        f"{nbytes / 1e6:.1f} MB: parameters, BatchNorm statistics, the "
+        f"guard's counters): {audit_ms:.3f} ms until done, {audit_host:.3f} "
+        f"ms of host, {audit_kernels} kernels, {audit_syncs} synchronizing "
+        f"call; fingerprint_tree "
+        f"alone {fp_ms:.3f} ms ({fp_host:.3f} host; bound "
+        f"{out['resnet50']['bound_ms']:.4f} ms at 3.35 TB/s); its words "
+        f"equal the CPU's fingerprint of the same tensors bit for bit, the "
+        f"float folds within {FP_FOLD_RTOL} of each segment's sum of |x|")
+    bert = T.Transformer(T.base(num_classes=2, max_len=BERT_SEQ),
+                         device=dev, seed=SEED)
+    params = [p.detach() for p in bert.parameters()]
+    moments = [torch.randn_like(p) for p in params for _ in range(2)]
+    big = params + moments
+    bbytes = sum(t.numel() * t.element_size() for t in big)
+    b_host, b_ms = timed(lambda: fingerprint_tree(big), reps=3)
+    b_kernels = kernels_in(lambda: fingerprint_tree(big))
+    out["bert_base_adamw"] = {"leaves": len(big), "bytes": bbytes,
+                              "fingerprint_ms": b_ms,
+                              "fingerprint_kernels": b_kernels,
+                              "fingerprint_host_ms": b_host,
+                              "bound_ms": bbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[29] fingerprint_tree over BERT-base's parameters and AdamW "
+        f"moments ({len(big)} leaves, {bbytes / 1e9:.2f} GB): {b_ms:.3f} ms "
+        f"({b_host:.3f} host, {b_kernels} kernels), bound {bbytes / HBM_BYTES_PER_S * 1e3:.3f} ms"
+        f" at 3.35 TB/s")
+    del bert, params, moments, big
+    return out
+
+
+def watch_phase(dev, group, x, y, runs) -> None:
+    """Phase 29, each part driven with the kernels' counts set to 0 just
+    before it and read just after it."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    log("[29] W=1 on one card (NCCL refuses two ranks on one device): "
+        "detection, repair and escalation across ranks are held on the CPU "
+        "over gloo at W=4 against JAX's four-device mesh "
+        "(tests/test_torch_consensus.py, test_torch_watch.py, "
+        "test_torch_chaos.py)")
+    with tempfile.TemporaryDirectory() as tmp:
+        healthy = consensus_healthy_run(dev, group, x, y, Path(tmp))
+    runs["phase29_healthy"] = {"launches": healthy["launches"]}
+    runs["phase29_chaos"] = check_chaos_on_the_card(dev, group, x, y,
+                                                    healthy)
+    torch.cuda.empty_cache()
+    runs["phase29_audit_cost"] = {"launches": {}, **audit_cost(
+        dev, group, healthy)}
+    del healthy
+    torch.cuda.empty_cache()
+    for cfg in WATCH_ROWS:
+        runs[cfg["name"]] = train(dev, group, cfg, x, y, HIER_WARMUP_STEPS,
+                                  HIER_TIMED_STEPS)
+        torch.cuda.empty_cache()
+    log("[29] the three rows' exchanges alone (with the consensus hook), "
+        "from an idle card")
+    for name, t in exchange_host_ms(dev, group, x, y,
+                                    rows=WATCH_ROWS).items():
+        runs[name]["exchange"] = t
+    torch.cuda.empty_cache()
+    log("[29] " + "; ".join(
+        f"{c['name']}: device {runs[c['name']]['profiled']['device_ms']:.1f}"
+        f" ms, {runs[c['name']]['profiled']['kernels']} kernels, busy <= "
+        f"{runs[c['name']]['profiled']['device_ms'] / runs[c['name']]['profiled']['wall_ms']:.2f}, "
+        f"{runs[c['name']]['step_ms']:.1f} ms/step, peak "
+        f"{runs[c['name']]['peak_mem_gb']:.2f} GB, chunk launches a step "
+        f"{c['per_step']['chunk_compress_feedback']}+"
+        f"{c['per_step']['chunk_aggregate_dense']}, exchange host "
+        f"{runs[c['name']]['exchange']['host_ms']:.2f} ms, "
+        f"{runs[c['name']]['exchange']['syncs']:g} synchronizing calls a "
+        "step" for c in WATCH_ROWS) + f"; {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_named(fn, word: str) -> str:
@@ -4209,6 +4614,13 @@ def main() -> int:
             f"fallback_steps=3): {GUARD_STEPS} steps with NaN steps "
             f"{GUARD_BAD}, checkpoints, a healthy run, four timed rows")
         guarded_phase(dev, group, x, y, runs)
+        # -- 29. the cross-rank watch and the consistency audit -------------
+        log(f"[29] ResNet-50, batch {bs}, under topk1pct + telemetry + watch "
+            f"(window {WATCH_WINDOW}) + fp16 escape + consensus through "
+            f"guarded_chain and make_stateful_train_step(consensus=...): a "
+            f"healthy run against the unaudited one, the chaos injectors, "
+            f"the audit's cost, three timed rows")
+        watch_phase(dev, group, x, y, runs)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

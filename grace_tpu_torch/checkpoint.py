@@ -8,10 +8,11 @@ the GraceState's fields (``grace/mem/3``, ``grace/inner/telem/rings``
 under a guard). A step is a directory holding
 
 * ``replicated.pt``: the leaves every rank holds alike (the model, the
-  optimizer, ``count``, ``seed``, ``fallback``, the guard's counters),
-  written once, by rank 0;
+  optimizer, ``count``, ``seed``, ``fallback``, the consensus ``audit``,
+  the guard's counters), written once, by rank 0;
 * ``rank<r>.pt``: rank ``r``'s per-rank leaves (``mem``, ``comp``,
-  ``telem``: ``transform.GRACE_VARYING_FIELDS``), one file a rank;
+  ``telem``, ``watch``: ``transform.GRACE_VARYING_FIELDS``), one file a
+  rank;
 * ``meta.json``: every leaf's shape and dtype, and the world size.
 
 A save is synchronous: it copies every tensor to the host before it
@@ -150,6 +151,7 @@ def _rebuild(target, path: str, values: Dict[str, Any]):
     if isinstance(target, GuardState):
         return GuardState(
             inner=_rebuild(target.inner, join("inner"), values),
+            host_step=int(values[join("step")]),     # a host tensor here
             **{name: _rebuild(getattr(target, name), join(name), values)
                for name in _COUNTERS})
     if isinstance(target, GraceState) or (
@@ -167,6 +169,8 @@ def _rebuild(target, path: str, values: Dict[str, Any]):
     if isinstance(target, (list, tuple)):
         return type(target)(_rebuild(v, join(str(i)), values)
                             for i, v in enumerate(target))
+    if target is None and path not in values:
+        return None          # a field the writer did not have (absent)
     value = values[path]
     if isinstance(target, torch.Tensor):
         return value.to(target.device)
@@ -362,7 +366,10 @@ class Checkpointer:
         def kept(p):
             return not any(p.startswith(f"{o}/state/") for o in fresh)
 
-        only_target = sorted(p for p in leaves if p not in stored)
+        # A field that is None in the target and absent from the checkpoint
+        # (``audit``, ``watch`` before they existed) matches: both are off.
+        only_target = sorted(p for p in leaves if p not in stored
+                             and leaves[p][0] is not None)
         only_stored = sorted(p for p in stored
                              if p not in leaves and kept(p))
         for paths, side, other in ((only_target, "target", "checkpoint"),
@@ -374,7 +381,7 @@ class Checkpointer:
                     f"(checkpoint step {step} under {self._dir}). Restore "
                     "with a target built from the same optimizer/model "
                     "config the checkpoint was written with.")
-        for path in sorted(leaves):
+        for path in sorted(p for p in leaves if p in stored):
             t_shape, t_dtype = _meta(leaves[path][0])
             s_shape = stored[path]["shape"]
             s_shape = tuple(s_shape) if s_shape is not None else None

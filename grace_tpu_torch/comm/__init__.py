@@ -9,6 +9,9 @@ NCCL carries them on the card, gloo in the CPU tests. A world of one rank
 still makes the real collective calls, except the ring's point-to-point
 hops, of which a one-rank ring has none.
 
+:func:`masked_broadcast` (and its in-place and tree forms) is the
+consensus repair's bit-exact broadcast: a masked SUM in integer bit space.
+
 Neither NCCL nor gloo carries 16-bit integers. So the collectives that
 only move data (the gathers, the all-to-all and the ring's point-to-point
 hops) move integer and bool payloads as their bytes, and the
@@ -37,7 +40,8 @@ from grace_tpu_torch.telemetry.scopes import (STAGE_COMPRESS,
 __all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
            "SignAllreduce", "TwoShotAllreduce", "RingAllreduce",
            "ReduceScatterAllreduce", "HierarchicalAllreduce",
-           "WIRE_PIPELINE_EFFICIENCY", "vote_exact_max_world"]
+           "WIRE_PIPELINE_EFFICIENCY", "vote_exact_max_world",
+           "masked_broadcast", "masked_broadcast_tree", "masked_broadcast_"]
 
 # Newer PyTorch renames all_gather_into_tensor (same signature) and
 # deprecates the old name.
@@ -86,6 +90,67 @@ def _all_reduce_sum(t: torch.Tensor, group) -> None:
         t.copy_(wide)
     else:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
+# The integer view a masked broadcast sums, by element width: the widths
+# NCCL and gloo add exactly; 16-bit values (and bools) go as their bytes.
+_MB_INT = {1: torch.uint8, 2: torch.uint8, 4: torch.int32, 8: torch.int64}
+
+
+def _group_rank_world(group) -> tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(group), dist.get_world_size(group)
+    return 0, 1
+
+
+def masked_broadcast_(tensors, root: int, group=None) -> None:
+    """Overwrite every tensor of ``tensors`` with rank ``root``'s value, bit
+    for bit, in place: each rank views its tensor as integers, zeroes the
+    view unless it is ``root``, and all-reduces with SUM (the JAX package's
+    ``axis_index``-masked psum in integer bit space). Only ``root`` adds a
+    non-zero word, so the integer sum is ``root``'s bits exactly: ``-0.0``,
+    NaN payloads, integers and bools survive, where a float sum would turn
+    ``-0.0 + 0.0`` into ``+0.0``. ``root`` is a rank of ``group``; every
+    rank of it calls this with the same tensors' shapes. One all-reduce a
+    tensor, and no value is read back to the host."""
+    rank, world = _group_rank_world(group)
+    for t in tensors:
+        if t.numel() == 0:
+            continue
+        work = t if t.is_contiguous() else t.contiguous()
+        bits = work.reshape(-1).view(_MB_INT[work.element_size()])
+        if rank != root:
+            bits.zero_()
+        if world > 1:
+            dist.all_reduce(bits, op=dist.ReduceOp.SUM, group=group)
+        if work is not t:
+            t.copy_(work)
+
+
+def masked_broadcast(x: torch.Tensor, root: int, group=None
+                     ) -> torch.Tensor:
+    """Rank ``root``'s ``x`` on every rank of ``group``, bit for bit, as a
+    new tensor (:func:`masked_broadcast_`)."""
+    out = torch.as_tensor(x).clone(memory_format=torch.contiguous_format)
+    masked_broadcast_([out], root, group)
+    return out
+
+
+def masked_broadcast_tree(tree, root: int, group=None):
+    """:func:`masked_broadcast` over every tensor of a tree of dicts, lists
+    and tuples; other leaves come back as they are."""
+    if isinstance(tree, torch.Tensor):
+        return masked_broadcast(tree, root, group)
+    if isinstance(tree, dict):
+        return {k: masked_broadcast_tree(v, root, group)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(masked_broadcast_tree(v, root, group)
+                            for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(masked_broadcast_tree(v, root, group)
+                          for v in tree)
+    return tree
 
 
 def _check_payload_sum_world(compressor: Compressor, world: int,

@@ -78,17 +78,19 @@ def grace_state_from_jax(jax_state: Any, seed: int,
                          rank: Optional[int] = None):
     """A JAX ``GraceState`` (after ``jax.device_get``) → the port's
     :class:`~grace_tpu_torch.transform.GraceState`, to resume a JAX run in
-    the port. ``count``, ``mem``, ``comp``, ``fallback`` and the telemetry
-    ring carry over; the JAX threefry key does not (the port's streams hang
-    off ``seed``, see ``core.LeafKey``). A JAX guard's ``GuardState``
+    the port. ``count``, ``mem``, ``comp``, ``fallback``, the telemetry
+    ring, the consensus ``AuditState`` (as host ints) and the watch ring
+    carry over; the JAX threefry key does not (the port's streams hang off
+    ``seed``, see ``core.LeafKey``). A JAX guard's ``GuardState``
     becomes the port's, its counters as int32 scalars, wrapping the
     GraceState found in its chain state. ``rank`` picks one rank's slice
     of per-rank state that carries a leading world axis (as
     ``init_train_state`` on a mesh builds it); None takes the arrays as
     they are. Everything lands on the CPU."""
     from grace_tpu_torch.resilience.guard import _COUNTERS, GuardState
+    from grace_tpu_torch.telemetry.aggregate import WatchState
     from grace_tpu_torch.telemetry.state import TelemetryState
-    from grace_tpu_torch.transform import GraceState
+    from grace_tpu_torch.transform import AuditState, GraceState
 
     if hasattr(jax_state, "notfinite_count"):
         return GuardState(
@@ -101,9 +103,17 @@ def grace_state_from_jax(jax_state: Any, seed: int,
     if telem is not None:
         telem = TelemetryState(rings=_state_leaf(telem.rings, rank),
                                steps=_state_leaf(telem.steps, rank))
+    watch = getattr(jax_state, "watch", None)
+    if watch is not None:
+        watch = WatchState(rings=_state_leaf(watch.rings, rank),
+                           steps=_state_leaf(watch.steps, rank))
+    audit = getattr(jax_state, "audit", None)
+    if audit is not None:       # replicated: one value on every rank
+        audit = AuditState(*(int(np.asarray(v).reshape(-1)[0])
+                             for v in audit))
     return GraceState(
         count=int(np.asarray(jax_state.count)), seed=int(seed),
         mem=[_state_leaf(m, rank) for m in jax_state.mem],
         comp=[_state_leaf(c, rank) for c in jax_state.comp],
         fallback=bool(np.asarray(getattr(jax_state, "fallback", False))),
-        telem=telem)
+        telem=telem, audit=audit, watch=watch)

@@ -4,13 +4,17 @@ package's ``helper.py``.
 The params-dict schema is the JAX package's, so its dicts (the benchmark's
 ``HEADLINE`` pair among them) build verbatim: every codec name and memory
 name, with the JAX defaults, every ``fusion`` setting (None, ``'flat'``,
-``'grouped'``, bucket bytes) and per-leaf ``route`` tables. A key that the
-port does not carry yet (the resilience and observability keys,
-``fsdp_axis``) or an unknown name raises ``ValueError`` naming it, instead
-of being dropped. PowerSGD's and the DGC memory's collectives run over the
-``group`` given here. ``world_size`` is accepted and ignored, as in the
-JAX package: the world is the process group's. The process group itself
-is passed as ``group=`` (the JAX package's ``axis_name``).
+``'grouped'``, bucket bytes), per-leaf ``route`` tables and the
+resilience and observability keys ``escape``, ``telemetry``, ``consensus``
+and ``watch`` (their configurations validated here, with the JAX
+package's errors; ``watch`` without ``telemetry`` raises at
+``.transform()``, as in JAX). A key that the port does not carry yet
+(``adapt``, ``fsdp_axis``) or an unknown name raises ``ValueError``
+naming it, instead of being dropped. PowerSGD's and the DGC memory's
+collectives run over the ``group`` given here. ``world_size`` is accepted
+and ignored, as in the JAX package: the world is the process group's. The
+process group itself is passed as ``group=`` (the JAX package's
+``axis_name``).
 
 A hierarchical run names its layout and, for three levels, its WAN codec
 as a nested params dict::
@@ -33,6 +37,8 @@ from grace_tpu_torch import compressors as C
 from grace_tpu_torch import memories as M
 from grace_tpu_torch.core import (Communicator, Compressor, LinkBytes, Memory,
                                   Topology, negotiation_bytes_for)
+from grace_tpu_torch.resilience.consensus import normalize_consensus
+from grace_tpu_torch.telemetry.aggregate import normalize_watch
 from grace_tpu_torch.transform import (GraceTransform, _normalize_telemetry,
                                        _struct, check_fusion, grace_transform,
                                        leaf_order, leaf_path_str,
@@ -46,7 +52,8 @@ PORTED_KEYS = frozenset({
     "pipeline", "vote_dtype", "fusion", "stage2_feedback", "world_size",
     "slice_size", "region_size", "wan_compressor", "compress_rank",
     "threshold", "capacity_ratio", "lr", "gradient_clipping",
-    "recall_target", "route", "escape", "telemetry"})
+    "recall_target", "route", "escape", "telemetry", "consensus",
+    "watch"})
 
 COMPRESSORS = ("none", "fp16", "bf16", "bfloat16", "cyclictopk", "topk",
                "randomk", "threshold", "qsgd", "homoqsgd", "countsketch",
@@ -72,7 +79,11 @@ class Grace:
     (``((pattern, compressor, memory, communicator), ...)``) that
     ``params["route"]`` builds. ``escape`` is the dense codec of the
     guard's fallback window (None: no escape) and ``telemetry`` the ring's
-    setting (None, True, a capacity, a dict or a ``TelemetryConfig``)."""
+    setting (None, True, a capacity, a dict or a ``TelemetryConfig``).
+    ``consensus`` is the audit's ``ConsensusConfig`` (None: off): the
+    transform carries an ``AuditState``, and the same value goes to
+    ``train.make_train_step(consensus=...)`` for the hook. ``watch`` is
+    the cross-rank watch ring's ``WatchConfig`` (None: off)."""
 
     compressor: Compressor
     memory: Memory
@@ -82,6 +93,8 @@ class Grace:
     routes: Tuple = ()
     escape: Optional[Compressor] = None
     telemetry: Any = None
+    consensus: Any = None
+    watch: Any = None
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
@@ -89,7 +102,8 @@ class Grace:
                                fusion=self.fusion,
                                routes=self.routes or None,
                                escape=self.escape, telemetry=self.telemetry,
-                               topology=self.topology)
+                               topology=self.topology,
+                               consensus=self.consensus, watch=self.watch)
 
 
 def _build_compressor(params: Dict[str, Any], group=None) -> Compressor:
@@ -284,7 +298,9 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
                  communicator=communicator,
                  fusion=fusion, topology=topology, routes=routes,
                  escape=_build_escape(params.get("escape")),
-                 telemetry=_normalize_telemetry(params.get("telemetry")))
+                 telemetry=_normalize_telemetry(params.get("telemetry")),
+                 consensus=normalize_consensus(params.get("consensus")),
+                 watch=normalize_watch(params.get("watch")))
 
 
 def route_leaves(grace: Grace, tree: Mapping[str, Any]) -> list:

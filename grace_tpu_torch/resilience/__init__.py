@@ -1,7 +1,8 @@
-"""Training resilience: the non-finite step guard and the dense escape;
-counterpart of the JAX package's ``resilience`` (its ``guard`` and
-``guarded_chain``; consensus, chaos, adapt, elastic and retune are not
-ported yet).
+"""Training resilience: the non-finite step guard, the dense escape, the
+cross-rank consistency audit and the fault injectors; counterpart of the
+JAX package's ``resilience`` (its ``guard``, ``guarded_chain``,
+``consensus`` and ``chaos``; adapt, elastic and retune are not ported
+yet).
 
 * :func:`guard_transform` wraps the GRACE transform and the torch
   optimizer: a step whose update or new state is non-finite (or whose
@@ -11,12 +12,31 @@ ported yet).
   ``fallback_after``/``fallback_steps``: after K consecutive bad steps the
   exchange is a dense (none/fp16/bf16) all-reduce for M steps, then
   compression re-arms.
+* :func:`consensus_step` (``train.make_train_step(consensus=...)``)
+  fingerprints the replicated state every ``audit_every`` steps, compares
+  the fingerprints across ranks, and repairs a divergent rank: the
+  majority's state broadcast bit for bit, the divergent rank's residuals
+  zeroed, the dense escape armed when the same rank diverges again
+  (:func:`audit_report`, ``utils.logging.ConsensusMonitor``).
+* :class:`ChaosCompressor`, :class:`ChaosCommunicator` and
+  :class:`ChaosParams` inject seeded faults: NaN/Inf implants, payload bit
+  flips, stale residuals, encoder drift, and one flipped bit in one rank's
+  copy of the parameters.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from grace_tpu_torch.resilience.chaos import (ChaosCommunicator,
+                                              ChaosCompressor, ChaosParams)
+from grace_tpu_torch.resilience.consensus import (ConsensusConfig,
+                                                  audit_report,
+                                                  consensus_step,
+                                                  fingerprint_tree,
+                                                  force_audit,
+                                                  normalize_consensus,
+                                                  replicated_view)
 from grace_tpu_torch.resilience.guard import (GUARD_ROLLBACK_EXCLUDED,
                                               GUARD_SCAN_EXCLUDED_TYPES,
                                               GuardState, GuardTransform,
@@ -24,7 +44,10 @@ from grace_tpu_torch.resilience.guard import (GUARD_ROLLBACK_EXCLUDED,
 
 __all__ = ["GUARD_ROLLBACK_EXCLUDED", "GUARD_SCAN_EXCLUDED_TYPES",
            "GuardState", "GuardTransform", "guard_transform",
-           "guarded_chain"]
+           "guarded_chain", "ConsensusConfig", "normalize_consensus",
+           "replicated_view", "fingerprint_tree", "consensus_step",
+           "force_audit", "audit_report", "ChaosCompressor",
+           "ChaosCommunicator", "ChaosParams"]
 
 
 def guarded_chain(grace, *, seed: int = 0, max_norm: Optional[float] = None,

@@ -43,6 +43,7 @@ from typing import Any, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from grace_tpu_torch.telemetry.aggregate import WatchState
 from grace_tpu_torch.telemetry.state import TelemetryState
 from grace_tpu_torch.transform import (GraceState, GraceTransform,
                                        _state_tensors)
@@ -58,10 +59,10 @@ GUARD_ROLLBACK_EXCLUDED = ("notfinite_count", "last_bad_step",
                            "fallback")
 
 # The state scan's exclusion: the node types of
-# transform.GRACE_OBSERVATIONAL_FIELDS (telem -> TelemetryState). The ring
-# records a poisoned gradient's norm as it is; it must not flip a step bad
-# on its own, and it still rolls back.
-GUARD_SCAN_EXCLUDED_TYPES = (TelemetryState,)
+# transform.GRACE_OBSERVATIONAL_FIELDS (telem -> TelemetryState, watch ->
+# WatchState). The rings record a poisoned gradient's norm as it is; they
+# must not flip a step bad on their own, and they still roll back.
+GUARD_SCAN_EXCLUDED_TYPES = (TelemetryState, WatchState)
 
 _COUNTERS = ("notfinite_count", "last_bad_step", "consecutive",
              "fallback_remaining", "step")
@@ -103,11 +104,15 @@ class GuardState:
     ``fallback_remaining`` (escape steps left) and ``step``.
 
     ``inner`` is the GraceState as of the last step: reading it settles
-    that step (:meth:`settle`), which waits for the step's two flags."""
+    that step (:meth:`settle`), which waits for the step's two flags.
+    ``host_step`` is ``step`` kept on the host: it advances on every call,
+    skipped steps too, so the host knows it without a read (the consensus
+    audit's clock); None reads it from ``step``."""
 
     def __init__(self, inner: GraceState, notfinite_count, last_bad_step,
                  consecutive, fallback_remaining, step,
-                 pending: Optional[_Pending] = None):
+                 pending: Optional[_Pending] = None,
+                 host_step: Optional[int] = None):
         self._inner = inner
         self.notfinite_count = notfinite_count
         self.last_bad_step = last_bad_step
@@ -115,6 +120,7 @@ class GuardState:
         self.fallback_remaining = fallback_remaining
         self.step = step
         self._pending = pending
+        self.host_step = int(step) if host_step is None else host_step
 
     def settle(self) -> None:
         """Fix the host half of the last step: the GRACE counter advances
@@ -135,10 +141,22 @@ class GuardState:
 
     def replace(self, **changes) -> "GuardState":
         self.settle()
-        fields = {"inner": self._inner,
+        fields = {"inner": self._inner, "host_step": self.host_step,
                   **{name: getattr(self, name) for name in _COUNTERS}}
         fields.update(changes)
         return GuardState(**fields)
+
+    def escalate(self, steps: int) -> "GuardState":
+        """This state with the dense window armed for at least ``steps``
+        more updates, as the consensus audit escalates a repeat offender:
+        ``fallback_remaining`` raised to ``steps`` on the device and the
+        GraceState's ``fallback`` set, so the next update already runs the
+        escape and the guard's countdown owns the window from there."""
+        self.settle()
+        return self.replace(
+            inner=dataclasses.replace(self._inner, fallback=True),
+            fallback_remaining=torch.clamp(self.fallback_remaining,
+                                           min=int(steps)))
 
     def counters(self) -> torch.Tensor:
         """The five counters as one int32 device tensor, in JAX's order."""
@@ -234,7 +252,8 @@ class GuardTransform:
         zero = torch.zeros((), dtype=torch.int32, device=device)
         return GuardState(inner=grace, notfinite_count=zero,
                           last_bad_step=zero - 1, consecutive=zero.clone(),
-                          fallback_remaining=zero.clone(), step=zero.clone())
+                          fallback_remaining=zero.clone(), step=zero.clone(),
+                          host_step=0)
 
     def _world(self) -> int:
         if not (dist.is_available() and dist.is_initialized()):
@@ -304,11 +323,17 @@ class GuardTransform:
                              if k not in st]          # created this step
                 restores += [(optimizer.state[p], k, v) for k, v in st.items()
                              if not torch.is_tensor(v)]
-            telem = new.telem
+            # The rings roll back by selection (each update writes new
+            # ones and leaves the old).
+            telem, watch = new.telem, new.watch
             if telem is not None:
                 telem = TelemetryState(
                     rings=torch.where(bad, old.telem.rings, telem.rings),
                     steps=torch.where(bad, old.telem.steps, telem.steps))
+            if watch is not None:
+                watch = WatchState(
+                    rings=torch.where(bad, old.watch.rings, watch.rings),
+                    steps=torch.where(bad, old.watch.steps, watch.steps))
 
             # The counters, as JAX advances them.
             bad_i = bad.to(torch.int32)
@@ -327,12 +352,13 @@ class GuardTransform:
                                           consecutive)
             flags = torch.stack([bad_i, (remaining > 0).to(torch.int32)])
         inner = dataclasses.replace(old, mem=new.mem, comp=new.comp,
-                                    telem=telem)
+                                    telem=telem, watch=watch)
         return GuardState(inner=inner, notfinite_count=notfinite,
                           last_bad_step=last_bad, consecutive=consecutive,
                           fallback_remaining=remaining,
                           step=state.step + 1,
-                          pending=_Pending(flags, restores))
+                          pending=_Pending(flags, restores),
+                          host_step=state.host_step + 1)
 
 
 def guard_transform(inner: GraceTransform, *,

@@ -1,9 +1,9 @@
 """Host-side telemetry drain: one device-to-host transfer a flush window;
-counterpart of the JAX package's ``telemetry/reader.py`` (without its
-``anomaly=`` detectors, which read the cross-rank watch ring).
+counterpart of the JAX package's ``telemetry/reader.py``.
 
 The training loop calls :meth:`TelemetryReader.update` every step; only
-every ``every``-th call flushes, and a flush moves the ring, its step ids
+every ``every``-th call flushes, and a flush moves the rings (the
+telemetry ring and, when armed, the cross-rank watch ring), their step ids
 and the guard's counters to the host as one byte buffer in one transfer.
 Between flushes the loop never waits on telemetry.
 
@@ -17,7 +17,14 @@ Between flushes the loop never waits on telemetry.
 * Across ranks the ring is per rank. A flush all-gathers every rank's
   buffer (one collective, which every rank of ``group`` must join), then
   aggregates each field over the ranks by its ``agg`` in
-  :data:`~grace_tpu_torch.telemetry.state.FIELDS`.
+  :data:`~grace_tpu_torch.telemetry.state.FIELDS`. Watch rows
+  (``{"event": "watch", ...}``) follow the metric rows: their replicated
+  columns read once, their per-rank ``gather`` columns assembled into
+  W-vectors (:data:`~grace_tpu_torch.telemetry.aggregate.WATCH_FIELDS`).
+* ``anomaly=...`` arms the streaming detectors
+  (:class:`~grace_tpu_torch.telemetry.anomaly.WatchMonitor`): each
+  flush's records run through them, and their ``watch_anomaly`` records
+  land in the same sink.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from grace_tpu_torch.telemetry.aggregate import WATCH_FIELDS, WatchState
+from grace_tpu_torch.telemetry.anomaly import AnomalyConfig, WatchMonitor
 from grace_tpu_torch.telemetry.state import FIELDS, TelemetryState
 
 __all__ = ["TelemetryReader"]
@@ -78,12 +87,31 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+def _normalize_anomaly(anomaly, sink) -> Optional[WatchMonitor]:
+    """None/False (off), True (defaults), an AnomalyConfig, a dict of its
+    kwargs, or a ready WatchMonitor (its own sink wins if it has one)."""
+    if anomaly is None or anomaly is False:
+        return None
+    if isinstance(anomaly, WatchMonitor):
+        if anomaly.sink is None:
+            anomaly.sink = sink
+        return anomaly
+    if anomaly is True:
+        return WatchMonitor(sink=sink)
+    if isinstance(anomaly, AnomalyConfig):
+        return WatchMonitor(sink=sink, config=anomaly)
+    if isinstance(anomaly, dict):
+        return WatchMonitor(sink=sink, config=AnomalyConfig(**anomaly))
+    raise TypeError(f"anomaly must be None/bool/dict/AnomalyConfig/"
+                    f"WatchMonitor; got {type(anomaly).__name__}")
+
+
 class TelemetryReader:
     """Flush the telemetry ring through a sink every ``every`` steps::
 
         reader = TelemetryReader(JSONLSink("run.jsonl",
                                            provenance=run_provenance("synthetic")),
-                                 every=20)
+                                 every=20, anomaly=True)
         for i, batch in enumerate(batches):
             state, loss = step(state, batch)
             reader.update(i, state)
@@ -96,7 +124,7 @@ class TelemetryReader:
     """
 
     def __init__(self, sink: Optional[Any] = None, every: int = 10,
-                 group: Optional[Any] = None):
+                 anomaly=None, group: Optional[Any] = None):
         if every < 1:
             raise ValueError(f"flush interval must be >= 1; got {every}")
         self.sink = sink
@@ -104,7 +132,9 @@ class TelemetryReader:
         self.group = group
         self.dropped = 0         # steps lost to ring wraparound
         self.flushes = 0         # device-to-host transfers made
+        self.monitor = _normalize_anomaly(anomaly, sink)
         self._last_step = -1     # newest step already emitted
+        self._last_watch_step = -1
 
     def update(self, step: int, state) -> List[dict]:
         """Per-iteration hook: flushes on every ``every``-th call."""
@@ -119,15 +149,18 @@ class TelemetryReader:
 
     def flush(self, state) -> List[dict]:
         """Drain every unseen ring row in ONE device-to-host transfer and
-        write the records, step-ordered, to the sink."""
+        write the records to the sink: the metric rows (step-ordered), then
+        the watch rows, then any ``watch_anomaly`` records the armed
+        detectors found in them."""
         from grace_tpu_torch.resilience.guard import GuardState
 
         telems = collect(state, TelemetryState)
-        if not telems:
+        watches = collect(state, WatchState)
+        if not telems and not watches:
             return []
         guards = collect(state, GuardState)
         parts = []
-        for t in telems:
+        for t in telems + watches:
             parts += [t.rings, t.steps]
         if guards:
             parts.append(guards[0].counters())
@@ -150,6 +183,8 @@ class TelemetryReader:
             guard_vals = {f"guard_{name}": int(v)
                           for name, v in zip(_GUARD_FIELDS, vals)}
 
+        watch_records = self._watch_records(watches,
+                                            chunks[2 * len(telems):], world)
         records: List[dict] = []
         newest = self._last_step
         n_fields = len(FIELDS)
@@ -182,10 +217,45 @@ class TelemetryReader:
             if self.sink is not None:
                 for rec in records:
                     self.sink.write(rec)
-        elif guard_vals and self.sink is not None:
+        elif guard_vals and self.sink is not None and not watch_records:
             # No fresh rows (every step of the window skipped, or already
             # flushed): still report the guard, so a bad run is not silent.
             self.sink.write({"event": "guard_only", **guard_vals})
+        if self.sink is not None:
+            for rec in watch_records:
+                self.sink.write(rec)
+        out = records + watch_records
+        if self.monitor is not None and out:
+            # The monitor writes its findings to the sink itself.
+            out = out + self.monitor.observe(out)
+        return out
+
+    def _watch_records(self, watches, chunks, world: int) -> List[dict]:
+        """Watch rows from the flushed bytes: the replicated columns read
+        once, the per-rank ``gather`` columns as W-vectors."""
+        n_fields = len(WATCH_FIELDS)
+        records: List[dict] = []
+        newest = self._last_watch_step
+        for wi, w in enumerate(watches):
+            cap = w.steps.shape[0]
+            rings = np.ascontiguousarray(chunks[2 * wi]).view(
+                np.float32).reshape(world, cap, n_fields)
+            steps = np.ascontiguousarray(chunks[2 * wi + 1][0]).view(
+                np.int32)
+            fresh = np.flatnonzero(steps > self._last_watch_step)
+            for slot in fresh[np.argsort(steps[fresh])]:
+                rec: dict = {"event": "watch", "step": int(steps[slot])}
+                if len(watches) > 1:
+                    rec["watch_index"] = wi
+                for fi, (name, agg) in enumerate(WATCH_FIELDS):
+                    if agg == "gather":
+                        rec[name] = [float(v) for v in rings[:, slot, fi]]
+                    else:
+                        rec[name] = float(rings[0, slot, fi])
+                rec["skew_rank"] = int(rec["skew_rank"])
+                records.append(rec)
+                newest = max(newest, int(steps[slot]))
+        self._last_watch_step = newest
         return records
 
     def close(self) -> None:

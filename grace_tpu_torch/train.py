@@ -28,6 +28,14 @@ optax chain. Steps 3 and 4 then run inside the guard, which skips a bad
 step and rolls back the parameters, the optimizer state and the GRACE
 state together; ``TrainState.grace`` holds its ``GuardState``, and the
 loop reads its health with ``utils.metrics.guard_report(state)``.
+
+Consistency: ``consensus=`` (None, True, ``audit_every``, a dict or a
+``resilience.ConsensusConfig``) runs the cross-rank audit after step 4 (and
+after the guard): every ``audit_every`` steps it fingerprints the
+parameters (with the model's buffers in the stateful step), the
+optimizer's state and every GraceState, and repairs a divergent rank
+(:mod:`grace_tpu_torch.resilience.consensus`). The transform must carry an
+``AuditState`` (``grace_from_params({"consensus": ...})``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from grace_tpu_torch.telemetry.scopes import (STAGE_FWD_BWD,
+from grace_tpu_torch.telemetry.scopes import (STAGE_CONSENSUS,
+                                              STAGE_FWD_BWD,
                                               STAGE_OPTIMIZER, trace_stage)
 from grace_tpu_torch.transform import GraceState, GraceTransform
 
@@ -81,7 +90,15 @@ def _mean_over_group(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _make_step(loss_fn, grace_tx: GraceTransform, group,
-               sync_model_state: bool):
+               sync_model_state: bool, consensus=None):
+    if consensus is not None and consensus is not False:
+        # Lazy: resilience imports transform, as this module does.
+        from grace_tpu_torch.resilience.consensus import (consensus_step,
+                                                          normalize_consensus)
+        consensus = normalize_consensus(consensus)
+    else:
+        consensus = None
+
     def step(state: TrainState, batch):
         model = state.model
         model.train()
@@ -109,6 +126,14 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
                 for name, p in named.items():
                     p.grad = updates[name]
                 state.optimizer.step()
+        if consensus is not None:
+            with trace_stage(STAGE_CONSENSUS):
+                # The model's buffers are replicated state only where the
+                # step keeps them so (the stateful step's averaging).
+                model_state = (model if sync_model_state
+                               else dict(model.named_parameters()))
+                _, _, grace = consensus_step(
+                    (model_state, state.optimizer, grace), consensus, group)
         loss = _mean_over_group(loss.detach().clone(), group)
         return TrainState(model, state.optimizer, grace), loss
 
@@ -116,21 +141,26 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
 
 
 def make_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
-                    grace_tx: GraceTransform, group: Optional[Any] = None):
+                    grace_tx: GraceTransform, group: Optional[Any] = None,
+                    consensus=None):
     """``step(state, batch) -> (state, loss)``. ``loss_fn(model, batch)``
     returns the mean loss over the local batch. ``grace_tx`` is a
-    GraceTransform or a guarded chain (module docstring)."""
-    return _make_step(loss_fn, grace_tx, group, sync_model_state=False)
+    GraceTransform or a guarded chain, ``consensus`` the audit's config
+    (module docstring)."""
+    return _make_step(loss_fn, grace_tx, group, sync_model_state=False,
+                      consensus=consensus)
 
 
 def make_stateful_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
                              grace_tx: GraceTransform,
                              group: Optional[Any] = None,
-                             sync_model_state: bool = True):
+                             sync_model_state: bool = True, consensus=None):
     """Like :func:`make_train_step` for models whose buffers change in the
     forward pass (BatchNorm running stats); ``sync_model_state`` averages
-    them over the group after each backward pass."""
-    return _make_step(loss_fn, grace_tx, group, sync_model_state)
+    them over the group after each backward pass, and the audit then
+    fingerprints them too."""
+    return _make_step(loss_fn, grace_tx, group, sync_model_state,
+                      consensus=consensus)
 
 
 def make_eval_step(metric_fn: Callable[[nn.Module, Any], Any],

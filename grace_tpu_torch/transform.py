@@ -42,7 +42,7 @@ g), G)[j]``.
 Every rank walks the same plan (it reads names, shapes and dtypes only), so
 the collectives of the buckets, groups and routed triads line up.
 
-Two options ride on every executor, as in JAX:
+Three options ride on every executor, as in JAX:
 
 * ``escape=`` a dense codec (none, fp16, bf16): while the state's replicated
   ``fallback`` flag is set, the update is a dense ``escape``-coded
@@ -57,6 +57,15 @@ Two options ride on every executor, as in JAX:
   the structures the executor compresses, without feedback), and the
   effective wire bytes under the transform's :class:`Topology`, which flip
   to the escape's price inside a fallback window.
+* ``watch=`` (with telemetry): every ``window``-th update gathers each
+  rank's gradient norm, compression error and residual norm, and writes
+  the cross-rank summary into ``GraceState.watch``
+  (:mod:`grace_tpu_torch.telemetry.aggregate`); the gather's bytes ride in
+  the row's ``wire_bytes`` as ``watch_bytes``.
+
+``consensus=`` makes the state carry an :class:`AuditState`, which the
+train step's consistency audit advances
+(:mod:`grace_tpu_torch.resilience.consensus`).
 """
 
 from __future__ import annotations
@@ -65,16 +74,22 @@ import dataclasses
 import fnmatch
 import functools
 import math
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
 from grace_tpu_torch.core import (Communicator, Compressor, LeafKey,
                                   LinkBytes, Memory, State, Topology,
                                   negotiation_bytes_for)
+from grace_tpu_torch.telemetry.aggregate import (WatchConfig, WatchState,
+                                                 normalize_watch,
+                                                 watch_gather_bytes,
+                                                 watch_init, watch_record)
 from grace_tpu_torch.telemetry.scopes import (STAGE_BUCKET,
                                               STAGE_DENSE_ESCAPE,
-                                              STAGE_TELEMETRY, trace_stage)
+                                              STAGE_TELEMETRY, STAGE_WATCH,
+                                              trace_stage)
 from grace_tpu_torch.telemetry.state import (TelemetryConfig,
                                              TelemetryState, telemetry_init,
                                              telemetry_record)
@@ -300,6 +315,24 @@ _REINIT = ("the state was built under a different fusion setting. Re-init "
            "same fusion config).")
 
 
+class AuditState(NamedTuple):
+    """The consistency auditor's bookkeeping
+    (:mod:`grace_tpu_torch.resilience.consensus`), the JAX package's
+    fields. Replicated, and held on the host: every field follows from the
+    fingerprint matrix that each rank reads at an audit, so every rank
+    computes the same values without a device read of its own."""
+
+    audits: int = 0                # audits performed
+    repairs: int = 0               # repairs (a divergence on any rank)
+    escalations: int = 0           # repeat-offender dense-window trips
+    last_divergent_rank: int = -1  # group rank of the last divergence
+    last_repair_step: int = -1     # GraceState.count at the last repair
+
+
+def audit_init() -> AuditState:
+    return AuditState()
+
+
 @dataclasses.dataclass
 class GraceState:
     count: int                # step counter, the same on every rank
@@ -308,23 +341,34 @@ class GraceState:
     comp: List[State]         # compressor state likewise
     # Replicated health flag: True routes the next update through the
     # dense escape (grace_transform(escape=...)). Written by the guard via
-    # set_fallback_flag; without a guard it stays False.
+    # set_fallback_flag (and by the consensus audit's escalation); without
+    # either it stays False.
     fallback: bool = False
     # The telemetry ring (per-rank data, like mem/comp) when the transform
     # was built with telemetry=..., else None.
     telem: Optional[TelemetryState] = None
+    # The consensus audit's bookkeeping (replicated, like count) when the
+    # transform was built with consensus=..., else None. The transform only
+    # carries it; the audit runs in the train step
+    # (make_train_step(consensus=...)), where the parameters and the
+    # optimizer are in reach.
+    audit: Optional[AuditState] = None
+    # The cross-rank watch ring (per-rank data, like telem: the skew
+    # columns differ by rank) when the transform was built with watch=...,
+    # else None.
+    watch: Optional[WatchState] = None
 
 
 # The field split every layout-aware consumer agrees on, the JAX
 # package's under the port's field names (its rng_key is the port's seed;
-# the watch ring, the audit and the adaptive state are not ported yet).
-# VARYING fields hold per-rank data (a checkpoint writes them a file a
-# rank); REPLICATED fields are the same on every rank.
-GRACE_VARYING_FIELDS = ("mem", "comp", "telem")
-GRACE_REPLICATED_FIELDS = ("count", "seed", "fallback")
+# the adaptive state is not ported yet). VARYING fields hold per-rank data
+# (a checkpoint writes them a file a rank); REPLICATED fields are the same
+# on every rank (the consensus audit fingerprints them).
+GRACE_VARYING_FIELDS = ("mem", "comp", "telem", "watch")
+GRACE_REPLICATED_FIELDS = ("count", "seed", "fallback", "audit")
 # The observational varying fields: rings that record pipeline values as
 # they are, so the guard's state scan strips them (they still roll back).
-GRACE_OBSERVATIONAL_FIELDS = ("telem",)
+GRACE_OBSERVATIONAL_FIELDS = ("telem", "watch")
 
 
 def _map_grace(fn, tree):
@@ -372,6 +416,8 @@ class GraceTransform:
     escape: Optional[Compressor] = None         # the dense escape codec
     telemetry: Optional[TelemetryConfig] = None
     topology: Optional[Topology] = None         # prices the link split
+    consensus: bool = False                     # carry an AuditState
+    watch: Optional[WatchConfig] = None
     _wire_plans: dict = dataclasses.field(default_factory=dict,
                                           compare=False, repr=False)
 
@@ -412,7 +458,10 @@ class GraceTransform:
         return GraceState(
             count=0, seed=self.seed, mem=mem, comp=comp,
             telem=(telemetry_init(self.telemetry, device)
-                   if self.telemetry is not None else None))
+                   if self.telemetry is not None else None),
+            audit=audit_init() if self.consensus else None,
+            watch=(watch_init(self.watch, device)
+                   if self.watch is not None else None))
 
     def _bucket_buffers(self, leaves):
         """The bucket plan of these leaves and each bucket's flat buffer at
@@ -437,6 +486,12 @@ class GraceTransform:
                 "without telemetry (or restored from such a checkpoint). "
                 "Re-init the optimizer state with the telemetry-enabled "
                 "transform.")
+        if self.watch is not None and state.watch is None:
+            raise ValueError(
+                "grace_transform was built with watch=... but the state has "
+                "no watch ring — it was initialized by a transform without "
+                "watch (or restored from such a checkpoint). Re-init the "
+                "optimizer state with the watch-enabled transform.")
         dense = self.escape is not None and bool(state.fallback)
         plan = (self._bucket_buffers(leaves)
                 if self._bucketed and not dense else None)
@@ -462,14 +517,14 @@ class GraceTransform:
                     "over these gradients: the state was built for another "
                     "parameter set or fusion setting. Re-init it.")
             outs, mem, comp = self._update_per_leaf(names, leaves, state)
-        telem = state.telem
+        telem, watch = state.telem, state.watch
         if self.telemetry is not None:
             with trace_stage(STAGE_TELEMETRY):
-                telem = self._telemetry_next(state, names, leaves, outs, mem,
-                                             grad_sq, err_sq)
-        return dict(zip(names, outs)), GraceState(
-            count=state.count + 1, seed=state.seed, mem=mem, comp=comp,
-            fallback=state.fallback, telem=telem)
+                telem, watch = self._telemetry_next(
+                    state, names, leaves, outs, mem, grad_sq, err_sq)
+        return dict(zip(names, outs)), dataclasses.replace(
+            state, count=state.count + 1, mem=mem, comp=comp, telem=telem,
+            watch=watch)
 
     def _run_dense(self, leaves, state: GraceState):
         """The escape: a dense ``escape``-coded all-reduce of the raw
@@ -598,8 +653,9 @@ class GraceTransform:
         return plan
 
     def _telemetry_next(self, state: GraceState, names, leaves, outs,
-                        new_mem, grad_sq, err_sq) -> TelemetryState:
-        """The ring with this update's row: every value computed on the
+                        new_mem, grad_sq, err_sq):
+        """The ring with this update's row and the watch ring with the
+        window's summary (when it is due): every value computed on the
         device or known on the host, nothing read back."""
         world = self.communicator.world_size()
         dense_b, link, esc_link, neg_b = self._wire_plan(names, leaves,
@@ -628,7 +684,22 @@ class GraceTransform:
             tier = (self.topology or Topology()).flat_tier(world)
             tiers[tier] += float(ngb)
             wire += float(ngb)
-        return telemetry_record(state.telem, state.count, {
+        watch, wb = state.watch, 0.0
+        if self.watch is not None and state.count % self.watch.window == 0:
+            # The window predicate is the host's step counter, the same on
+            # every rank, so every rank joins the gather at the same steps.
+            with trace_stage(STAGE_WATCH):
+                watch = watch_record(
+                    state.watch, state.count,
+                    {"grad_norm": grad_norm, "compression_error": err,
+                     "residual_norm": residual_norm},
+                    self.communicator.group)
+            # A flat full-group collective, priced like the negotiation:
+            # into wire_bytes and the tier the group spans.
+            wb = float(watch_gather_bytes(world))
+            tiers[(self.topology or Topology()).flat_tier(world)] += wb
+            wire += wb
+        telem = telemetry_record(state.telem, state.count, {
             "grad_norm": grad_norm,
             "update_norm": torch.sqrt(_sqsum(outs)),
             "residual_norm": residual_norm,
@@ -641,11 +712,12 @@ class GraceTransform:
             "wire_bytes_ici": tiers["ici"],
             "wire_bytes_dcn": tiers["dcn"],
             "wire_bytes_wan": tiers["wan"],
-            "watch_bytes": 0.0,
+            "watch_bytes": wb,
             "negotiation_bytes": float(ngb),
             "adapt_rung": -1.0,
             "adapt_bytes": 0.0,
         })
+        return telem, watch
 
     def _update_per_leaf(self, names, leaves, state: GraceState):
         """One pipeline a leaf. Routed leaves are partitioned by triad, in
@@ -767,7 +839,8 @@ def grace_transform(compressor: Compressor, memory: Memory,
                     fusion: Fusion = None,
                     routes: Optional[Sequence] = None,
                     escape: Optional[Compressor] = None, telemetry=None,
-                    topology: Optional[Topology] = None) -> GraceTransform:
+                    topology: Optional[Topology] = None, consensus=None,
+                    watch=None) -> GraceTransform:
     """Build the compressed-exchange transform (module docstring): the
     executor is picked by ``fusion`` (None, ``'flat'``, ``'grouped'`` or
     bucket bytes) and ``routes`` (``[(pattern, triad), ...]``, see
@@ -778,7 +851,16 @@ def grace_transform(compressor: Compressor, memory: Memory,
     capacity, a dict or a :class:`TelemetryConfig`); ``topology`` is the
     link layout the ring prices its per-link split under (None: detected
     once, here, when telemetry is on: ``Topology.detect()``, a collective
-    of the default process group)."""
+    of the default process group).
+
+    ``consensus`` (None, True, ``audit_every``, a dict or a
+    :class:`~grace_tpu_torch.resilience.consensus.ConsensusConfig`) makes
+    the state carry an :class:`AuditState`; the audit itself is the train
+    step's ``consensus=`` hook. ``watch`` (None, True, a window, a dict or
+    a :class:`~grace_tpu_torch.telemetry.aggregate.WatchConfig`) arms the
+    cross-rank watch ring: every ``window``-th update gathers each rank's
+    gradient norm, compression error and residual norm and writes the
+    summary row; it needs ``telemetry``, whose row prices the gather."""
     routes = normalize_routes(routes, communicator) if routes else ()
     check_fusion(fusion, bool(routes))
     if fusion == "grouped" and communicator.shard_parallel:
@@ -800,8 +882,22 @@ def grace_transform(compressor: Compressor, memory: Memory,
             "(NoneCompressor/FP16Compressor) — the escape hatch psums its "
             f"payload; got {type(escape).__name__}.")
     telemetry = _normalize_telemetry(telemetry)
+    watch = normalize_watch(watch)
+    if watch is not None and telemetry is None:
+        raise ValueError(
+            "watch=... requires telemetry=...: graft-watch summarizes the "
+            "telemetry row's health scalars cross-rank and folds its "
+            "gather cost into the ring's wire_bytes — arm "
+            "grace_transform(telemetry=True) (or a capacity/config) "
+            "alongside watch.")
+    armed = consensus is not None and consensus is not False
+    if armed:
+        # Lazy: resilience imports this module.
+        from grace_tpu_torch.resilience.consensus import normalize_consensus
+        normalize_consensus(consensus)            # JAX's errors, at build
     if topology is None and telemetry is not None:
         topology = Topology.detect()
     return GraceTransform(compressor, memory, communicator, seed=seed,
                           fusion=fusion, routes=routes, escape=escape,
-                          telemetry=telemetry, topology=topology)
+                          telemetry=telemetry, topology=topology,
+                          consensus=armed, watch=watch)

@@ -2,8 +2,8 @@
 ``utils/logging.py`` (its ``Timer``, ``TableLogger``, ``TSVLogger``,
 rank-0 printing and run provenance). The rank is the ``torch.distributed``
 rank (0 outside a process group), where JAX reads the process index.
-``GuardMonitor`` prints the step guard's transitions; ``ConsensusMonitor``
-waits for the consensus audit.
+``GuardMonitor`` prints the step guard's transitions, ``ConsensusMonitor``
+the consensus audit's.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Callable, Mapping, Optional, Sequence, TextIO
 import torch
 import torch.distributed as dist
 
-__all__ = ["Timer", "TableLogger", "TSVLogger", "GuardMonitor", "localtime",
+__all__ = ["Timer", "TableLogger", "TSVLogger", "GuardMonitor",
+           "ConsensusMonitor", "localtime",
            "rank_zero_only", "rank_zero_print", "run_provenance",
            "git_commit"]
 
@@ -184,6 +185,54 @@ class GuardMonitor:
         if prev["fallback_active"] and not report["fallback_active"]:
             self._print(f"[guard] step {step}: compression re-armed")
             self._event("guard_rearmed", step, report)
+
+
+class ConsensusMonitor:
+    """Emit the consensus audit's *transitions*: repairs and escalations.
+
+    The :class:`GuardMonitor` twin for
+    :mod:`grace_tpu_torch.resilience.consensus`. Feed it the per-step dict
+    of ``resilience.audit_report(state)``; it prints (rank 0 only) and
+    writes to ``sink`` only when a counter moved, so a healthy run stays
+    silent::
+
+        mon = ConsensusMonitor(sink=jsonl_sink)
+        for i, batch in enumerate(batches):
+            state, loss = step(state, batch)
+            mon.update(i, audit_report(state))
+
+    Sink records: ``{"event": "consensus_repair" |
+    "consensus_escalation", "step": ..., **report}``, in the same stream as
+    the telemetry rows and guard events."""
+
+    def __init__(self, printer: Optional[Callable[..., None]] = None,
+                 sink=None):
+        self._print = printer or rank_zero_print
+        self._sink = sink
+        self._last: Optional[dict] = None
+
+    def _event(self, name: str, step: int,
+               report: Mapping[str, object]) -> None:
+        if self._sink is not None:
+            self._sink.write({"event": name, "step": step, **report})
+
+    def update(self, step: int, report: Mapping[str, object]) -> None:
+        if not report:
+            return
+        prev, self._last = self._last, dict(report)
+        if prev is None:
+            return
+        if report["repairs"] > prev["repairs"]:
+            self._print(f"[consensus] step {step}: replica divergence on "
+                        f"rank {report['last_divergent_rank']} repaired "
+                        f"(total repairs={report['repairs']})")
+            self._event("consensus_repair", step, report)
+        if report["escalations"] > prev["escalations"]:
+            self._print(f"[consensus] step {step}: rank "
+                        f"{report['last_divergent_rank']} re-diverged — "
+                        f"escalating to dense fallback "
+                        f"(total escalations={report['escalations']})")
+            self._event("consensus_escalation", step, report)
 
 
 def git_commit() -> Optional[str]:

@@ -130,11 +130,13 @@ class TestRoundTrip:
         assert files == ["meta.json", "rank0.pt", "replicated.pt"]
         per_rank = torch.load(tmp_path / "c" / "2" / "rank0.pt",
                               weights_only=False)
-        # Top-K keeps no compressor state and this run no ring: None leaves.
+        # Top-K keeps no compressor state and this run no rings: None
+        # leaves (the telemetry ring and the watch ring).
         assert sorted(per_rank) == ["grace/comp/0", "grace/comp/1",
                                     "grace/mem/0", "grace/mem/1",
-                                    "grace/telem"]
+                                    "grace/telem", "grace/watch"]
         assert per_rank["grace/telem"] is None
+        assert per_rank["grace/watch"] is None
         restored = restore_checkpoint(
             tmp_path / "c", _setup(group, params=TOPK, guard=False)[0])
         for a, b in zip(restored.grace.mem, state.grace.mem):

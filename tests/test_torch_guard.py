@@ -38,6 +38,8 @@ from grace_tpu import grace_from_params as jax_grace_from_params
 from grace_tpu.parallel import shard_map
 from grace_tpu.resilience import GUARD_ROLLBACK_EXCLUDED as JAX_EXCLUDED
 from grace_tpu.resilience import guarded_chain as jax_guarded_chain
+from grace_tpu.transform import \
+    GRACE_OBSERVATIONAL_FIELDS as JAX_OBSERVATIONAL
 from grace_tpu.transform import (add_world_axis, partition_specs)
 
 from grace_tpu_torch import grace_from_params
@@ -47,7 +49,7 @@ from grace_tpu_torch.resilience import (GUARD_ROLLBACK_EXCLUDED,
                                         GUARD_SCAN_EXCLUDED_TYPES,
                                         GuardState, guard_transform,
                                         guarded_chain)
-from grace_tpu_torch.telemetry import TelemetryState
+from grace_tpu_torch.telemetry import TelemetryState, WatchState
 from grace_tpu_torch.transform import (GRACE_OBSERVATIONAL_FIELDS,
                                        GRACE_REPLICATED_FIELDS,
                                        GRACE_VARYING_FIELDS, GraceState,
@@ -442,8 +444,11 @@ def test_guard_max_norm_bound(group):
 
 def test_contract_constants_and_flags(group):
     assert GUARD_ROLLBACK_EXCLUDED == JAX_EXCLUDED
-    assert GRACE_OBSERVATIONAL_FIELDS == ("telem",)
-    assert GUARD_SCAN_EXCLUDED_TYPES == (TelemetryState,)
+    # The observational rings: telemetry, and the watch ring since it was
+    # ported, as in JAX.
+    assert GRACE_OBSERVATIONAL_FIELDS == JAX_OBSERVATIONAL == (
+        "telem", "watch")
+    assert GUARD_SCAN_EXCLUDED_TYPES == (TelemetryState, WatchState)
     assert set(GRACE_VARYING_FIELDS) | set(GRACE_REPLICATED_FIELDS) == {
         f.name for f in __import__("dataclasses").fields(GraceState)}
     with pytest.raises(ValueError, match="set together"):

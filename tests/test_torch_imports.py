@@ -74,6 +74,14 @@ GUARDED_STEP_MODULES = {
     "grace_tpu_torch.telemetry.reader", "grace_tpu_torch.resilience",
     "grace_tpu_torch.resilience.guard", "grace_tpu_torch.checkpoint"}
 
+# The cross-rank health layer: watch, the detectors, the timeline, the
+# consensus audit and the chaos injectors.
+CROSS_RANK_MODULES = {
+    "grace_tpu_torch.telemetry.aggregate", "grace_tpu_torch.telemetry.anomaly",
+    "grace_tpu_torch.telemetry.timeline",
+    "grace_tpu_torch.resilience.consensus",
+    "grace_tpu_torch.resilience.chaos"}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -90,6 +98,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert FRONT_END_MODULES <= names
     assert MODEL_ZOO_MODULES <= names
     assert GUARDED_STEP_MODULES <= names
+    assert CROSS_RANK_MODULES <= names
     assert leaked.strip() == "[]"
 
 
