@@ -278,6 +278,30 @@ The cross-rank watch and the consistency audit:
     [28]'s rows, each row's exchange with the consensus hook alone from an
     idle card, synchronizing calls counted.
 
+The adaptive compression ladder and elastic resize:
+
+30. At W=1, ResNet-50 (batch 256): topk1pct with the fp16 escape, the
+    telemetry ring and the ladder fp16 → Top-K 4% → Top-K 1% (window 5)
+    for 1 + 20 steps: the ring's rung trajectory must visit every rung and
+    equal a float32 host replay of adapt_advance over the errors the ring
+    recorded; each chunk kernel launches 2+1 a step on rungs 1-2 and 0 on
+    rung 0; the controller waits for one boundary read a window and adds
+    no synchronizing call beyond it; AdaptMonitor emits one event a
+    transition; both chunk kernels at the 4% rung's k equal their plain
+    versions bit for bit on the run's gradients. One profiled step at each
+    pinned rung, of the static twin and of its forced escape. The
+    bench_all.py row adapt_homoqsgd4_ring_bs256 beside homoqsgd4_ring_bs256
+    (1 warm-up + 3 timed). The ladder under guarded_chain(fallback_after=3,
+    fallback_steps=8) and the audit: three NaN steps open the dense window,
+    whose steps run rung 0 with no chunk launch, the rungs and
+    adapt_report equal a host replay, and a healthy audited adaptive run
+    equals the unaudited one bit for bit. Elastic, from the HEADLINE state
+    under JAX's elastic fixture config: ElasticController.drain (timed,
+    its size on disk), the re-shard onto a fresh one-rank group
+    (replicated fields, the guard's counters and the parameters bit for
+    bit, residuals zero, rings reset, validate_resharded), the next step
+    (both chunk kernels) and the rejoin barrier (timed, no repair).
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -4219,6 +4243,563 @@ def watch_phase(dev, group, x, y, runs) -> None:
         "step" for c in WATCH_ROWS) + f"; {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 30: the adaptive compression ladder and elastic resize ------------
+
+ADAPT_WINDOW = 5
+# The slice's path: HEADLINE's topk1pct with the fp16 escape, the telemetry
+# ring and the ladder of the registry entry adapt-topk-hier
+# (grace_tpu/analysis/configs.py:414-419): rungs fp16, Top-K 4%, Top-K 1%.
+ADAPT_PARAMS = {**HEADLINE[1]["params"], "escape": "fp16", "telemetry": True,
+                "adapt": {"window": ADAPT_WINDOW,
+                          "ladder": [{"compress_ratio": 0.04}]}}
+ADAPT_RUNG_RATIO = 0.04
+ADAPT_STEPS = 20                   # after one warm-up step
+# Thresholds no real signal crosses: one rung for a profiled step.
+_PINNED = {"tighten_error": 1e5, "tighten_peak": 1e5, "loosen_error": 1e-9}
+# bench_all.py:179-186 verbatim, its static twin with the same escape and
+# telemetry ring (so the gap between the two is the ladder alone), and the
+# bare static twin (HOMO_PATH's row).
+ADAPT_HOMO_ROWS = [
+    {"name": "phase30_adapt_homoqsgd4_ring_bs256", "per_device_bs": 256,
+     "params": {"compressor": "homoqsgd", "quantum_num": 7,
+                "memory": "residual", "communicator": "ring",
+                "fusion": "flat", "escape": "fp16", "telemetry": 16,
+                "adapt": {"window": 25, "ladder": [{"quantum_num": 127}]}},
+     "per_step": {}},
+    {**HOMO_PATH[0], "name": "phase30_homoqsgd4_ring_telemetry_bs256",
+     "params": {**HOMO_PATH[0]["params"], "escape": "fp16",
+                "telemetry": 16}},
+    {**HOMO_PATH[0], "name": "phase30_homoqsgd4_ring_bs256"},
+]
+# The registry entry adapt-guard-consensus (configs.py:427-431) moved onto
+# topk1pct: its ladder rung, guard and audit. fallback_after=3 needs three
+# bad steps in a row to open the dense window.
+ADAPT_GUARD_PARAMS = {**HEADLINE[1]["params"], "escape": "fp16",
+                      "telemetry": True, "consensus": True,
+                      "adapt": {"window": ADAPT_WINDOW,
+                                "ladder": [{"compress_ratio": 0.2}]}}
+ADAPT_GUARD_KW = {"fallback_after": 3, "fallback_steps": 8}
+ADAPT_GUARD_BAD = (3, 4, 5)
+ADAPT_GUARD_STEPS = 16
+ADAPT_AUDIT_EVERY = 5
+ADAPT_HEALTHY_STEPS = 5
+# JAX's elastic fixture config (tests/test_elastic.py:43-55) on topk1pct.
+ELASTIC_PARAMS = {**HEADLINE[1]["params"], "escape": "fp16",
+                  "consensus": {"audit_every": 50}, "telemetry": 8,
+                  "watch": {"window": 2, "capacity": 4}}
+ELASTIC_GUARD_KW = {"fallback_after": 3, "fallback_steps": 4}
+ELASTIC_STEPS = 3
+
+
+def _replay(cfg, rows):
+    """The effective rungs a host replay of the controller gives over the
+    ring's rows (each row's compression error and fallback flag, W=1: the
+    local error is the mean and the worst rank's), in float32, and the
+    replayed state after the last row."""
+    import torch
+    from grace_tpu_torch.resilience import adapt as A
+
+    a, rungs = A.adapt_init(cfg), []
+    for r in rows:
+        fb = bool(r["fallback"])
+        rungs.append(0 if fb else a.settle().rung)
+        e = torch.tensor(r["compression_error"], dtype=torch.float32)
+        a = A.adapt_advance(a, cfg, int(r["step"]), fb, e, e)
+    return rungs, a.settle()
+
+
+def _ring_rows(state) -> list:
+    from grace_tpu_torch.telemetry import TelemetryReader
+    rows = [r for r in TelemetryReader(every=1).flush(state)
+            if "adapt_rung" in r]
+    return sorted(rows, key=lambda r: r["step"])
+
+
+def check_rung_kernels(dev, grads, resids, ratio, errs) -> int:
+    """Both chunk Top-K kernels at a rung's k (grouped over every leaf, one
+    launch each) against their grouped plain versions on real gradients,
+    bit for bit: the compress with the run's residuals and without
+    feedback, the aggregate of its payload at W=1."""
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gs = [g.reshape(-1) for g in grads]
+    ns = [g.numel() for g in gs]
+    ks = [static_k(n, ratio) for n in ns]
+    cases = 0
+    for label, rs in (("feedback", [r.reshape(-1) for r in resids]),
+                      ("round-trip", [None] * len(gs))):
+        want = ck.chunk_compress_feedback_grouped_plain(gs, rs, ks)
+        got = ck.chunk_compress_feedback_grouped(
+            gs, [None if r is None else r.clone() for r in rs], ks)
+        torch.cuda.synchronize()
+        parts = [("vals", want[0], got[0]), ("indices", want[1], got[1])] + [
+            (f"residual {i}", w, o.reshape(-1))
+            for i, (w, o) in enumerate(zip(want[2], got[2]))]
+        for part, w, o in parts:
+            if not same_bits(w, o):
+                fail(f"[30] chunk_compress_feedback at {ratio:g} {label}: "
+                     f"{part} differs from the plain version (max abs err "
+                     f"{max_abs_err(w, o)})")
+            if w.is_floating_point():
+                errs["chunk_compress_feedback"] = max(
+                    errs["chunk_compress_feedback"], max_abs_err(w, o))
+        cases += 1
+        for average in (True, False):
+            agg_w = ck.chunk_aggregate_dense_grouped_plain(
+                want[0][None], want[1][None], ks, ns, average)
+            agg_g = ck.chunk_aggregate_dense_grouped(
+                got[0][None], got[1][None], ks, ns, average)
+            torch.cuda.synchronize()
+            if not same_bits(agg_w, agg_g):
+                fail(f"[30] chunk_aggregate_dense at {ratio:g} {label} "
+                     f"average={average}: differs from the plain version "
+                     f"(max abs err {max_abs_err(agg_w, agg_g)})")
+            errs["chunk_aggregate_dense"] = max(
+                errs["chunk_aggregate_dense"], max_abs_err(agg_w, agg_g))
+            cases += 1
+    return cases
+
+
+def adapt_trajectory_run(dev, group, x, y, errs) -> dict:
+    """The slice's path: topk1pct under the ladder, 1 warm-up + ADAPT_STEPS
+    steps. Per step its launches, wall ms, synchronizing calls (the debug
+    mode) and the controller's waits for a boundary's pinned copy; the
+    ring's rung trajectory against a host replay of the controller; the
+    AdaptMonitor's events; both chunk kernels at the 4% rung's k against
+    their plain versions on the run's gradients and residuals."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import adapt as A
+    from grace_tpu_torch.train import (init_stateful_train_state,
+                                       make_stateful_train_step)
+    from grace_tpu_torch.transform import leaf_order
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    grace = grace_from_params(ADAPT_PARAMS, group=group)
+    tx = grace.transform(seed=SEED)
+    state = init_stateful_train_state(model, tx, opt, group)
+    step = make_stateful_train_step(loss_fn, tx, group)
+    reads, read = [0], A._Boundary.read
+
+    def counted(self):
+        reads[0] += 1
+        return read(self)
+
+    A._Boundary.read = counted
+    per_step = []
+    try:
+        ops.reset_launch_counts()             # just before the main path
+        for _ in range(1 + ADAPT_STEPS):
+            before, r0 = ops.launch_counts(), reads[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, loss), syncs = _sync_count(
+                lambda: step(state, (x, y)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            now = ops.launch_counts()
+            per_step.append({
+                "launches": {k: now[k] - before[k] for k in now
+                             if now[k] - before[k]},
+                "syncs": syncs, "reads": reads[0] - r0, "ms": ms})
+        launches = ops.launch_counts()        # just after it
+    finally:
+        A._Boundary.read = read
+    if not math.isfinite(float(loss)):
+        fail(f"[30] non-finite loss {float(loss)}")
+    rows = _ring_rows(state)
+    traj = [int(r["adapt_rung"]) for r in rows]
+    if [r["step"] for r in rows] != list(range(1 + ADAPT_STEPS)):
+        fail(f"[30] ring rows {[r['step'] for r in rows]}")
+    want, _ = _replay(grace.adapt, rows)
+    if traj != want:
+        fail(f"[30] the card's rung trajectory {traj} differs from the host "
+             f"replay of adapt_advance over the ring's errors {want}")
+    if set(traj) != {0, 1, 2}:
+        fail(f"[30] the trajectory {traj} did not visit every rung")
+    # The step's own synchronizing calls (if any) are the baseline; the
+    # controller may add one, where it reads a boundary's statistics.
+    base = min(p["syncs"] for p in per_step)
+    for i, (rung, p) in enumerate(zip(traj, per_step)):
+        expect = _TOPK_TELEM if rung else {}
+        if p["launches"] != expect:
+            fail(f"[30] step {i} at rung {rung} launched {p['launches']}, "
+                 f"expected {expect}")
+        boundary_before = i > 0 and i % ADAPT_WINDOW == 0
+        if p["reads"] != int(boundary_before) or \
+                p["syncs"] - base > p["reads"]:
+            fail(f"[30] step {i}: {p['reads']} boundary reads and "
+                 f"{p['syncs']} synchronizing calls (expected "
+                 f"{int(boundary_before)} and at most {base} + reads)")
+    events = A.AdaptMonitor().observe(rows)
+    moves = sum(1 for a, b in zip(traj, traj[1:]) if a != b)
+    if len(events) != moves:
+        fail(f"[30] AdaptMonitor emitted {events} for {moves} transitions")
+    report = A.adapt_report(state)
+    by_rung = {r: statistics.median(p["ms"] for p, t in zip(per_step, traj)
+                                    if t == r) for r in sorted(set(traj))}
+    log(f"[30] trajectory over 1 + {ADAPT_STEPS} steps: {traj} (equal to the "
+        f"host replay of adapt_advance over the ring's float32 errors "
+        f"{[round(r['compression_error'], 4) for r in rows]}); AdaptMonitor "
+        f"{[(e['event'], e['step']) for e in events]}; adapt_report "
+        f"{report}; chunk launches a step "
+        + " ".join(f"{p['launches'].get('chunk_compress_feedback', 0)}+"
+                   f"{p['launches'].get('chunk_aggregate_dense', 0)}"
+                   for p in per_step)
+        + f"; boundary reads {sum(p['reads'] for p in per_step)} "
+        f"(steps {[i for i, p in enumerate(per_step) if p['reads']]}), "
+        f"debug-mode synchronizing calls {sum(p['syncs'] for p in per_step)}"
+        f"; median wall ms a step by rung {by_rung}")
+    # Both kernels at the 4% rung's k on this run's gradients.
+    opt.zero_grad(set_to_none=True)
+    loss_fn(model, (x, y)).backward()
+    named = dict(model.named_parameters())
+    order = leaf_order(named)
+    grads = [named[n].grad.detach() for n in order]
+    cases = check_rung_kernels(dev, grads, list(state.grace.mem),
+                               ADAPT_RUNG_RATIO, errs)
+    log(f"[30] both chunk kernels at the 4% rung's k over the {len(grads)} "
+        f"leaves ({cases} grouped cases: compress with the run's residuals "
+        f"and without feedback, the aggregate of each at W=1, averaged and "
+        f"summed) bit for bit against their plain versions")
+    return {"launches": launches, "trajectory": traj, "events": events,
+            "report": report, "per_step": per_step,
+            "median_ms_by_rung": by_rung, "loss": float(loss)}
+
+
+def profile_rungs(dev, group, x, y) -> dict:
+    """One profiled step (after one warm-up) at each pinned rung of the
+    ladder, of the static twin (topk1pct + fp16 escape + telemetry) and of
+    the twin with its escape forced: device ms, kernels, busy share,
+    launches and synchronizing calls."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.train import (TrainState, init_stateful_train_state,
+                                       make_stateful_train_step)
+    from grace_tpu_torch.transform import set_fallback_flag
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    static = {k: v for k, v in ADAPT_PARAMS.items() if k != "adapt"}
+    rows = [(f"phase30_rung{r}", {**ADAPT_PARAMS, "adapt": {
+        **ADAPT_PARAMS["adapt"], **_PINNED, "start_rung": r}}, False)
+        for r in (2, 1, 0)]
+    rows += [("phase30_static", static, False),
+             ("phase30_escape", static, True)]
+    out = {}
+    for name, params, forced in rows:
+        tx = grace_from_params(params, group=group).transform(seed=SEED)
+        state = init_stateful_train_state(model, tx, opt, group)
+        if forced:
+            state = TrainState(model, opt, set_fallback_flag(state.grace,
+                                                             True))
+        step = make_stateful_train_step(loss_fn, tx, group)
+        state, _ = step(state, (x, y))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        _, syncs = _sync_count(lambda: step(state, (x, y)))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        prof = profile_step(step, state, (x, y), name)
+        out[name] = {"launches": launches, "profiled": prof, "syncs": syncs}
+    for r in (2, 1):
+        if out[f"phase30_rung{r}"]["launches"] != _TOPK_TELEM:
+            fail(f"[30] rung {r}: launches {out[f'phase30_rung{r}']}")
+    for name in ("phase30_rung0", "phase30_escape"):
+        if out[name]["launches"]:
+            fail(f"[30] {name} launched {out[name]['launches']}")
+    log("[30] one profiled step each: " + "; ".join(
+        f"{k}: device {v['profiled']['device_ms']:.2f} ms, "
+        f"{v['profiled']['kernels']} kernels, busy <= "
+        f"{v['profiled']['device_ms'] / v['profiled']['wall_ms']:.2f}, wall "
+        f"{v['profiled']['wall_ms']:.1f} ms, launches {v['launches']}, "
+        f"{v['syncs']} synchronizing calls" for k, v in out.items()))
+    return out
+
+
+def adapt_guard_consensus_run(dev, group, x, y) -> dict:
+    """ADAPT_GUARD_PARAMS through the guard and the audit (every
+    ADAPT_AUDIT_EVERY steps): NaN lanes at ADAPT_GUARD_BAD open the dense
+    window, whose steps run rung 0 with no chunk launch; the ring's rungs
+    and adapt_report against a host replay (each boundary whose window
+    held a fallback step escalates). Then the healthy adaptive run with
+    the audit at every step against the same run without it, bit for
+    bit. Returns the injected run's launches."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import (ConsensusConfig, adapt_report,
+                                            audit_report, consensus_step,
+                                            guarded_chain)
+    from grace_tpu_torch.train import (init_stateful_train_state,
+                                       make_stateful_train_step)
+    from grace_tpu_torch.utils.metrics import guard_report
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    grace = grace_from_params(ADAPT_GUARD_PARAMS, group=group)
+    chain = guarded_chain(grace, seed=SEED, **ADAPT_GUARD_KW)
+    state = init_stateful_train_state(model, chain, opt, group)
+    step = make_stateful_train_step(
+        loss_fn, chain, group,
+        consensus=ConsensusConfig(audit_every=ADAPT_AUDIT_EVERY))
+    named = dict(model.named_parameters())
+    current = [0]
+
+    def poison(g):
+        if current[0] in ADAPT_GUARD_BAD:
+            g = g.clone(memory_format=torch.contiguous_format)
+            g.view(-1)[0] = float("nan")
+        return g
+
+    hook = named[GUARD_LEAF].register_hook(poison)
+    per_step = []
+    try:
+        ops.reset_launch_counts()             # just before the main path
+        for i in range(ADAPT_GUARD_STEPS):
+            current[0] = i
+            before = ops.launch_counts()
+            state, loss = step(state, (x, y))
+            now = ops.launch_counts()
+            per_step.append({k: now[k] - before[k] for k in now
+                             if now[k] - before[k]})
+        launches = ops.launch_counts()        # just after it
+    finally:
+        hook.remove()
+    if not math.isfinite(float(loss)):
+        fail(f"[30] guarded adaptive run: non-finite loss {float(loss)}")
+    rows = _ring_rows(state)
+    accepted = [i for i in range(ADAPT_GUARD_STEPS)
+                if i not in ADAPT_GUARD_BAD]
+    if len(rows) != len(accepted):
+        fail(f"[30] guarded adaptive run: {len(rows)} ring rows for "
+             f"{len(accepted)} accepted steps")
+    window = [i for i, r in zip(accepted, rows) if r["fallback"]]
+    if window != list(range(ADAPT_GUARD_BAD[-1] + 1, ADAPT_GUARD_BAD[-1] + 1
+                            + ADAPT_GUARD_KW["fallback_steps"])):
+        fail(f"[30] the dense window ran at steps {window}")
+    want, replayed = _replay(grace.adapt, rows)
+    traj = [int(r["adapt_rung"]) for r in rows]
+    if traj != want:
+        fail(f"[30] guarded adaptive run: rungs {traj}, host replay {want}")
+    for i, r in zip(accepted, rows):
+        expect = _TOPK_TELEM if int(r["adapt_rung"]) else {}
+        if per_step[i] != expect or (r["fallback"] and per_step[i]):
+            fail(f"[30] guarded adaptive step {i} (rung "
+                 f"{int(r['adapt_rung'])}, fallback {r['fallback']}) "
+                 f"launched {per_step[i]}")
+    report, guard = adapt_report(state), guard_report(state)
+    windows = {}
+    for r in rows:
+        windows.setdefault(int(r["step"]) // ADAPT_WINDOW, []).append(
+            bool(r["fallback"]))
+    decided = len(rows) // ADAPT_WINDOW
+    expect_esc = sum(any(windows[w]) for w in range(decided))
+    got = {k: report[k] for k in ("rung", "tightens", "loosens",
+                                  "escalations", "hold", "quiet")}
+    want_rep = {k: getattr(replayed, k) for k in got}
+    if got != want_rep or report["escalations"] != expect_esc \
+            or expect_esc < 1 or guard["notfinite_count"] != len(
+                ADAPT_GUARD_BAD):
+        fail(f"[30] guarded adaptive run: adapt_report {report} (replay "
+             f"{want_rep}, {expect_esc} windows held fallback steps), "
+             f"guard_report {guard}")
+    log(f"[30] guarded adaptive run ({ADAPT_GUARD_STEPS} steps, NaN at "
+        f"{ADAPT_GUARD_BAD}, audit every {ADAPT_AUDIT_EVERY}): dense window "
+        f"at steps {window} on rung 0 with no chunk launch; rungs {traj} = "
+        f"the host replay; adapt_report {report} ({expect_esc} boundaries "
+        f"saw fallback steps: one escalation each); guard skips "
+        f"{guard['notfinite_count']}; launches a step "
+        + " ".join(f"{i}:{p.get('chunk_compress_feedback', 0)}/"
+                   f"{p.get('chunk_aggregate_dense', 0)}"
+                   for i, p in enumerate(per_step)))
+    del state, chain, model, opt
+    torch.cuda.empty_cache()
+    # The audit over a healthy adaptive run changes nothing.
+    ma = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    mb = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    na, nb = dict(ma.named_parameters()), dict(mb.named_parameters())
+    opt_a = torch.optim.SGD(ma.parameters(), lr=1e-3)
+    opt_b = torch.optim.SGD(mb.parameters(), lr=1e-3)
+    chain_a = guarded_chain(grace_from_params(ADAPT_GUARD_PARAMS,
+                                              group=group),
+                            seed=SEED, **ADAPT_GUARD_KW)
+    chain_b = guarded_chain(grace_from_params(
+        {**ADAPT_GUARD_PARAMS, "consensus": None}, group=group), seed=SEED,
+        **ADAPT_GUARD_KW)
+    audit = ConsensusConfig(audit_every=1)
+    sa, sb = chain_a.init(na), chain_b.init(nb)
+    for s in range(ADAPT_HEALTHY_STEPS):
+        opt_a.zero_grad(set_to_none=True)
+        loss_fn(ma, (x, y)).backward()
+        grads_b = {k: p.grad.detach().clone() for k, p in na.items()}
+        sa = chain_a.apply(na, {k: p.grad for k, p in na.items()}, sa,
+                           opt_a)
+        sa = consensus_step((ma, opt_a, sa), audit, group)[2]
+        sb = chain_b.apply(nb, grads_b, sb, opt_b)
+        for k in na:
+            if not same_bits(na[k].detach().cpu(), nb[k].detach().cpu()):
+                fail(f"[30] healthy audited step {s}: parameter {k} differs")
+        for i, (m1, m2) in enumerate(zip(sa.inner.mem, sb.inner.mem)):
+            if not same_bits(m1.cpu(), m2.cpu()):
+                fail(f"[30] healthy audited step {s}: residual {i} differs")
+        if adapt_report(sa) != adapt_report(sb):
+            fail(f"[30] healthy audited step {s}: adapt_report "
+                 f"{adapt_report(sa)} vs {adapt_report(sb)}")
+    audits = audit_report(sa)
+    if (audits["audits"], audits["repairs"]) != (ADAPT_HEALTHY_STEPS, 0):
+        fail(f"[30] healthy audited run: audit_report {audits}")
+    log(f"[30] healthy adaptive run, audit at every step, and without it: "
+        f"{ADAPT_HEALTHY_STEPS} steps, parameters, residuals and "
+        f"adapt_report {adapt_report(sa)} bit for bit; audit_report "
+        f"{audits}")
+    return {"launches": launches}
+
+
+def elastic_run(dev, group, x, y, tmp) -> dict:
+    """The HEADLINE state under JAX's elastic fixture config after
+    ELASTIC_STEPS steps: ElasticController.drain (the last-known-good save,
+    timed, its size), the re-shard onto a fresh one-rank group (replicated
+    fields, the guard's counters and the parameters bit for bit, residuals
+    zero, rings reset, validate_resharded), the next step on it (both chunk
+    kernels), and the rejoin barrier (timed, no repair). Returns the next
+    step's launches."""
+    import torch
+    import torch.distributed as dist
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.checkpoint import Checkpointer
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import (ElasticController, guarded_chain,
+                                            plan_resize, resize_group)
+    from grace_tpu_torch.resilience.guard import _COUNTERS
+    from grace_tpu_torch.train import (init_stateful_train_state,
+                                       make_stateful_train_step)
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    chain = guarded_chain(grace_from_params(ELASTIC_PARAMS, group=group),
+                          seed=SEED, **ELASTIC_GUARD_KW)
+    state = init_stateful_train_state(model, chain, opt, group)
+    consensus = ELASTIC_PARAMS["consensus"]
+    step = make_stateful_train_step(loss_fn, chain, group,
+                                    consensus=consensus)
+    for _ in range(ELASTIC_STEPS):
+        state, loss = step(state, (x, y))
+    old = state.grace.inner
+    if not any(float(m.abs().sum()) > 0 for m in old.mem):
+        fail("[30] elastic: the run left no residual to re-initialize")
+    ckpt = Checkpointer(tmp / "ck", max_to_keep=None)
+    ctl = ElasticController(consensus=consensus, checkpointer=ckpt,
+                            group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = ctl.drain(ELASTIC_STEPS, state, rank=0)
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    drain_mb = sum(f.stat().st_size for f in (tmp / "ck").rglob("*")
+                   if f.is_file()) / 1e6
+    if not rec["checkpointed"] or ckpt.last_good_step() != ELASTIC_STEPS:
+        fail(f"[30] elastic drain: {rec}, last good {ckpt.last_good_step()}")
+    keep = {"params": {k: p.detach().clone()
+                       for k, p in model.named_parameters()},
+            "counters": state.grace.counters().clone(),
+            "host": (old.count, old.seed, old.fallback, old.audit)}
+    plan = plan_resize(1, [])
+    new_group = resize_group(plan, group)
+    grace1 = grace_from_params(ELASTIC_PARAMS, group=new_group)
+    chain1 = guarded_chain(grace1, seed=SEED, **ELASTIC_GUARD_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, event = ctl.resize(ELASTIC_STEPS, state, chain1, group, new_group,
+                            plan, grace=grace1)
+    torch.cuda.synchronize()
+    resize_ms = (time.perf_counter() - t0) * 1e3
+    inner = new.grace.inner
+    if (inner.count, inner.seed, inner.fallback, inner.audit) \
+            != keep["host"] or not same_bits(new.grace.counters().cpu(),
+                                             keep["counters"].cpu()):
+        fail(f"[30] elastic resize: replicated fields {inner.count}, "
+             f"{inner.seed}, {inner.fallback}, {inner.audit} or the "
+             f"guard's counters changed")
+    for k, p in model.named_parameters():
+        if not same_bits(p.detach().cpu(), keep["params"][k].cpu()):
+            fail(f"[30] elastic resize: parameter {k} changed")
+    if any(float(m.abs().sum()) for m in inner.mem) or \
+            int((inner.telem.steps != -1).sum()) or \
+            float(inner.telem.rings.abs().sum()) or \
+            int((inner.watch.steps != -1).sum()) or \
+            not event["footprint_matches"]:
+        fail(f"[30] elastic resize: residuals, rings or footprint not "
+             f"re-initialized ({event})")
+    step1 = make_stateful_train_step(loss_fn, chain1, new_group,
+                                     consensus=consensus)
+    ops.reset_launch_counts()             # just before the next step
+    new, loss = step1(new, (x, y))
+    launches = ops.launch_counts()        # just after it
+    if {k: v for k, v in launches.items() if v} != _TOPK_TELEM or \
+            not math.isfinite(float(loss)):
+        fail(f"[30] elastic: the step after the resize launched {launches}, "
+             f"loss {float(loss)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, report = ctl.rejoin(ELASTIC_STEPS + 1, new, new_group)
+    rejoin_ms = (time.perf_counter() - t0) * 1e3
+    if report["barrier_repairs"] or report["replica_variants"] != 1:
+        fail(f"[30] elastic rejoin: {report}")
+    kinds = [e["event"] for e in ctl.events]
+    if kinds != ["elastic_drain", "elastic_resize", "elastic_rejoin"]:
+        fail(f"[30] elastic events {kinds}")
+    dist.destroy_process_group(new_group)
+    log(f"[30] elastic: drain (last-known-good save of step "
+        f"{ELASTIC_STEPS}) {drain_ms:.1f} ms, {drain_mb:.1f} MB on disk; "
+        f"re-shard onto a fresh one-rank group {resize_ms:.1f} ms: count, "
+        f"seed, fallback, audit, the guard's counters and the parameters "
+        f"bit for bit, residuals zero, rings reset, footprint "
+        f"{event['footprint_matches']}; the next step launched "
+        f"{ {k: v for k, v in launches.items() if v} }; rejoin barrier "
+        f"{rejoin_ms:.1f} ms, {report['barrier_repairs']} repairs, "
+        f"{report['replica_variants']} replica variant(s)")
+    return {"launches": launches, "drain_ms": drain_ms, "drain_mb": drain_mb,
+            "resize_ms": resize_ms, "rejoin_ms": rejoin_ms}
+
+
+def adapt_phase(dev, group, x, y, runs, errs) -> None:
+    """Phase 30, each part driven with the kernels' counts set to 0 just
+    before it and read just after it."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    runs["phase30_adapt_topk1pct"] = adapt_trajectory_run(dev, group, x, y,
+                                                          errs)
+    torch.cuda.empty_cache()
+    runs.update(profile_rungs(dev, group, x, y))
+    torch.cuda.empty_cache()
+    for cfg in ADAPT_HOMO_ROWS:
+        runs[cfg["name"]] = train(dev, group, cfg, x, y, HIER_WARMUP_STEPS,
+                                  HIER_TIMED_STEPS)
+        torch.cuda.empty_cache()
+    runs["phase30_adapt_guard_consensus"] = adapt_guard_consensus_run(
+        dev, group, x, y)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["phase30_elastic"] = elastic_run(dev, group, x, y, Path(tmp))
+    torch.cuda.empty_cache()
+    a, t, s = (runs[c["name"]] for c in ADAPT_HOMO_ROWS)
+    log(f"[30] homoqsgd4_ring_bs256 with the ladder (window 25), without it "
+        f"(same escape and telemetry ring) and bare: device "
+        f"{a['profiled']['device_ms']:.2f} vs {t['profiled']['device_ms']:.2f}"
+        f" vs {s['profiled']['device_ms']:.2f} ms, "
+        f"{a['profiled']['kernels']} vs {t['profiled']['kernels']} vs "
+        f"{s['profiled']['kernels']} kernels, {a['step_ms']:.2f} vs "
+        f"{t['step_ms']:.2f} vs {s['step_ms']:.2f} ms/step; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def kernel_named(fn, word: str) -> str:
     """The name of the one CUDA kernel whose name holds ``word`` among those
     one call of ``fn`` launches, as the profiler names it."""
@@ -4621,6 +5202,13 @@ def main() -> int:
             f"healthy run against the unaudited one, the chaos injectors, "
             f"the audit's cost, three timed rows")
         watch_phase(dev, group, x, y, runs)
+        # -- 30. the adaptive ladder and elastic resize ---------------------
+        log(f"[30] ResNet-50, batch {bs}: topk1pct under the adaptive ladder "
+            f"(fp16, Top-K 4%, Top-K 1%; window {ADAPT_WINDOW}) for 1 + "
+            f"{ADAPT_STEPS} steps, each rung profiled, the homoqsgd ladder "
+            f"beside its static twin, the ladder under the guard and the "
+            f"audit, and the elastic drain, re-shard and rejoin")
+        adapt_phase(dev, group, x, y, runs, errs)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -9,7 +9,8 @@ under a guard). A step is a directory holding
 
 * ``replicated.pt``: the leaves every rank holds alike (the model, the
   optimizer, ``count``, ``seed``, ``fallback``, the consensus ``audit``,
-  the guard's counters), written once, by rank 0;
+  the adaptive controller's ``adapt``, the guard's counters), written
+  once, by rank 0;
 * ``rank<r>.pt``: rank ``r``'s per-rank leaves (``mem``, ``comp``,
   ``telem``, ``watch``: ``transform.GRACE_VARYING_FIELDS``), one file a
   rank;
@@ -73,8 +74,10 @@ def _retry_io(fn: Callable[[], Any], what: str,
 def _node_children(node):
     """``[(name, child, varying)]`` of a state node, or None for a leaf.
     ``varying`` marks the GraceState fields that hold per-rank data."""
+    from grace_tpu_torch.resilience.adapt import AdaptState
     from grace_tpu_torch.resilience.guard import GuardState, _COUNTERS
-    from grace_tpu_torch.transform import GRACE_VARYING_FIELDS, GraceState
+    from grace_tpu_torch.transform import (GRACE_HOST_FIELDS,
+                                           GRACE_VARYING_FIELDS, GraceState)
 
     if isinstance(node, torch.nn.Module):
         return [(k, v, False) for k, v in node.state_dict().items()]
@@ -86,7 +89,11 @@ def _node_children(node):
     if isinstance(node, GraceState):
         return [(f.name, getattr(node, f.name),
                  f.name in GRACE_VARYING_FIELDS)
-                for f in dataclasses.fields(node)]
+                for f in dataclasses.fields(node)
+                if f.name not in GRACE_HOST_FIELDS]
+    if isinstance(node, AdaptState):        # its pending decision made
+        return [(name, value, False)
+                for name, value in node._asdict().items()]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         return [(f.name, getattr(node, f.name), False)
                 for f in dataclasses.fields(node)]
@@ -128,8 +135,9 @@ def _rebuild(target, path: str, values: Dict[str, Any]):
     """A state of ``target``'s structure from the stored ``values``: the
     model and the optimizer load theirs in place; tensors land on the
     target's devices."""
+    from grace_tpu_torch.resilience.adapt import AdaptState
     from grace_tpu_torch.resilience.guard import GuardState, _COUNTERS
-    from grace_tpu_torch.transform import GraceState
+    from grace_tpu_torch.transform import GRACE_HOST_FIELDS, GraceState
 
     join = (lambda n: f"{path}/{n}" if path else n)   # noqa: E731
     if isinstance(target, torch.nn.Module):
@@ -154,12 +162,17 @@ def _rebuild(target, path: str, values: Dict[str, Any]):
             host_step=int(values[join("step")]),     # a host tensor here
             **{name: _rebuild(getattr(target, name), join(name), values)
                for name in _COUNTERS})
+    if isinstance(target, AdaptState):
+        return AdaptState(**{
+            name: _rebuild(value, join(name), values)
+            for name, value in target._asdict().items()})
     if isinstance(target, GraceState) or (
             dataclasses.is_dataclass(target)
             and not isinstance(target, type)):
+        host = GRACE_HOST_FIELDS if isinstance(target, GraceState) else ()
         return dataclasses.replace(target, **{
             f.name: _rebuild(getattr(target, f.name), join(f.name), values)
-            for f in dataclasses.fields(target)})
+            for f in dataclasses.fields(target) if f.name not in host})
     if isinstance(target, tuple) and hasattr(target, "_fields"):
         return type(target)(*(_rebuild(getattr(target, k), join(k), values)
                               for k in target._fields))

@@ -12,7 +12,8 @@ flatten order, one per bucket of a bucketed or flat run, or one per
 a JAX run's residuals,
 Signum momenta, PowerSGD's Q factors and the DGC memory's
 ``{"residual", "gradient"}`` dicts carry over entry for entry, with the
-fallback flag, the telemetry ring and a guard's counters.
+fallback flag, the telemetry ring, the adaptive controller's state and a
+guard's counters.
 """
 
 from __future__ import annotations
@@ -79,9 +80,10 @@ def grace_state_from_jax(jax_state: Any, seed: int,
     """A JAX ``GraceState`` (after ``jax.device_get``) → the port's
     :class:`~grace_tpu_torch.transform.GraceState`, to resume a JAX run in
     the port. ``count``, ``mem``, ``comp``, ``fallback``, the telemetry
-    ring, the consensus ``AuditState`` (as host ints) and the watch ring
-    carry over; the JAX threefry key does not (the port's streams hang off
-    ``seed``, see ``core.LeafKey``). A JAX guard's ``GuardState``
+    ring, the consensus ``AuditState`` (as host ints), the adaptive
+    ``AdaptState`` (its window statistics as float32 scalars, the rest as
+    host ints) and the watch ring carry over; the JAX threefry key does
+    not (the port's streams hang off ``seed``, see ``core.LeafKey``). A JAX guard's ``GuardState``
     becomes the port's, its counters as int32 scalars, wrapping the
     GraceState found in its chain state. ``rank`` picks one rank's slice
     of per-rank state that carries a leading world axis (as
@@ -111,9 +113,17 @@ def grace_state_from_jax(jax_state: Any, seed: int,
     if audit is not None:       # replicated: one value on every rank
         audit = AuditState(*(int(np.asarray(v).reshape(-1)[0])
                              for v in audit))
+    adapt = getattr(jax_state, "adapt", None)
+    if adapt is not None:       # replicated, like the audit
+        from grace_tpu_torch.resilience.adapt import AdaptState
+        adapt = AdaptState(**{
+            name: (torch.tensor(np.float32(np.asarray(v).reshape(-1)[0]))
+                   if name in ("err_sum", "err_peak")
+                   else int(np.asarray(v).reshape(-1)[0]))
+            for name, v in adapt._asdict().items()})
     return GraceState(
         count=int(np.asarray(jax_state.count)), seed=int(seed),
         mem=[_state_leaf(m, rank) for m in jax_state.mem],
         comp=[_state_leaf(c, rank) for c in jax_state.comp],
         fallback=bool(np.asarray(getattr(jax_state, "fallback", False))),
-        telem=telem, audit=audit, watch=watch)
+        telem=telem, audit=audit, watch=watch, adapt=adapt)

@@ -193,8 +193,8 @@ class Topology:
         return Topology(slice_size=s, region_size=rz), new_world
 
     @classmethod
-    def detect(cls, devices=None) -> "Topology":
-        """The layout of ``devices`` or of the default process group.
+    def detect(cls, devices=None, group=None) -> "Topology":
+        """The layout of ``devices`` or of a process group.
 
         Given a list, it groups by each entry's ``slice_index`` and
         ``region_index`` attributes (``None`` or missing counts as absent)
@@ -203,13 +203,14 @@ class Topology:
         tier without a slice tier, or regions that are not whole multiples
         of the slice width. An empty list is one slice.
 
-        With ``None`` it reads the default process group: one slice per
-        host, from every rank's host name (``dist.all_gather_object``, a
-        collective every rank must join), and no region tier. With no
-        initialised process group it is one slice.
+        With ``None`` it reads ``group`` (None: the default process group):
+        one slice per host, from every rank's host name
+        (``dist.all_gather_object``, a collective every rank of the group
+        must join), and no region tier. With no initialised process group
+        it is one slice.
         """
         if devices is None:
-            return cls._detect_hosts()
+            return cls._detect_hosts(group)
         devices = list(devices)
 
         def group_counts(attr):
@@ -270,14 +271,15 @@ class Topology:
         return cls(slice_size=slice_size, region_size=region_size)
 
     @classmethod
-    def _detect_hosts(cls) -> "Topology":
-        """One slice per host of the default process group, in rank order;
-        a host whose ranks are not one contiguous block raises."""
+    def _detect_hosts(cls, group=None) -> "Topology":
+        """One slice per host of ``group`` (None: the default process
+        group), in rank order; a host whose ranks are not one contiguous
+        block raises."""
         if not (dist.is_available() and dist.is_initialized()):
             return cls()
         import socket
-        hosts = [None] * dist.get_world_size()
-        dist.all_gather_object(hosts, socket.gethostname())
+        hosts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(hosts, socket.gethostname(), group=group)
         order = list(dict.fromkeys(hosts))
         index = [order.index(h) for h in hosts]
         if any(b < a for a, b in zip(index, index[1:])):

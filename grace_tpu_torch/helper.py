@@ -5,16 +5,24 @@ The params-dict schema is the JAX package's, so its dicts (the benchmark's
 ``HEADLINE`` pair among them) build verbatim: every codec name and memory
 name, with the JAX defaults, every ``fusion`` setting (None, ``'flat'``,
 ``'grouped'``, bucket bytes), per-leaf ``route`` tables and the
-resilience and observability keys ``escape``, ``telemetry``, ``consensus``
-and ``watch`` (their configurations validated here, with the JAX
-package's errors; ``watch`` without ``telemetry`` raises at
-``.transform()``, as in JAX). A key that the port does not carry yet
-(``adapt``, ``fsdp_axis``) or an unknown name raises ``ValueError``
-naming it, instead of being dropped. PowerSGD's and the DGC memory's
-collectives run over the ``group`` given here. ``world_size`` is accepted
-and ignored, as in the JAX package: the world is the process group's. The
-process group itself is passed as ``group=`` (the JAX package's
-``axis_name``).
+resilience and observability keys ``escape``, ``telemetry``, ``consensus``,
+``watch`` and ``adapt`` (their configurations validated here, with the JAX
+package's errors; ``watch`` without ``telemetry`` and ``adapt`` without
+``escape`` or ``telemetry`` raise at ``.transform()``, as in JAX). A key
+that the port does not carry yet (``fsdp_axis``) or an unknown name raises
+``ValueError`` naming it, instead of being dropped. PowerSGD's and the DGC
+memory's collectives run over the ``group`` given here. ``world_size`` is
+accepted and ignored, as in the JAX package: the world is the process
+group's. The process group itself is passed as ``group=`` (the JAX
+package's ``axis_name``).
+
+An adaptive ladder names its rungs as override dicts merged over the
+config's own params, safest first; the config's own codec is the top rung::
+
+    {"compressor": "topk", "compress_ratio": 0.01,
+     "topk_algorithm": "chunk", "memory": "residual",
+     "communicator": "allgather", "escape": "fp16", "telemetry": True,
+     "adapt": {"window": 5, "ladder": [{"compress_ratio": 0.04}]}}
 
 A hierarchical run names its layout and, for three levels, its WAN codec
 as a nested params dict::
@@ -53,7 +61,7 @@ PORTED_KEYS = frozenset({
     "slice_size", "region_size", "wan_compressor", "compress_rank",
     "threshold", "capacity_ratio", "lr", "gradient_clipping",
     "recall_target", "route", "escape", "telemetry", "consensus",
-    "watch"})
+    "watch", "adapt"})
 
 COMPRESSORS = ("none", "fp16", "bf16", "bfloat16", "cyclictopk", "topk",
                "randomk", "threshold", "qsgd", "homoqsgd", "countsketch",
@@ -83,7 +91,9 @@ class Grace:
     ``consensus`` is the audit's ``ConsensusConfig`` (None: off): the
     transform carries an ``AuditState``, and the same value goes to
     ``train.make_train_step(consensus=...)`` for the hook. ``watch`` is
-    the cross-rank watch ring's ``WatchConfig`` (None: off)."""
+    the cross-rank watch ring's ``WatchConfig`` (None: off). ``adapt`` is
+    the adaptive ladder's ``AdaptConfig`` with its built rung codecs, the
+    base codec on top (None: off)."""
 
     compressor: Compressor
     memory: Memory
@@ -95,6 +105,7 @@ class Grace:
     telemetry: Any = None
     consensus: Any = None
     watch: Any = None
+    adapt: Any = None
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
@@ -103,7 +114,63 @@ class Grace:
                                routes=self.routes or None,
                                escape=self.escape, telemetry=self.telemetry,
                                topology=self.topology,
-                               consensus=self.consensus, watch=self.watch)
+                               consensus=self.consensus, watch=self.watch,
+                               adapt=self.adapt)
+
+
+def _pad_powersgd_states(base: Compressor, rungs: Tuple[Compressor, ...]
+                         ) -> Tuple[Compressor, Tuple[Compressor, ...]]:
+    """The rung-invariant PowerSGD layout of an adaptive ladder: every
+    PowerSGD codec among the rungs and the base (the top rung, whose state
+    the transform allocates) stores Q at the ladder's largest rank
+    (``state_rank``), so every rung keeps one state structure. Ladders
+    without PowerSGD, or without rungs, come back as they were."""
+    ps = [c for c in (*rungs, base) if isinstance(c, C.PowerSGDCompressor)]
+    if not ps or not rungs:
+        return base, tuple(rungs)
+    pad = max(c.state_rank or c.rank for c in ps)
+
+    def fix(c):
+        if isinstance(c, C.PowerSGDCompressor) and c.state_rank != pad:
+            return dataclasses.replace(c, state_rank=pad)
+        return c
+
+    return fix(base), tuple(fix(c) for c in rungs)
+
+
+def _build_adapt(params: Dict[str, Any], compressor: Compressor, group):
+    """``(compressor, AdaptConfig)`` of ``params["adapt"]``: True, a
+    window, a dict whose ``ladder`` holds override dicts (each merged over
+    these params less ``adapt`` and ``route``, built into one rung codec),
+    or an AdaptConfig with built codecs. PowerSGD rungs and the base are
+    padded to one Q layout (:func:`_pad_powersgd_states`)."""
+    from grace_tpu_torch.resilience.adapt import AdaptConfig, normalize_adapt
+
+    spec = params["adapt"]
+    if isinstance(spec, AdaptConfig):
+        compressor, ladder = _pad_powersgd_states(compressor,
+                                                  tuple(spec.ladder))
+        if ladder != tuple(spec.ladder):
+            spec = dataclasses.replace(spec, ladder=ladder)
+        return compressor, normalize_adapt(spec, compressor)
+    if spec is True:
+        kwargs: Dict[str, Any] = {}
+    elif isinstance(spec, int):
+        kwargs = {"window": spec}
+    elif isinstance(spec, dict):
+        kwargs = dict(spec)
+    else:
+        raise TypeError(f"adapt must be True/int/dict/AdaptConfig; got "
+                        f"{type(spec).__name__}")
+    rungs = []
+    for overrides in kwargs.pop("ladder", ()):
+        merged = {k: v for k, v in params.items()
+                  if k not in ("adapt", "route")}
+        merged.update(dict(overrides))
+        rungs.append(_build_compressor(merged, group))
+    compressor, rungs = _pad_powersgd_states(compressor, tuple(rungs))
+    return compressor, normalize_adapt(AdaptConfig(ladder=rungs, **kwargs),
+                                       compressor)
 
 
 def _build_compressor(params: Dict[str, Any], group=None) -> Compressor:
@@ -293,14 +360,18 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
         slice_size=int(slice_size) if slice_size else None,
         region_size=int(region_size) if region_size else None)
         if (slice_size or region_size) else None)
-    return Grace(compressor=_build_compressor(params, group),
+    compressor, adapt = _build_compressor(params, group), None
+    if params.get("adapt"):
+        compressor, adapt = _build_adapt(params, compressor, group)
+    return Grace(compressor=compressor,
                  memory=_build_memory(params, group),
                  communicator=communicator,
                  fusion=fusion, topology=topology, routes=routes,
                  escape=_build_escape(params.get("escape")),
                  telemetry=_normalize_telemetry(params.get("telemetry")),
                  consensus=normalize_consensus(params.get("consensus")),
-                 watch=normalize_watch(params.get("watch")))
+                 watch=normalize_watch(params.get("watch")),
+                 adapt=adapt)
 
 
 def route_leaves(grace: Grace, tree: Mapping[str, Any]) -> list:

@@ -1,8 +1,8 @@
 """Training resilience: the non-finite step guard, the dense escape, the
-cross-rank consistency audit and the fault injectors; counterpart of the
-JAX package's ``resilience`` (its ``guard``, ``guarded_chain``,
-``consensus`` and ``chaos``; adapt, elastic and retune are not ported
-yet).
+cross-rank consistency audit, the fault injectors, the adaptive
+compression ladder and elastic resize; counterpart of the JAX package's
+``resilience`` (its ``guard``, ``guarded_chain``, ``consensus``,
+``chaos``, ``adapt`` and ``elastic``; retune is not ported yet).
 
 * :func:`guard_transform` wraps the GRACE transform and the torch
   optimizer: a step whose update or new state is non-finite (or whose
@@ -22,12 +22,25 @@ yet).
   :class:`ChaosParams` inject seeded faults: NaN/Inf implants, payload bit
   flips, stale residuals, encoder drift, and one flipped bit in one rank's
   copy of the parameters.
+* The adaptive ladder (``grace_transform(adapt=...)``,
+  ``grace_from_params({"adapt": ...})``): each update runs one rung of a
+  ladder from the dense escape up to the config's codec, and a controller
+  tightens on error spikes or guard evidence and loosens with hysteresis
+  (:class:`AdaptConfig`, :func:`adapt_report`, :class:`AdaptMonitor`).
+* Elastic resize: :func:`plan_resize`, :func:`resize_group` and
+  :func:`reshard_grace_state` carry the replicated state onto a group of
+  survivors and re-initialize the per-rank state;
+  :func:`rejoin_barrier` repairs a rejoining rank with one forced audit;
+  :class:`ElasticController` drains on watch anomalies.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from grace_tpu_torch.resilience.adapt import (AdaptConfig, AdaptMonitor,
+                                              AdaptState, adapt_report,
+                                              normalize_adapt)
 from grace_tpu_torch.resilience.chaos import (ChaosCommunicator,
                                               ChaosCompressor, ChaosParams)
 from grace_tpu_torch.resilience.consensus import (ConsensusConfig,
@@ -37,6 +50,15 @@ from grace_tpu_torch.resilience.consensus import (ConsensusConfig,
                                                   force_audit,
                                                   normalize_consensus,
                                                   replicated_view)
+from grace_tpu_torch.resilience.elastic import (ElasticController,
+                                                ResizePlan,
+                                                barrier_wire_bytes,
+                                                implant_stale_replica,
+                                                plan_resize, rejoin_barrier,
+                                                replica_variants,
+                                                reshard_grace_state,
+                                                resize_group,
+                                                validate_resharded)
 from grace_tpu_torch.resilience.guard import (GUARD_ROLLBACK_EXCLUDED,
                                               GUARD_SCAN_EXCLUDED_TYPES,
                                               GuardState, GuardTransform,
@@ -47,7 +69,12 @@ __all__ = ["GUARD_ROLLBACK_EXCLUDED", "GUARD_SCAN_EXCLUDED_TYPES",
            "guarded_chain", "ConsensusConfig", "normalize_consensus",
            "replicated_view", "fingerprint_tree", "consensus_step",
            "force_audit", "audit_report", "ChaosCompressor",
-           "ChaosCommunicator", "ChaosParams"]
+           "ChaosCommunicator", "ChaosParams", "AdaptConfig", "AdaptState",
+           "AdaptMonitor", "adapt_report", "normalize_adapt", "ResizePlan",
+           "plan_resize", "resize_group", "reshard_grace_state",
+           "validate_resharded", "barrier_wire_bytes", "rejoin_barrier",
+           "replica_variants", "implant_stale_replica",
+           "ElasticController"]
 
 
 def guarded_chain(grace, *, seed: int = 0, max_norm: Optional[float] = None,

@@ -4,7 +4,7 @@ package's ``resilience/consensus.py``.
 Error feedback is only correct while every replica holds the same state:
 the parameters, the optimizer's state, the guard's counters and the
 replicated GraceState fields (``count``, ``seed``, ``fallback``,
-``audit``). ``mem`` and ``comp`` are per rank by design, and so are the
+``audit``, ``adapt``). ``mem`` and ``comp`` are per rank by design, and so are the
 rings. A bit flipped in one rank's copy of the parameters is finite, and
 the exchanged updates stay the same on every rank, so the guard never sees
 it and the replicas stay apart for good. This module closes that gap:
@@ -65,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from grace_tpu_torch.comm import _all_gather_into, masked_broadcast_
+from grace_tpu_torch.resilience.adapt import ADAPT_HOST_FIELDS
 from grace_tpu_torch.resilience.guard import _COUNTERS, GuardState
 from grace_tpu_torch.telemetry.scopes import STAGE_CONSENSUS, trace_stage
 from grace_tpu_torch.telemetry.state import FIELD_INDEX, TelemetryState
@@ -168,26 +169,37 @@ def _nodes(tree, cls) -> list:
 
 def _host_scalars(g: GraceState) -> torch.Tensor:
     """A GraceState's replicated host fields as one int64 CPU tensor:
-    ``count``, ``seed`` (mod 2^64, as the streams use it), ``fallback`` and
-    the AuditState's five counters."""
+    ``count``, ``seed`` (mod 2^64, as the streams use it), ``fallback``,
+    the AuditState's five counters and the AdaptState's eight host ints
+    (its pending boundary decision made first)."""
     seed = g.seed & ((1 << 64) - 1)
     vals = [g.count, seed - (1 << 64) if seed >= 1 << 63 else seed,
             int(bool(g.fallback))]
     if g.audit is not None:
         vals += list(g.audit)
+    if g.adapt is not None:
+        vals += g.adapt.host_fields()
     return torch.tensor(vals, dtype=torch.int64)
 
 
 def _from_host_scalars(g: GraceState, vals: list) -> GraceState:
-    audit = AuditState(*vals[3:]) if g.audit is not None else None
+    n = 3 + (len(AuditState._fields) if g.audit is not None else 0)
+    audit = AuditState(*vals[3:n]) if g.audit is not None else None
+    adapt = g.adapt
+    if adapt is not None:
+        adapt = adapt.replace(**dict(zip(ADAPT_HOST_FIELDS, vals[n:])))
     return dataclasses.replace(g, count=vals[0], seed=vals[1] % (1 << 64),
-                               fallback=bool(vals[2]), audit=audit)
+                               fallback=bool(vals[2]), audit=audit,
+                               adapt=adapt)
 
 
 # The JAX package's byte widths of a GraceState's replicated fields: an
-# int32 count, a two-word threefry key, a bool flag, five int32 counters.
+# int32 count, a two-word threefry key, a bool flag, five int32 counters;
+# the AdaptState's eight int32 host fields (its two float32 statistics are
+# tensors of the view).
 _GRACE_SCALAR_NBYTES = 4 + 8 + 1
 _AUDIT_NBYTES = 5 * 4
+_ADAPT_HOST_NBYTES = 8 * 4
 
 
 def _view(tree, leaves: list, graces: list) -> None:
@@ -211,6 +223,10 @@ def _view(tree, leaves: list, graces: list) -> None:
         elif isinstance(node, GraceState):
             graces.append((node, len(leaves)))
             leaves.append(_host_scalars(node))
+            if node.adapt is not None:
+                # The window statistics, on the device: a repair writes
+                # through them.
+                leaves.extend([node.adapt.err_sum, node.adapt.err_peak])
         else:
             for child in _children(node) or ():
                 walk(child)
@@ -223,8 +239,9 @@ def replicated_view(tree) -> list:
     a module's ``state_dict`` (parameters and buffers), an optimizer's
     tensor state (parameter by parameter, keys sorted), a guard's five
     counters, and each GraceState's replicated host fields as one int64
-    tensor (``count``, ``seed``, ``fallback``, the audit's counters). The
-    per-rank ``mem``, ``comp`` and rings are left out. Tensors and dicts,
+    tensor (``count``, ``seed``, ``fallback``, the audit's counters, the
+    adaptive controller's host ints), then the controller's two window
+    statistics. The per-rank ``mem``, ``comp`` and rings are left out. Tensors and dicts,
     lists, tuples and dataclasses of them walk as they are."""
     leaves: list = []
     _view(tree, leaves, [])
@@ -238,7 +255,8 @@ def _view_nbytes(leaves: list, graces: list) -> int:
     total = sum(t.numel() * t.element_size()
                 for i, t in enumerate(leaves) if i not in host)
     for g, _ in graces:
-        total += _GRACE_SCALAR_NBYTES + (_AUDIT_NBYTES if g.audit else 0)
+        total += (_GRACE_SCALAR_NBYTES + (_AUDIT_NBYTES if g.audit else 0)
+                  + (_ADAPT_HOST_NBYTES if g.adapt is not None else 0))
     return total
 
 

@@ -27,8 +27,9 @@ overwrite the residual they are given, and torch optimizers update the
 parameters and their moments in place. So the guard copies every tensor it
 may have to restore before the step (the snapshot), and selects between
 the copy and the new value after it. State that lives on the host (Adam's
-``step`` counter) and state a bad first step created (SGD's momentum
-buffer) are restored when the pair is read, before anything uses them.
+``step`` counter, the adaptive controller's rung and counters) and state a
+bad first step created (SGD's momentum buffer) are restored when the pair
+is read, before anything uses them.
 
 Degradation: ``fallback_after`` (K) consecutive bad steps set the
 ``fallback`` flag of every GraceState for the next ``fallback_steps`` (M)
@@ -47,6 +48,7 @@ from grace_tpu_torch.telemetry.aggregate import WatchState
 from grace_tpu_torch.telemetry.state import TelemetryState
 from grace_tpu_torch.transform import (GraceState, GraceTransform,
                                        _state_tensors)
+from grace_tpu_torch.utils.metrics import HostCopy
 
 __all__ = ["GuardState", "GuardTransform", "guard_transform",
            "GUARD_ROLLBACK_EXCLUDED", "GUARD_SCAN_EXCLUDED_TYPES"]
@@ -71,23 +73,16 @@ _COUNTERS = ("notfinite_count", "last_bad_step", "consecutive",
 class _Pending:
     """A guarded step's ``[bad, fallback]`` flags on their way to the host,
     and the host-side restores a bad step needs: ``(dict, key, value)``,
-    ``value`` None to delete the key."""
+    ``value`` None to delete the key; ``adapt``: the adaptive controller's
+    state before the step, which a bad step keeps."""
 
-    def __init__(self, flags: torch.Tensor, restores: list):
-        self.restores = restores
-        if flags.device.type == "cuda":
-            self.host = torch.empty(flags.shape, dtype=flags.dtype,
-                                    pin_memory=True)
-            self.host.copy_(flags, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = flags, None
+    def __init__(self, flags: torch.Tensor, restores: list, adapt=None):
+        self.restores, self.adapt = restores, adapt
+        self.flags = HostCopy(flags)
 
     def read(self):
-        if self.event is not None:
-            self.event.synchronize()    # waits for this step only
-        bad, fallback = (bool(v) for v in self.host.tolist())
+        # Waits for this step only.
+        bad, fallback = (bool(v) for v in self.flags.wait().tolist())
         if bad:
             for d, key, value in self.restores:
                 if value is None:
@@ -128,11 +123,15 @@ class GuardState:
         guard's verdict, and a bad step's host-side state is restored."""
         if self._pending is None:
             return
-        bad, fallback = self._pending.read()
-        self._pending = None
+        pending, self._pending = self._pending, None
+        bad, fallback = pending.read()
+        # A bad step's controller state is the one before it: its window
+        # statistics untouched on the device (the step wrote new tensors)
+        # and its host ints, a boundary decision of the step discarded.
         self._inner = dataclasses.replace(
             self._inner, count=self._inner.count + (0 if bad else 1),
-            fallback=fallback)
+            fallback=fallback,
+            adapt=pending.adapt if bad else self._inner.adapt)
 
     @property
     def inner(self) -> GraceState:
@@ -352,12 +351,13 @@ class GuardTransform:
                                           consecutive)
             flags = torch.stack([bad_i, (remaining > 0).to(torch.int32)])
         inner = dataclasses.replace(old, mem=new.mem, comp=new.comp,
-                                    telem=telem, watch=watch)
+                                    telem=telem, watch=watch,
+                                    adapt=new.adapt)
         return GuardState(inner=inner, notfinite_count=notfinite,
                           last_bad_step=last_bad, consecutive=consecutive,
                           fallback_remaining=remaining,
                           step=state.step + 1,
-                          pending=_Pending(flags, restores),
+                          pending=_Pending(flags, restores, old.adapt),
                           host_step=state.host_step + 1)
 
 

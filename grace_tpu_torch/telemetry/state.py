@@ -43,8 +43,8 @@ FIELDS = (
     ("wire_bytes_wan", "first"),
     ("watch_bytes", "first"),       # health-gather cost (0: not ported)
     ("negotiation_bytes", "first"), # shared-scale negotiation cost
-    ("adapt_rung", "first"),        # adaptive rung (-1: not ported)
-    ("adapt_bytes", "first"),       # adaptive signal cost (0: not ported)
+    ("adapt_rung", "first"),        # effective adaptive rung (-1: off)
+    ("adapt_bytes", "first"),       # the adaptive signal's cost
 )
 
 FIELD_INDEX = {name: i for i, (name, _) in enumerate(FIELDS)}

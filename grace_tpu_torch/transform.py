@@ -66,6 +66,18 @@ Three options ride on every executor, as in JAX:
 ``consensus=`` makes the state carry an :class:`AuditState`, which the
 train step's consistency audit advances
 (:mod:`grace_tpu_torch.resilience.consensus`).
+
+``adapt=`` (with ``escape`` and ``telemetry``) arms the adaptive ladder
+(:mod:`grace_tpu_torch.resilience.adapt`): each update runs one rung, the
+dense escape at rung 0 (forced while ``fallback`` is set) or the rung's
+codec through the unchanged memory, communicator and executor above it; the
+row prices the step at that rung, and the rung's relative compression
+error feeds the controller, whose state rides in ``GraceState.adapt``.
+
+State surgery: :func:`carry_replicated` grafts an old state's replicated
+fields onto a fresh init (an elastic world resize), and
+:func:`migrate_grace_state` moves a state across configurations at one
+world (residuals and compressor state carried where their layouts agree).
 """
 
 from __future__ import annotations
@@ -86,7 +98,7 @@ from grace_tpu_torch.telemetry.aggregate import (WatchConfig, WatchState,
                                                  normalize_watch,
                                                  watch_gather_bytes,
                                                  watch_init, watch_record)
-from grace_tpu_torch.telemetry.scopes import (STAGE_BUCKET,
+from grace_tpu_torch.telemetry.scopes import (STAGE_ADAPT, STAGE_BUCKET,
                                               STAGE_DENSE_ESCAPE,
                                               STAGE_TELEMETRY, STAGE_WATCH,
                                               trace_stage)
@@ -357,15 +369,27 @@ class GraceState:
     # columns differ by rank) when the transform was built with watch=...,
     # else None.
     watch: Optional[WatchState] = None
+    # The adaptive controller's state (replicated, like count: its host
+    # ints follow from replicated inputs, its window statistics from the
+    # signal every rank reduces alike) when the transform was built with
+    # adapt=..., else None.
+    adapt: Optional["AdaptState"] = None
+    # The size of the group init ran over (the JAX package's leading world
+    # axis of the per-rank fields); None where unknown. Host bookkeeping: no
+    # checkpoint stores it and no fingerprint folds it.
+    world: Optional[int] = dataclasses.field(default=None, compare=False)
 
 
 # The field split every layout-aware consumer agrees on, the JAX
-# package's under the port's field names (its rng_key is the port's seed;
-# the adaptive state is not ported yet). VARYING fields hold per-rank data
-# (a checkpoint writes them a file a rank); REPLICATED fields are the same
-# on every rank (the consensus audit fingerprints them).
+# package's under the port's field names (its rng_key is the port's seed).
+# VARYING fields hold per-rank data (a checkpoint writes them a file a
+# rank); REPLICATED fields are the same on every rank (the consensus audit
+# fingerprints them, an elastic resize carries them, but adapt, which it
+# re-initializes).
 GRACE_VARYING_FIELDS = ("mem", "comp", "telem", "watch")
-GRACE_REPLICATED_FIELDS = ("count", "seed", "fallback", "audit")
+GRACE_REPLICATED_FIELDS = ("count", "seed", "fallback", "audit", "adapt")
+# Host bookkeeping of the port alone, outside both splits.
+GRACE_HOST_FIELDS = ("world",)
 # The observational varying fields: rings that record pipeline values as
 # they are, so the guard's state scan strips them (they still roll back).
 GRACE_OBSERVATIONAL_FIELDS = ("telem", "watch")
@@ -405,6 +429,193 @@ def fallback_flags(tree) -> list:
     return flags
 
 
+# -- state surgery: a resize carries, a new configuration migrates ------------
+
+def _carry_value(value, conv):
+    """A replicated field's value with ``conv`` applied to its tensors (an
+    AdaptState's window statistics; host values as they are)."""
+    from grace_tpu_torch.resilience.adapt import AdaptState
+    if isinstance(value, torch.Tensor):
+        return conv(value)
+    if isinstance(value, AdaptState):
+        return value.replace(err_sum=conv(value.err_sum),
+                             err_peak=conv(value.err_peak))
+    return value
+
+
+def _graft(old, fresh, grace_fn, conv, who: str):
+    """``old`` walked beside ``fresh``: every GraceState pair through
+    ``grace_fn(old, fresh)``, a guard's counters from ``old`` around its
+    grafted inner state, every other leaf from ``old`` (tensors through
+    ``conv``; modules and optimizers as they are)."""
+    from grace_tpu_torch.resilience.guard import _COUNTERS, GuardState
+
+    def walk(o, f):
+        if isinstance(o, GraceState):
+            if not isinstance(f, GraceState):
+                raise ValueError(
+                    f"{who}: old tree has a GraceState where the fresh tree "
+                    f"has {type(f).__name__} — the two states were built "
+                    "from different optimizer chains.")
+            return grace_fn(o, f)
+        if isinstance(o, GuardState):
+            if not isinstance(f, GuardState):
+                raise ValueError(
+                    f"{who}: old tree has a GuardState where the fresh tree "
+                    f"has {type(f).__name__} — the two states were built "
+                    "from different optimizer chains.")
+            o.settle()
+            return GuardState(inner=walk(o._inner, f._inner),
+                              host_step=o.host_step,
+                              **{n: conv(getattr(o, n)) for n in _COUNTERS})
+        if isinstance(o, torch.Tensor):
+            return conv(o)
+        if isinstance(o, (torch.nn.Module, torch.optim.Optimizer)):
+            return o
+        if isinstance(o, tuple) and hasattr(o, "_fields"):
+            return type(o)(*(walk(a, b) for a, b in zip(o, f)))
+        if isinstance(o, (list, tuple)):
+            return type(o)(walk(a, b) for a, b in zip(o, f))
+        if isinstance(o, dict):
+            return {k: walk(v, f[k]) for k, v in o.items()}
+        if dataclasses.is_dataclass(o) and not isinstance(o, type):
+            return dataclasses.replace(o, **{
+                fl.name: walk(getattr(o, fl.name), getattr(f, fl.name))
+                for fl in dataclasses.fields(o)})
+        return o
+
+    return walk(old, fresh)
+
+
+def carry_replicated(old_tree, fresh_tree, convert=None):
+    """Graft the replicated payload of ``old_tree`` onto ``fresh_tree``,
+    the transform's hook for an elastic world resize
+    (:mod:`grace_tpu_torch.resilience.elastic`). ``fresh_tree`` is the
+    same chain's state freshly initialized at the new world. Every
+    GraceState keeps the fresh :data:`GRACE_VARYING_FIELDS` (residuals,
+    compressor state and rings re-initialized, never re-partitioned) and
+    the fresh ``world``, and takes the old
+    :data:`GRACE_REPLICATED_FIELDS` bit for bit; every other leaf (a
+    guard's counters, tensors, a module or optimizer) comes from
+    ``old_tree``. ``convert`` (e.g. a move to another device) is applied
+    to each carried tensor."""
+    conv = convert if convert is not None else (lambda x: x)
+
+    def grace(old, fresh):
+        return dataclasses.replace(fresh, **{
+            name: _carry_value(getattr(old, name), conv)
+            for name in GRACE_REPLICATED_FIELDS})
+
+    return _graft(old_tree, fresh_tree, grace, conv, "carry_replicated")
+
+
+def _leaf_count(entry) -> int:
+    return len(_state_tensors(entry))
+
+
+def _structure(entry):
+    """A mem/comp entry's tree structure: None, a leaf, or a dict's (or
+    list's) structure of them (JAX's ``tree_structure``)."""
+    if entry is None:
+        return None
+    if isinstance(entry, dict):
+        return ("dict", tuple((k, _structure(v))
+                              for k, v in sorted(entry.items())))
+    if isinstance(entry, (list, tuple)):
+        return ("seq", tuple(_structure(v) for v in entry))
+    return "leaf"
+
+
+def _migrate_leaf(old, fresh):
+    """One leaf of the cross-config migration, ``(leaf, verdict)``:
+    ``carried`` (same shape and dtype: the old leaf, bit for bit),
+    ``overlap`` (same dtype and all dimensions but the last: the shared
+    leading columns of the last axis carried over the fresh init, the
+    PowerSGD rank-change rule) or ``fresh``."""
+    if old.dtype != fresh.dtype:
+        return fresh, "fresh"
+    if old.shape == fresh.shape:
+        return old, "carried"
+    if old.dim() == fresh.dim() and old.dim() >= 1 \
+            and old.shape[:-1] == fresh.shape[:-1]:
+        k = min(old.shape[-1], fresh.shape[-1])
+        out = fresh.clone()
+        out[..., :k] = old[..., :k].to(out.device)
+        return out, "overlap"
+    return fresh, "fresh"
+
+
+def migrate_state_tree(old, fresh):
+    """Leafwise migration of one varying field (a GraceState's ``mem`` or
+    ``comp`` list) from an old configuration's layout onto a fresh init
+    under the new one (:func:`_migrate_leaf`). Structures that differ
+    migrate nothing. Returns ``(entries, {"carried", "overlap", "fresh",
+    "structure_match"})``, the JAX package's counts."""
+    match = _structure(old) == _structure(fresh)
+    stats = {"carried": 0, "overlap": 0, "fresh": 0,
+             "structure_match": match}
+    if not match:
+        stats["fresh"] = _leaf_count(fresh)
+        return fresh, stats
+
+    def walk(o, f):
+        if f is None:
+            return None
+        if isinstance(f, dict):
+            return {k: walk(o[k], v) for k, v in f.items()}
+        if isinstance(f, (list, tuple)):
+            return type(f)(walk(a, b) for a, b in zip(o, f))
+        out, verdict = _migrate_leaf(o, f)
+        stats[verdict] += 1
+        return out
+
+    return walk(old, fresh), stats
+
+
+def migrate_grace_state(old_tree, fresh_tree, convert=None):
+    """Cross-configuration GraceState migration at one world (a retune's
+    state surgery; :func:`carry_replicated` is the cross-world twin):
+
+    * ``count``, ``seed``, ``fallback`` and ``audit`` carry bit for bit;
+    * ``adapt`` takes the fresh init (the ladder changed: the old window
+      statistics and rung mean nothing under it);
+    * ``mem`` and ``comp`` migrate leafwise (:func:`migrate_state_tree`):
+      residuals carry where their shapes agree, compressor state whole or
+      by column overlap (a PowerSGD rank change warm-starts Q), else fresh;
+    * ``telem`` and ``watch`` take the fresh rings;
+    * every other leaf comes from ``old_tree``.
+
+    Returns ``(state, stats)`` with the per-field counts."""
+    conv = convert if convert is not None else (lambda x: x)
+    stats = {"mem": {"carried": 0, "overlap": 0, "fresh": 0},
+             "comp": {"carried": 0, "overlap": 0, "fresh": 0},
+             "mem_structure_match": True, "comp_structure_match": True}
+
+    def grace(old, fresh):
+        out = {}
+        for name in ("mem", "comp"):
+            entries, st = migrate_state_tree(getattr(old, name),
+                                             getattr(fresh, name))
+            for k in ("carried", "overlap", "fresh"):
+                stats[name][k] += st[k]
+            stats[f"{name}_structure_match"] &= st["structure_match"]
+            out[name] = [_migrated(e, conv) for e in entries]
+        return dataclasses.replace(fresh, **out, **{
+            name: _carry_value(getattr(old, name), conv)
+            for name in GRACE_REPLICATED_FIELDS if name != "adapt"})
+
+    return _graft(old_tree, fresh_tree, grace, conv,
+                  "migrate_grace_state"), stats
+
+
+def _migrated(entry, conv):
+    if isinstance(entry, torch.Tensor):
+        return conv(entry)
+    if isinstance(entry, dict):
+        return {k: _migrated(v, conv) for k, v in entry.items()}
+    return entry
+
+
 @dataclasses.dataclass(frozen=True)
 class GraceTransform:
     compressor: Compressor
@@ -418,6 +629,7 @@ class GraceTransform:
     topology: Optional[Topology] = None         # prices the link split
     consensus: bool = False                     # carry an AuditState
     watch: Optional[WatchConfig] = None
+    adapt: Optional["AdaptConfig"] = None      # the adaptive ladder
     _wire_plans: dict = dataclasses.field(default_factory=dict,
                                           compare=False, repr=False)
 
@@ -455,13 +667,52 @@ class GraceTransform:
             mem = [self.memory.init_state(p) for p in leaves]
             comp = [self.compressor.init_state(p) for p in leaves]
         device = leaves[0].device if leaves else None
+        adapt = None
+        if self.adapt is not None:
+            from grace_tpu_torch.resilience.adapt import adapt_init
+            self._check_rungs(leaves)
+            adapt = adapt_init(self.adapt, device)
         return GraceState(
             count=0, seed=self.seed, mem=mem, comp=comp,
             telem=(telemetry_init(self.telemetry, device)
                    if self.telemetry is not None else None),
             audit=audit_init() if self.consensus else None,
             watch=(watch_init(self.watch, device)
-                   if self.watch is not None else None))
+                   if self.watch is not None else None),
+            adapt=adapt, world=self.communicator.world_size())
+
+    def _check_rungs(self, leaves) -> None:
+        """Every rung's compressor state must have the base codec's
+        structure, shapes and dtypes on the structures the executor
+        compresses (the JAX package's ``lax.switch`` returns one state
+        type); raise its ``ValueError`` otherwise. ``leaves``: the
+        structures ``init`` allocated state for."""
+        def sig(entry):
+            if entry is None:
+                return None
+            if isinstance(entry, dict):
+                return tuple((k, sig(v)) for k, v in sorted(entry.items()))
+            return (tuple(entry.shape), entry.dtype)
+
+        for codec in self.adapt.ladder:
+            if codec is self.compressor:
+                continue
+            for leaf in leaves:
+                want = sig(self.compressor.init_state(leaf))
+                got = sig(codec.init_state(leaf))
+                if got != want:
+                    raise ValueError(
+                        "adapt ladder rungs must thread identical mem/comp "
+                        "state structures (the JAX package's lax.switch "
+                        "branches return one state type) — a rung whose "
+                        "compressor state changes shape per rung cannot "
+                        "ride one ladder. PowerSGD rank ladders need a "
+                        "uniform padded state: set state_rank to the "
+                        "ladder's max rank on every rung (grace_from_params "
+                        f"does this automatically): {type(codec).__name__} "
+                        f"keeps {got} where {type(self.compressor).__name__}"
+                        f" keeps {want} for a leaf of shape "
+                        f"{tuple(leaf.shape)}")
 
     def _bucket_buffers(self, leaves):
         """The bucket plan of these leaves and each bucket's flat buffer at
@@ -492,7 +743,26 @@ class GraceTransform:
                 "no watch ring — it was initialized by a transform without "
                 "watch (or restored from such a checkpoint). Re-init the "
                 "optimizer state with the watch-enabled transform.")
-        dense = self.escape is not None and bool(state.fallback)
+        rung, codec = None, self.compressor
+        if self.adapt is not None:
+            if state.adapt is None:
+                raise ValueError(
+                    "grace_transform was built with adapt=... but the state "
+                    "has no AdaptState — it was initialized by a transform "
+                    "without adapt (or restored from such a checkpoint). "
+                    "Re-init the optimizer state with the adapt-enabled "
+                    "transform.")
+            # The effective rung: the dense escape while the guard's flag
+            # is set, else the commanded rung (a boundary's decision is
+            # made here, where the rung is first needed).
+            rung = (0 if state.fallback else
+                    min(max(state.adapt.settle().rung, 0),
+                        self.adapt.top_rung))
+            if rung:
+                codec = self.adapt.ladder[rung - 1]
+            dense = rung == 0
+        else:
+            dense = self.escape is not None and bool(state.fallback)
         plan = (self._bucket_buffers(leaves)
                 if self._bucketed and not dense else None)
         if self.telemetry is not None:
@@ -500,15 +770,17 @@ class GraceTransform:
             # gradients in place (the identity codec's payload).
             with trace_stage(STAGE_TELEMETRY):
                 grad_sq = _sqsum(leaves)
-                err_sq = (self._codec_error_sq(names, leaves, plan, state)
+                err_sq = (self._codec_error_sq(names, leaves, plan, state,
+                                               codec)
                           if self.telemetry.compression_error and not dense
                           else None)
         if dense:
             outs, mem, comp = self._run_dense(leaves, state)
         elif self._grouped:
-            outs, mem, comp = self._update_grouped(leaves, state)
+            outs, mem, comp = self._update_grouped(leaves, state, codec)
         elif self._bucketed:
-            outs, mem, comp = self._update_bucketed(leaves, state, plan)
+            outs, mem, comp = self._update_bucketed(leaves, state, plan,
+                                                    codec)
         else:
             if len(state.mem) != len(names):
                 raise ValueError(
@@ -516,15 +788,33 @@ class GraceTransform:
                     f"transform (fusion=None) runs {len(names)} pipelines "
                     "over these gradients: the state was built for another "
                     "parameter set or fusion setting. Re-init it.")
-            outs, mem, comp = self._update_per_leaf(names, leaves, state)
-        telem, watch = state.telem, state.watch
+            outs, mem, comp = self._update_per_leaf(names, leaves, state,
+                                                    codec)
+        telem, watch, adapt = state.telem, state.watch, state.adapt
         if self.telemetry is not None:
+            grad_norm = torch.sqrt(grad_sq)
+            err = 0.0
+            if err_sq is not None:
+                err = torch.sqrt(err_sq) / torch.clamp(grad_norm, min=1e-20)
+            if self.adapt is not None:
+                from grace_tpu_torch.resilience.adapt import (adapt_advance,
+                                                              adapt_signal)
+                if err_sq is None:       # the dense rung: nothing lossy
+                    err = torch.zeros((), dtype=torch.float32,
+                                      device=grad_sq.device)
+                with trace_stage(STAGE_ADAPT):
+                    err_mean, err_peak = adapt_signal(
+                        err, self.communicator.group)
+                    adapt = adapt_advance(state.adapt, self.adapt,
+                                          state.count, state.fallback,
+                                          err_mean, err_peak)
             with trace_stage(STAGE_TELEMETRY):
                 telem, watch = self._telemetry_next(
-                    state, names, leaves, outs, mem, grad_sq, err_sq)
+                    state, names, leaves, outs, mem, grad_norm, err, codec,
+                    dense, rung)
         return dict(zip(names, outs)), dataclasses.replace(
             state, count=state.count + 1, mem=mem, comp=comp, telem=telem,
-            watch=watch)
+            watch=watch, adapt=adapt)
 
     def _run_dense(self, leaves, state: GraceState):
         """The escape: a dense ``escape``-coded all-reduce of the raw
@@ -545,33 +835,37 @@ class GraceTransform:
 
     # -- telemetry -----------------------------------------------------------
 
-    def _roundtrip_items(self, names, leaves, plan, state: GraceState):
+    def _roundtrip_items(self, names, leaves, plan, state: GraceState,
+                         codec: Optional[Compressor] = None):
         """``(x, comp_state, key, codec)`` of every compress call the active
         executor makes, with the keys it makes them under (``plan``: the
-        bucket plan and buffers of a bucketed executor)."""
+        bucket plan and buffers of a bucketed executor; ``codec``: the
+        active rung's, for the base one)."""
+        codec = codec or self.compressor
         if self._grouped:
             items = []
             for gi, idxs in enumerate(_group_views(leaves)):
                 keys = LeafKey(state.seed, state.count, gi).split(len(idxs))
                 comps = _unstack_state(state.comp[gi], len(idxs))
-                items += [(leaves[i], cs, key, self.compressor)
+                items += [(leaves[i], cs, key, codec)
                           for i, cs, key in zip(idxs, comps, keys)]
             return items
         if self._bucketed:
             return [(f, state.comp[b], LeafKey(state.seed, state.count, b),
-                     self.compressor) for b, f in enumerate(plan[1])]
+                     codec) for b, f in enumerate(plan[1])]
         codecs = ([c for c, _, _ in self.leaf_triads(names)] if self.routes
-                  else [self.compressor] * len(leaves))
+                  else [codec] * len(leaves))
         return [(g, state.comp[i], LeafKey(state.seed, state.count, i), c)
                 for i, (g, c) in enumerate(zip(leaves, codecs))]
 
-    def _codec_error_sq(self, names, leaves, plan, state: GraceState
-                        ) -> torch.Tensor:
+    def _codec_error_sq(self, names, leaves, plan, state: GraceState,
+                        codec: Optional[Compressor] = None) -> torch.Tensor:
         """Σ‖x − decompress(compress(x))‖² over the structures (and keys)
-        the active executor compresses, without error feedback. A codec
-        with a grouped round-trip (chunk Top-K's kernel) takes all of its
+        the active executor compresses, without error feedback, under
+        ``codec`` (the active rung's; None: the base codec). A codec with a
+        grouped round-trip (chunk Top-K's kernel) takes all of its
         structures in one launch; the rest go one by one."""
-        items = self._roundtrip_items(names, leaves, plan, state)
+        items = self._roundtrip_items(names, leaves, plan, state, codec)
         diffs, by_codec = [], {}
         for j, item in enumerate(items):
             by_codec.setdefault(id(item[3]), []).append(j)
@@ -592,19 +886,23 @@ class GraceTransform:
                     diffs.append(x - codec.decompress(payload, ctx))
         return _sqsum(diffs)
 
-    def _wire_plan(self, names, leaves, world: int):
+    def _wire_plan(self, names, leaves, world: int,
+                   codec: Optional[Compressor] = None):
         """``(dense, link, escape_link, negotiation)`` bytes of one step of
         these leaves under the active executor at ``world`` ranks, as the
         JAX package prices them: the raw dense bytes, the received bytes
         by link class (:meth:`Communicator.recv_link_bytes` under the
         transform's topology; byte buckets priced a bucket at a time), the
-        escape's all-reduce, and the negotiation collectives. Integers,
-        cached per leaf signature and world."""
+        escape's all-reduce, and the negotiation collectives. ``codec``
+        prices an adaptive rung's codec in place of the base one.
+        Integers, cached per leaf signature, world and codec."""
         from grace_tpu_torch.comm import Allreduce
         from grace_tpu_torch.utils.metrics import payload_nbytes
 
+        codec = codec or self.compressor
         structs = [_struct(l) for l in leaves]
-        key = (tuple(names) if self.routes else None, tuple(structs), world)
+        key = (tuple(names) if self.routes else None, tuple(structs), world,
+               id(codec))
         plan = self._wire_plans.get(key)
         if plan is not None:
             return plan
@@ -622,7 +920,7 @@ class GraceTransform:
                 neg_b += negotiation_bytes_for(comp, ne, world)
             link = LinkBytes(ici=ici, dcn=dcn, wan=wan)
         else:
-            vote = bool(getattr(self.compressor, "vote_aggregate", False))
+            vote = bool(getattr(codec, "vote_aggregate", False))
             payloads = fusion_payload_structs(structs, self.fusion)
             if self._bucketed and self.fusion != "flat":
                 # One collective chain a bucket: the sum of bucket prices
@@ -630,19 +928,19 @@ class GraceTransform:
                 ici = dcn = wan = 0
                 for s, count in payloads:
                     lb = self.communicator.recv_link_bytes(
-                        payload_nbytes(self.compressor, s), math.prod(s[0]),
+                        payload_nbytes(codec, s), math.prod(s[0]),
                         world, topology=topo, vote=vote)
                     ici += count * lb.ici
                     dcn += count * lb.dcn
                     wan += count * lb.wan
                 link = LinkBytes(ici=ici, dcn=dcn, wan=wan)
             else:
-                comp_b = sum(payload_nbytes(self.compressor, s) * count
+                comp_b = sum(payload_nbytes(codec, s) * count
                              for s, count in payloads)
                 link = self.communicator.recv_link_bytes(
                     comp_b, n_elems, world, topology=topo, vote=vote)
             neg_b = sum(count * negotiation_bytes_for(
-                self.compressor, math.prod(s[0]), world)
+                codec, math.prod(s[0]), world)
                 for s, count in payloads)
         esc_link = None
         if self.escape is not None:
@@ -653,15 +951,19 @@ class GraceTransform:
         return plan
 
     def _telemetry_next(self, state: GraceState, names, leaves, outs,
-                        new_mem, grad_sq, err_sq):
+                        new_mem, grad_norm, err, codec: Compressor,
+                        dense: bool, rung: Optional[int]):
         """The ring with this update's row and the watch ring with the
         window's summary (when it is due): every value computed on the
-        device or known on the host, nothing read back."""
+        device or known on the host, nothing read back. ``err`` is the
+        relative compression error of what ran; the row prices the
+        escape's all-reduce when ``dense``, else ``codec``'s plan (the
+        active rung's), plus the adaptive signal's cost when the ladder is
+        armed; ``rung`` is the effective rung (None: not armed)."""
         world = self.communicator.world_size()
         dense_b, link, esc_link, neg_b = self._wire_plan(names, leaves,
-                                                         world)
+                                                         world, codec)
         fallback = bool(state.fallback)
-        grad_norm = torch.sqrt(grad_sq)
         mem_leaves = [t for t in _state_tensors(new_mem)
                       if t.is_floating_point()]
         if mem_leaves:
@@ -669,21 +971,18 @@ class GraceTransform:
             residual_max = _absmax(mem_leaves)
         else:
             residual_norm = residual_max = 0.0
-        err = 0.0
-        if err_sq is not None:
-            err = torch.sqrt(err_sq) / torch.clamp(grad_norm, min=1e-20)
-        dense = self.escape is not None and fallback
-        eff = esc_link if dense else link
+        eff, ngb = (esc_link, 0) if dense else (link, neg_b)
+        ab = 0.0
+        if self.adapt is not None:
+            from grace_tpu_torch.resilience.adapt import adapt_signal_bytes
+            ab = float(adapt_signal_bytes(world))
         tiers = {"ici": float(eff.ici), "dcn": float(eff.dcn),
                  "wan": float(eff.wan)}
-        wire = float(eff.total)
-        ngb = 0 if dense else neg_b
-        if neg_b:
-            # The negotiation is a flat full-group collective: its bytes
-            # ride the worst tier the group spans.
-            tier = (self.topology or Topology()).flat_tier(world)
-            tiers[tier] += float(ngb)
-            wire += float(ngb)
+        # The negotiation and the adaptive signal are flat full-group
+        # collectives: their bytes ride the worst tier the group spans.
+        tiers[(self.topology or Topology()).flat_tier(world)] += (
+            float(ngb) + ab)
+        wire = float(eff.total) + float(ngb) + ab
         watch, wb = state.watch, 0.0
         if self.watch is not None and state.count % self.watch.window == 0:
             # The window predicate is the host's step counter, the same on
@@ -714,19 +1013,21 @@ class GraceTransform:
             "wire_bytes_wan": tiers["wan"],
             "watch_bytes": wb,
             "negotiation_bytes": float(ngb),
-            "adapt_rung": -1.0,
-            "adapt_bytes": 0.0,
+            "adapt_rung": -1.0 if rung is None else float(rung),
+            "adapt_bytes": ab,
         })
         return telem, watch
 
-    def _update_per_leaf(self, names, leaves, state: GraceState):
-        """One pipeline a leaf. Routed leaves are partitioned by triad, in
-        order of each triad's first leaf, and each part runs through its
-        communicator's ``step_leaves``; every leaf keeps its own key."""
+    def _update_per_leaf(self, names, leaves, state: GraceState,
+                         codec: Compressor):
+        """One pipeline a leaf under ``codec``. Routed leaves are
+        partitioned by triad, in order of each triad's first leaf, and each
+        part runs through its communicator's ``step_leaves``; every leaf
+        keeps its own key."""
         keys = [LeafKey(state.seed, state.count, i)
                 for i in range(len(names))]
         triads = (self.leaf_triads(names) if self.routes
-                  else [(self.compressor, self.memory, self.communicator)]
+                  else [(codec, self.memory, self.communicator)]
                   * len(names))
         parts: dict = {}
         for i, triad in enumerate(triads):
@@ -741,7 +1042,7 @@ class GraceTransform:
                 outs[i], mem[i], comp[i] = oi, mi, ci
         return outs, mem, comp
 
-    def _update_grouped(self, leaves, state: GraceState):
+    def _update_grouped(self, leaves, state: GraceState, codec: Compressor):
         groups = _group_views(leaves)
         if len(state.mem) != len(groups):
             raise ValueError(
@@ -763,8 +1064,7 @@ class GraceTransform:
             g = len(idxs)
             o, ms, cs = self.communicator.step_rows(
                 [leaves[i] for i in idxs], _unstack_state(state.mem[gi], g),
-                _unstack_state(state.comp[gi], g), self.memory,
-                self.compressor,
+                _unstack_state(state.comp[gi], g), self.memory, codec,
                 LeafKey(state.seed, state.count, gi).split(g))
             for i, oi in zip(idxs, o):
                 outs[i] = oi
@@ -772,12 +1072,13 @@ class GraceTransform:
             comp.append(_stack_states(cs))
         return outs, mem, comp
 
-    def _update_bucketed(self, leaves, state: GraceState, plan):
-        """K independent pipelines, one a bucket: its leaves concatenated
-        at the common dtype (``plan``: :meth:`_bucket_buffers` of them),
-        one ``step`` under ``LeafKey(seed, count, b)`` with the bucket's own
-        states, the result split back into the leaves and each cast to its
-        dtype."""
+    def _update_bucketed(self, leaves, state: GraceState, plan,
+                         codec: Compressor):
+        """K independent pipelines under ``codec``, one a bucket: its
+        leaves concatenated at the common dtype (``plan``:
+        :meth:`_bucket_buffers` of them), one ``step`` under
+        ``LeafKey(seed, count, b)`` with the bucket's own states, the result
+        split back into the leaves and each cast to its dtype."""
         buckets, flats = plan
         if len(state.mem) != len(buckets):
             raise ValueError(
@@ -785,7 +1086,7 @@ class GraceTransform:
                 f"plan has {len(buckets)} buckets — {_REINIT}")
         with trace_stage(STAGE_BUCKET):
             out_flats, mem, comp = self.communicator.step_leaves(
-                flats, state.mem, state.comp, self.memory, self.compressor,
+                flats, state.mem, state.comp, self.memory, codec,
                 [LeafKey(state.seed, state.count, b)
                  for b in range(len(buckets))])
         outs = [None] * len(leaves)
@@ -840,7 +1141,7 @@ def grace_transform(compressor: Compressor, memory: Memory,
                     routes: Optional[Sequence] = None,
                     escape: Optional[Compressor] = None, telemetry=None,
                     topology: Optional[Topology] = None, consensus=None,
-                    watch=None) -> GraceTransform:
+                    watch=None, adapt=None) -> GraceTransform:
     """Build the compressed-exchange transform (module docstring): the
     executor is picked by ``fusion`` (None, ``'flat'``, ``'grouped'`` or
     bucket bytes) and ``routes`` (``[(pattern, triad), ...]``, see
@@ -850,8 +1151,9 @@ def grace_transform(compressor: Compressor, memory: Memory,
     or ``FP16Compressor``); ``telemetry`` arms the ring (None, True, a
     capacity, a dict or a :class:`TelemetryConfig`); ``topology`` is the
     link layout the ring prices its per-link split under (None: detected
-    once, here, when telemetry is on: ``Topology.detect()``, a collective
-    of the default process group).
+    once, here, when telemetry is on: ``Topology.detect``, a collective
+    of the communicator's process group, so a group of survivors builds
+    its transform without the ranks that left).
 
     ``consensus`` (None, True, ``audit_every``, a dict or a
     :class:`~grace_tpu_torch.resilience.consensus.ConsensusConfig`) makes
@@ -860,7 +1162,13 @@ def grace_transform(compressor: Compressor, memory: Memory,
     a :class:`~grace_tpu_torch.telemetry.aggregate.WatchConfig`) arms the
     cross-rank watch ring: every ``window``-th update gathers each rank's
     gradient norm, compression error and residual norm and writes the
-    summary row; it needs ``telemetry``, whose row prices the gather."""
+    summary row; it needs ``telemetry``, whose row prices the gather.
+
+    ``adapt`` (None, True, a window, a dict with built ladder codecs or an
+    :class:`~grace_tpu_torch.resilience.adapt.AdaptConfig`) arms the
+    adaptive ladder (module docstring); it needs ``escape`` (rung 0),
+    ``telemetry`` with its compression error (the signal) and no
+    ``routes`` (a rung swaps the codec wholesale)."""
     routes = normalize_routes(routes, communicator) if routes else ()
     check_fusion(fusion, bool(routes))
     if fusion == "grouped" and communicator.shard_parallel:
@@ -890,14 +1198,40 @@ def grace_transform(compressor: Compressor, memory: Memory,
             "gather cost into the ring's wire_bytes — arm "
             "grace_transform(telemetry=True) (or a capacity/config) "
             "alongside watch.")
+    if adapt is not None and adapt is not False:
+        # Lazy: resilience imports this module.
+        from grace_tpu_torch.resilience.adapt import normalize_adapt
+        adapt = normalize_adapt(adapt, compressor)
+        if escape is None:
+            raise ValueError(
+                "adapt=... requires escape=...: the degradation ladder's "
+                "rung 0 IS the dense escape path (the same codec+psum the "
+                "guard's fallback window routes through) — arm "
+                "grace_transform(escape=FP16Compressor()/NoneCompressor()) "
+                "alongside adapt.")
+        if telemetry is None or not telemetry.compression_error:
+            raise ValueError(
+                "adapt=... requires telemetry=... with "
+                "compression_error=True: the controller's windowed signal "
+                "IS the telemetry row's relative compression error "
+                "(computed against the active rung's codec) — arm "
+                "grace_transform(telemetry=True) alongside adapt.")
+        if routes:
+            raise ValueError(
+                "adapt=... requires routes=None: the ladder swaps the "
+                "base codec wholesale each rung; per-leaf route "
+                "sub-triads are outside the rung plan (route OR adapt, "
+                "not both).")
+    else:
+        adapt = None
     armed = consensus is not None and consensus is not False
     if armed:
         # Lazy: resilience imports this module.
         from grace_tpu_torch.resilience.consensus import normalize_consensus
         normalize_consensus(consensus)            # JAX's errors, at build
     if topology is None and telemetry is not None:
-        topology = Topology.detect()
+        topology = Topology.detect(group=communicator.group)
     return GraceTransform(compressor, memory, communicator, seed=seed,
                           fusion=fusion, routes=routes, escape=escape,
                           telemetry=telemetry, topology=topology,
-                          consensus=armed, watch=watch)
+                          consensus=armed, watch=watch, adapt=adapt)

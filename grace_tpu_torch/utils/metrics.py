@@ -2,7 +2,8 @@
 ``utils/metrics.py`` (``payload_nbytes``, ``wire_report`` and its
 ``CompressionReport``/``LeafReport``), and the guard's health readers
 ``guard_report`` and ``debug_nan_residuals``, each one device-to-host
-transfer.
+transfer, and ``HostCopy``, the one such transfer that the guard's flags
+and the adaptive controller's window statistics take without waiting.
 
 The count is of *logical* payload bytes: what the codec's payload tensors
 hold, not what a collective pads them to.
@@ -19,7 +20,27 @@ import torch
 from grace_tpu_torch.core import Compressor, LeafKey
 
 __all__ = ["LeafReport", "CompressionReport", "payload_nbytes",
-           "wire_report", "guard_report", "debug_nan_residuals"]
+           "wire_report", "guard_report", "debug_nan_residuals", "HostCopy"]
+
+
+class HostCopy:
+    """A device tensor on its way to the host: on CUDA a copy into pinned
+    memory that does not block, with an event recorded after it; on the
+    CPU the tensor itself. :meth:`wait` waits for that copy only."""
+
+    def __init__(self, x: torch.Tensor):
+        if x.device.type == "cuda":
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = x, None
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
 
 
 def _struct(x) -> Tuple[Tuple[int, ...], torch.dtype]:

@@ -50,7 +50,8 @@ from grace_tpu_torch.resilience import (GUARD_ROLLBACK_EXCLUDED,
                                         GuardState, guard_transform,
                                         guarded_chain)
 from grace_tpu_torch.telemetry import TelemetryState, WatchState
-from grace_tpu_torch.transform import (GRACE_OBSERVATIONAL_FIELDS,
+from grace_tpu_torch.transform import (GRACE_HOST_FIELDS,
+                                       GRACE_OBSERVATIONAL_FIELDS,
                                        GRACE_REPLICATED_FIELDS,
                                        GRACE_VARYING_FIELDS, GraceState,
                                        fallback_flags, set_fallback_flag)
@@ -449,7 +450,11 @@ def test_contract_constants_and_flags(group):
     assert GRACE_OBSERVATIONAL_FIELDS == JAX_OBSERVATIONAL == (
         "telem", "watch")
     assert GUARD_SCAN_EXCLUDED_TYPES == (TelemetryState, WatchState)
-    assert set(GRACE_VARYING_FIELDS) | set(GRACE_REPLICATED_FIELDS) == {
+    # Every field is per rank or replicated, but the port's one host
+    # bookkeeping field: the world the state was initialized at.
+    assert GRACE_HOST_FIELDS == ("world",)
+    assert set(GRACE_VARYING_FIELDS) | set(GRACE_REPLICATED_FIELDS) | set(
+        GRACE_HOST_FIELDS) == {
         f.name for f in __import__("dataclasses").fields(GraceState)}
     with pytest.raises(ValueError, match="set together"):
         guard_transform(grace_from_params(TOPK).transform(), fallback_after=2)

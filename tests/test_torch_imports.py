@@ -82,6 +82,11 @@ CROSS_RANK_MODULES = {
     "grace_tpu_torch.resilience.consensus",
     "grace_tpu_torch.resilience.chaos"}
 
+# The adaptive ladder, elastic resize and the footprint model.
+ADAPT_ELASTIC_MODULES = {
+    "grace_tpu_torch.resilience.adapt", "grace_tpu_torch.resilience.elastic",
+    "grace_tpu_torch.profiling", "grace_tpu_torch.profiling.recorder"}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -99,6 +104,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert MODEL_ZOO_MODULES <= names
     assert GUARDED_STEP_MODULES <= names
     assert CROSS_RANK_MODULES <= names
+    assert ADAPT_ELASTIC_MODULES <= names
     assert leaked.strip() == "[]"
 
 

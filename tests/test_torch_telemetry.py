@@ -14,8 +14,8 @@
   and wall times; the JSONL header once; ``MultiSink``; the report tool
   renders the port's JSONL; ``GuardMonitor``'s transition edges.
 * The schema: ``FIELDS``, the stage names and ``match_stage``, the
-  escape's spellings and error, the keys still refused (``adapt``) and
-  the invalid spellings of ``consensus`` and ``watch``.
+  escape's spellings and error, and the invalid spellings of
+  ``consensus``, ``watch`` and ``adapt``.
 """
 
 import json
@@ -196,13 +196,13 @@ def test_escape_refusals():
                         escape=grc.compressor)
 
 
-# key -> (a spelling that must raise, JAX's message). consensus and watch
-# build since they were ported; their invalid spellings raise JAX's
-# errors at build, and adapt is still refused as unported.
+# key -> (a spelling that must raise, JAX's message). consensus, watch and
+# adapt build since they were ported; their invalid spellings raise JAX's
+# errors at build.
 RAISING_KEYS = {
     "consensus": ({"consensus": 0}, "audit_every must be >= 1"),
     "watch": ({"watch": {"window": 0}}, "watch window must be >= 1"),
-    "adapt": ({"adapt": True}, "adapt.*ROADMAP queue 1"),
+    "adapt": ({"adapt": {"window": 0}}, "adapt window must be >= 1"),
 }
 
 
