@@ -118,13 +118,16 @@ The MNIST convergence path and the two-shot all-reduce:
     the aggregate at W in {1, 8} x {f32, bf16}), and one-leaf over the
     flat 21,840-element buffer.
 15. Train LeNet on the bundled MNIST split through the port's entry point
-    (grace_tpu_torch/examples/mnist10k_lenet.py), W=1, 40 epochs from the
-    seeded init, in three configurations: Top-K 1% chunk + residual +
-    allgather at fusion flat (the committed curve's) and per leaf, and the
-    dense anchor. Print every epoch's test accuracy; each final accuracy
-    must reach the committed W=1 CPU run's less 1.0 pp, and the Top-K runs
-    launch each chunk kernel once a step (over the run and in a profiled
-    step).
+    (grace_tpu_torch/examples/mnist10k_lenet.py, its batches through
+    data.prefetch_to_device), W=1, 40 epochs from the seeded init, in five
+    configurations: Top-K 1% chunk + residual + allgather at fusion flat
+    (the committed curve's) and per leaf, the dense anchor, QSGD 64 levels
+    + allgather (one quantize_stochastic launch a step) and the signSGD
+    majority vote through sign_allreduce (one grouped sign_pack and one
+    decode_accumulate a step). Print every epoch's test accuracy; each
+    final accuracy (the vote: its best epoch's) must reach the committed
+    W=1 CPU run's less 1.0 pp, and every run launches its kernels once a
+    step (over the run and in a profiled step).
 16. Train full-width ResNet-50 under topk1pct_twoshot_bs256
     (bench_all.py), as in 5; then signSGD + residual through the two-shot
     all-reduce over the 161 ResNet-50 leaves must equal the all-gather vote
@@ -302,6 +305,23 @@ The adaptive compression ladder and elastic resize:
     bit, residuals zero, rings reset, validate_resharded), the next step
     (both chunk kernels) and the rejoin barrier (timed, no repair).
 
+The data path:
+
+31. The threaded native loader (grace_tpu_torch/csrc/dataloader.cpp, built
+    with the host C++ compiler; no fallback) on the bundled MNIST split,
+    batch 256: each epoch a permutation, the ranks of world 1 and 8
+    disjoint, values equal to MemoryDataset.normalize bit for bit, the
+    short final batch wrapping; make_loader takes it. prefetch_to_device
+    on the card yields, over three epochs, tensors equal bit for bit to a
+    blocking .to(dev) of the same batches in the same order. A 3-epoch
+    LeNet chunk Top-K run through prefetch equals the same run with
+    blocking copies bit for bit (accuracies and final parameters; cuDNN
+    deterministic). Printed beside the card's name and power limit: the
+    host ms a batch of the native and the Python loader (back to back, and
+    with a step's 5 ms between pulls), and the wall ms
+    a step and the profiler's busy share of a LeNet epoch with and without
+    prefetch.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -406,8 +426,22 @@ MNIST_PATH = [
      "argv": ["--communicator", "allreduce"],
      "cpu_log": "mnist10k_w1cpu_uncompressed.tsv",
      "per_step": {}},
+    # The catalog's QSGD and signSGD-vote curves (examples/logs/
+    # mnist10k_{qsgd64,signsgd_vote}.tsv), their JAX flags verbatim.
+    {"name": "lenet_qsgd64",
+     "argv": ["--compressor", "qsgd", "--quantum-num", "64"],
+     "cpu_log": "mnist10k_w1cpu_qsgd64.tsv",
+     "per_step": {"quantize_stochastic": 1}},
+    # Fixed-step signSGD wanders near the optimum: held at its best epoch.
+    {"name": "lenet_signsgd_vote",
+     "argv": ["--compressor", "signsgd", "--communicator", "sign_allreduce",
+              "--sgd-momentum", "0", "--cosine-lr", "--lr", "0.001"],
+     "cpu_log": "mnist10k_w1cpu_signsgd_vote.tsv", "best_epoch": True,
+     "per_step": {"sign_pack": 1, "decode_accumulate": 1}},
 ]
 MNIST_FLOOR = 0.01                # 1.0 pp under the CPU run
+MNIST_KERNELS = ("chunk_compress_feedback", "chunk_aggregate_dense",
+                 "quantize_stochastic", "sign_pack", "decode_accumulate")
 MNIST_LOGS = Path(__file__).resolve().parent / "grace_tpu_torch" / "examples" \
     / "logs"
 # The two-shot all-reduce (phase 16): bench_all.py's topk1pct_twoshot_bs256
@@ -2408,11 +2442,11 @@ def profiled_kernel_launches(step, state, batch, words, want) -> dict:
     return counts
 
 
-def final_test_acc(tsv: Path) -> float:
-    """The last row's test accuracy of a committed MNIST curve."""
+def curve_accs(tsv: Path) -> list:
+    """Every row's test accuracy of a committed MNIST curve."""
     rows = [line.split("\t") for line in tsv.read_text().splitlines()
             if line and not line.startswith(("#", "epoch"))]
-    return float(rows[-1][2])
+    return [float(r[2]) for r in rows]
 
 
 def train_mnist(dev, group, cfg):
@@ -2431,24 +2465,28 @@ def train_mnist(dev, group, cfg):
     torch.cuda.synchronize()
     launches = ops.launch_counts()            # just after it
     profiled = profiled_kernel_launches(
-        res["step"], res["state"], res["batch"],
-        ("chunk_compress_feedback", "chunk_aggregate_dense"),
+        res["step"], res["state"], res["batch"], MNIST_KERNELS,
         cfg["per_step"])
-    cpu_acc = final_test_acc(MNIST_LOGS / cfg["cpu_log"])
+    # The vote is held at its best epoch (on both sides), the rest at the
+    # final one.
+    pick = max if cfg.get("best_epoch") else (lambda a: a[-1])
+    which = "best" if cfg.get("best_epoch") else "final"
+    cpu_acc = pick(curve_accs(MNIST_LOGS / cfg["cpu_log"]))
     floor = cpu_acc - MNIST_FLOOR
     accs = res["accs"]
     log(f"  {cfg['name']}: test accuracy by epoch "
         f"{' '.join(f'{a:.4f}' for a in accs)}")
-    log(f"  {cfg['name']}: final {accs[-1]:.4f} after {res['steps']} steps in "
-        f"{res['seconds']:.1f} s ({res['seconds'] / res['steps'] * 1e3:.2f} "
-        f"ms a step, evaluation included); floor {floor:.4f} (the port's W=1 "
-        f"CPU run: {cpu_acc:.4f}, less {MNIST_FLOOR * 100:.1f} pp); "
-        f"launches {launches}; in one profiled step {profiled}")
+    log(f"  {cfg['name']}: {which} {pick(accs):.4f} (final {accs[-1]:.4f}) "
+        f"after {res['steps']} steps in {res['seconds']:.1f} s "
+        f"({res['seconds'] / res['steps'] * 1e3:.2f} ms a step, evaluation "
+        f"included); floor {floor:.4f} (the port's W=1 CPU run: "
+        f"{cpu_acc:.4f}, less {MNIST_FLOOR * 100:.1f} pp); launches "
+        f"{launches}; in one profiled step {profiled}")
     if len(accs) != args.epochs or not all(math.isfinite(a) for a in accs):
         fail(f"[15] {cfg['name']}: accuracies {accs}")
-    if accs[-1] < floor:
-        fail(f"[15] {cfg['name']}: final test accuracy {accs[-1]:.4f} under "
-             f"its floor {floor:.4f}")
+    if pick(accs) < floor:
+        fail(f"[15] {cfg['name']}: {which} test accuracy {pick(accs):.4f} "
+             f"under its floor {floor:.4f}")
     for name, count in launches.items():
         want = cfg["per_step"].get(name, 0) * res["steps"]
         if count != want:
@@ -2459,7 +2497,8 @@ def train_mnist(dev, group, cfg):
             fail(f"[15] {cfg['name']}: {count} launches of {name} in the "
                  f"profiled step, expected {cfg['per_step'].get(name, 0)}")
     return {"name": cfg["name"], "accs": accs, "final_acc": accs[-1],
-            "floor": floor, "cpu_acc": cpu_acc, "steps": res["steps"],
+            "held": which, "floor": floor, "cpu_acc": cpu_acc,
+            "steps": res["steps"],
             "seconds": res["seconds"], "launches": launches,
             "profiled_step_launches": profiled}
 
@@ -4821,6 +4860,305 @@ def kernel_named(fn, word: str) -> str:
     fail(f"one call launched {len(hits)} kernels named *{word}*: {names}")
 
 
+# -- phase 31: the data path ----------------------------------------------------
+
+DATA_BATCH = 256
+DATA_EPOCHS = 3                  # the prefetch checks and the bit-for-bit run
+PREFETCH_SIZES = (1, 2, 4)
+LOADER_TIMING_EPOCHS = 3
+
+
+def _indexed(ds):
+    """``ds`` with each image's index as its label, so a batch names the
+    images it holds."""
+    import numpy as np
+    from grace_tpu_torch.data import MemoryDataset
+    return MemoryDataset(ds.images, np.arange(len(ds.images), dtype=np.int32),
+                         ds.mean, ds.std)
+
+
+def check_loader_contract(ds) -> int:
+    """Phase 31, first part: the native loader over the MNIST split at
+    batch 256, ``drop_last=False``: for world 1 and 8, every rank's epoch
+    holds its share of a permutation (the ranks disjoint, their union every
+    image), the short final batch wraps to its own front, and every value
+    equals MemoryDataset.normalize bit for bit; make_loader takes the
+    native loader. Returns the batches checked."""
+    import numpy as np
+    from grace_tpu_torch import data
+
+    idx = _indexed(ds)
+    n = len(ds.images)
+    if data.make_loader(idx, DATA_BATCH, rank=0, world=1).kind != "native":
+        fail("[31] make_loader fell back to PythonLoader: the native loader "
+             "did not build")
+    checked = 0
+    for world in (1, 8):
+        for epoch in (0, 5):
+            seen = []
+            for rank in range(world):
+                ld = data.NativeLoader(idx, DATA_BATCH, drop_last=False,
+                                       seed=42, rank=rank, world=world)
+                share = len(range(rank, n, world))
+                ys = []
+                for x, y in ld.epoch(epoch):
+                    if not np.array_equal(x, ds.normalize(ds.images[y])):
+                        fail(f"[31] world {world} rank {rank} epoch {epoch}: "
+                             f"a batch differs from MemoryDataset.normalize")
+                    ys.append(y)
+                    checked += 1
+                ld.close()
+                y = np.concatenate(ys)
+                tail = share % DATA_BATCH
+                if tail:
+                    last = y[-DATA_BATCH:]
+                    want = last[np.arange(DATA_BATCH) % tail]
+                    if not np.array_equal(last, want):
+                        fail(f"[31] world {world} rank {rank}: the short "
+                             f"final batch does not wrap to its front")
+                seen.append(y[:share])
+            if not np.array_equal(np.sort(np.concatenate(seen)),
+                                  np.arange(n)):
+                fail(f"[31] world {world} epoch {epoch}: the ranks' shares "
+                     f"are not a permutation of the {n} images")
+    return checked
+
+
+def _batch_sums(x, y):
+    import torch
+    return torch.stack([x.double().sum(), (x.double() ** 2).sum(),
+                        (x.double() * torch.arange(
+                            x.shape[0], device=x.device,
+                            dtype=torch.float64).view(-1, 1, 1, 1)).sum(),
+                        y.double().sum()])
+
+
+def check_prefetch(dev, ds) -> int:
+    """Phase 31, second part: prefetch_to_device on the card, at each of
+    PREFETCH_SIZES and over DATA_EPOCHS epochs of the native loader, yields
+    the same batches as a blocking ``.to(dev)`` of each, bit for bit and in
+    order. Each batch is compared at once (a copy still in flight would
+    show), and also read by sums queued behind a ``torch.cuda._sleep`` and
+    dropped before they run; the sums are compared after the epoch with
+    the same sums of the blocking copies (a buffer handed on while the
+    caller's stream still reads it would show). Returns the batches
+    compared."""
+    import torch
+    from grace_tpu_torch import data
+
+    loader = data.NativeLoader(ds, DATA_BATCH, seed=42, rank=0, world=1)
+    compared = 0
+    for size in PREFETCH_SIZES:
+        for epoch in range(DATA_EPOCHS):
+            host = list(loader.epoch(epoch))
+            sums = []
+            for i, (x, y) in enumerate(data.prefetch_to_device(
+                    iter(host), dev, size=size)):
+                if not (torch.equal(x, torch.from_numpy(host[i][0]).to(dev))
+                        and torch.equal(y, torch.from_numpy(host[i][1]).to(
+                            dev))):
+                    fail(f"[31] prefetch size {size} epoch {epoch}: batch "
+                         f"{i} differs from a blocking copy")
+                torch.cuda._sleep(1_000_000)
+                sums.append(_batch_sums(x, y))
+                del x, y
+            if len(sums) != len(host):
+                fail(f"[31] prefetch size {size}: {len(sums)} batches of "
+                     f"{len(host)}")
+            for i, (hx, hy) in enumerate(host):
+                want = _batch_sums(torch.from_numpy(hx).to(dev),
+                                   torch.from_numpy(hy).to(dev))
+                if not torch.equal(sums[i], want):
+                    fail(f"[31] prefetch size {size} epoch {epoch}: batch {i} "
+                         f"read after its hand-over differs from a blocking "
+                         f"copy")
+            compared += len(host)
+    loader.close()
+    return compared
+
+
+STEP_GAP_S = 0.005               # a LeNet step's host time, between pulls
+
+
+def loader_host_ms(ds) -> dict:
+    """Host ms a batch (MNIST split, batch 256, one rank) of the native
+    loader (4 threads, a ring of 4) and of PythonLoader, over
+    LOADER_TIMING_EPOCHS epochs each after one warm epoch, in turns: pulled
+    back to back (the loader's throughput), and with STEP_GAP_S of busy
+    host between pulls, timing the pulls alone (what the training thread waits
+    for a batch while the native workers fill the ring during its step)."""
+    from grace_tpu_torch import data
+
+    loaders = {"native": data.NativeLoader(ds, DATA_BATCH, seed=42, rank=0,
+                                           world=1),
+               "python": data.PythonLoader(ds, DATA_BATCH, seed=42, rank=0,
+                                           world=1)}
+    for ld in loaders.values():
+        list(ld.epoch(0))
+    out = {}
+    for gap in (0.0, STEP_GAP_S):
+        spent = {k: 0.0 for k in loaders}
+        count = {k: 0 for k in loaders}
+        for epoch in range(1, LOADER_TIMING_EPOCHS + 1):
+            for kind, ld in loaders.items():
+                it = iter(ld.epoch(epoch))
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it, None)
+                    spent[kind] += time.perf_counter() - t0
+                    if batch is None:
+                        break
+                    count[kind] += 1
+                    until = time.perf_counter() + gap
+                    while time.perf_counter() < until:     # a busy host
+                        pass
+        for k in loaders:
+            out[f"{k}{'_with_step_gap' if gap else ''}"] = \
+                spent[k] / count[k] * 1e3
+    loaders["native"].close()
+    return out
+
+
+def lenet_epoch(dev, res, args, prefetch: int, profiled: bool) -> dict:
+    """One more epoch of the MNIST entry point's loop (its batches, its
+    device_batches, its step and its per-step loss read) from ``res``'s
+    state: the wall ms a step, and under the profiler the device time of
+    its kernels and copies against the wall (a busy share that counts
+    overlapping work twice: an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from grace_tpu_torch.data import batches, load_mnist_auto
+    from grace_tpu_torch.examples import mnist10k_lenet as ex
+
+    x_train, y_train = load_mnist_auto(args.data_dir)[:2]
+    step = res["step"]
+
+    def epoch():
+        host = ((xb, yb.astype("int64")) for xb, yb in batches(
+            x_train, y_train, args.batch_size, shuffle=True, seed=args.seed))
+        n = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in ex.device_batches(host, dev, prefetch):
+            res["state"], loss = step(res["state"], batch)
+            float(loss)
+            n += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, n
+
+    if not profiled:
+        wall, n = epoch()
+        return {"wall_ms": wall, "steps": n, "ms_per_step": wall / n}
+    warm_profiler()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, n = epoch()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in device_events(prof)) / 1e3
+    return {"wall_ms": wall, "steps": n, "ms_per_step": wall / n,
+            "device_ms": busy, "busy_share": busy / wall}
+
+
+def lenet_pair(dev, group, prefetch: int):
+    """The MNIST entry point, chunk Top-K 1% + residual, DATA_EPOCHS epochs
+    at ``--prefetch prefetch``: the curve and the final parameters."""
+    import torch
+    from grace_tpu_torch.examples import mnist10k_lenet as ex
+
+    args = ex.build_parser().parse_args(
+        ["--compressor", "topk", "--topk-algorithm", "chunk", "--memory",
+         "residual", "--epochs", str(DATA_EPOCHS), "--prefetch",
+         str(prefetch)])
+    res = ex.train(args, group, dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    params = {n: p.detach().clone() for n, p in
+              res["state"].model.named_parameters()}
+    return res, args, params
+
+
+def data_path_phase(dev, group, runs, smi) -> None:
+    """Phase 31: the native loader's contract, the prefetch against
+    blocking copies, the bit-for-bit LeNet pair and the data path's
+    times."""
+    import torch
+    from grace_tpu_torch.data import mnist_split_dataset
+    from grace_tpu_torch.examples import mnist10k_lenet as ex
+    from grace_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    ds = mnist_split_dataset(ex.BUNDLED_MNIST_DIR, train=True)
+    lib = _build.host_library("dataloader")
+    checked = check_loader_contract(ds)
+    log(f"[31] native loader {Path(lib._name).name} (host C++): {checked} "
+        f"batches of {DATA_BATCH} at world 1 and 8 over two epochs: "
+        f"permutations, ranks disjoint, values equal to "
+        f"MemoryDataset.normalize bit for bit, the short batch wrapped")
+    compared = check_prefetch(dev, ds)
+    log(f"[31] prefetch_to_device at sizes {PREFETCH_SIZES}: {compared} "
+        f"batches equal to blocking copies bit for bit, in order")
+    determ = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with_pf, args, p_with = lenet_pair(dev, group, 2)
+        without, _, p_without = lenet_pair(dev, group, 0)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = determ
+    if with_pf["accs"] != without["accs"]:
+        fail(f"[31] LeNet with prefetch {with_pf['accs']} against blocking "
+             f"copies {without['accs']}")
+    differ = [n for n in p_with if not same_bits(p_with[n], p_without[n])]
+    if differ:
+        fail(f"[31] LeNet's parameters after {DATA_EPOCHS} epochs differ "
+             f"with and without prefetch: {differ}")
+    log(f"[31] LeNet chunk Top-K, {DATA_EPOCHS} epochs: with prefetch and "
+        f"with blocking copies the same accuracies "
+        f"({' '.join(f'{a:.4f}' for a in with_pf['accs'])}) and the same "
+        f"{len(p_with)} parameter tensors bit for bit")
+    host_ms = loader_host_ms(ds)
+    epochs = {}
+    for label, prefetch in (("prefetch", 2), ("blocking", 0),
+                            ("blocking", 0), ("prefetch", 2)):
+        for profiled in (False, True):
+            key = f"{label}{'_profiled' if profiled else ''}"
+            epochs.setdefault(key, []).append(
+                lenet_epoch(dev, with_pf, args, prefetch, profiled))
+    rows = {}
+    for label in ("prefetch", "blocking"):
+        plain, prof = epochs[label], epochs[f"{label}_profiled"]
+        rows[label] = {
+            "ms_per_step": [e["ms_per_step"] for e in plain],
+            "profiled_ms_per_step": [e["ms_per_step"] for e in prof],
+            "device_ms_per_step": [e["device_ms"] / e["steps"] for e in prof],
+            "busy_share": [e["busy_share"] for e in prof]}
+    log(f"[31] {smi}: host ms a batch (MNIST split, batch {DATA_BATCH}, "
+        f"{LOADER_TIMING_EPOCHS} epochs): back to back, native loader "
+        f"{host_ms['native']:.3f}, PythonLoader {host_ms['python']:.3f}; "
+        f"with {STEP_GAP_S * 1e3:.0f} ms between pulls, native "
+        f"{host_ms['native_with_step_gap']:.3f}, PythonLoader "
+        f"{host_ms['python_with_step_gap']:.3f}")
+    for label, r in rows.items():
+        log(f"[31] {smi}: LeNet epoch ({label}, two turns): wall ms a step "
+            f"{' '.join(f'{v:.3f}' for v in r['ms_per_step'])}; profiled "
+            f"{' '.join(f'{v:.3f}' for v in r['profiled_ms_per_step'])}, "
+            f"device ms a step "
+            f"{' '.join(f'{v:.3f}' for v in r['device_ms_per_step'])}, busy "
+            f"share <= {' '.join(f'{v:.3f}' for v in r['busy_share'])}")
+    runs["data_path"] = {"launches": {}, "card": smi,
+                         "loader_host_ms_per_batch": host_ms,
+                         "lenet_epoch": rows,
+                         "prefetch_batches_compared": compared,
+                         "loader_batches_checked": checked,
+                         "seconds": time.perf_counter() - t0}
+    log(f"[31] {time.perf_counter() - t0:.1f} s")
+
+
 @functools.cache
 def warm_profiler() -> None:
     """One short profiler session, once a process: the first session of a
@@ -5071,7 +5409,8 @@ def main() -> int:
             f"launch a call")
         # -- 15. LeNet on the bundled MNIST ----------------------------------
         log(f"[15] LeNet on the bundled MNIST split, W=1, 40 epochs, batch "
-            f"256, SGD lr 0.02 momentum 0.9, seed 42 (tf32: cudnn "
+            f"256, SGD lr 0.02 momentum 0.9 (the vote: lr 0.001 cosine, no "
+            f"momentum), seed 42, prefetch 2 (tf32: cudnn "
             f"{torch.backends.cudnn.allow_tf32}, matmul "
             f"{torch.backends.cuda.matmul.allow_tf32})")
         mnist = {}
@@ -5209,6 +5548,10 @@ def main() -> int:
             f"beside its static twin, the ladder under the guard and the "
             f"audit, and the elastic drain, re-shard and rejoin")
         adapt_phase(dev, group, x, y, runs, errs)
+        # -- 31. the data path ------------------------------------------------
+        log(f"[31] the data path: the native loader, prefetch_to_device and "
+            f"LeNet on the bundled MNIST split, batch {DATA_BATCH}")
+        data_path_phase(dev, group, runs, smi)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -6,8 +6,11 @@ the same flags and defaults: 40 epochs, a global batch of 256, SGD at lr
 The data is the deterministic 8,000/2,000 split of the bundled t10k files
 (``grace_tpu_torch.data``); every rank shuffles the train split with
 ``default_rng(seed + epoch)`` and takes its contiguous ``B/W`` rows of each
-global batch. The 2,000 test images are evaluated at the end of each epoch,
-each rank on its contiguous share, the counts averaged over the group.
+global batch, which ``data.prefetch_to_device`` copies to the device two
+batches ahead of the step (``--prefetch``), as the JAX example does. The
+2,000 test images are evaluated at the end of each epoch, each rank on its
+contiguous share, the counts averaged over the group. The GRACE flags are
+``examples.common``'s, the JAX examples' full set.
 
 One rank on the card (NCCL):
 
@@ -38,7 +41,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from grace_tpu_torch import grace_from_params
-from grace_tpu_torch.data import BUNDLED_MNIST_DIR, batches, load_mnist_auto
+from grace_tpu_torch.data import (BUNDLED_MNIST_DIR, batches, load_mnist_auto,
+                                  prefetch_to_device)
+from grace_tpu_torch.examples.common import (add_grace_args,
+                                             grace_params_from_args)
 from grace_tpu_torch.models.lenet import LeNet
 from grace_tpu_torch.parallel import init_process_group, resolve_device
 from grace_tpu_torch.train import (init_train_state, make_eval_step,
@@ -46,49 +52,6 @@ from grace_tpu_torch.train import (init_train_state, make_eval_step,
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def add_grace_args(parser: argparse.ArgumentParser) -> None:
-    """The GRACE flags of the JAX example that the port carries, with the
-    same names and defaults."""
-    g = parser.add_argument_group("grace")
-    g.add_argument("--compressor", default="none",
-                   help="none|fp16|bf16|topk|qsgd|homoqsgd|countsketch|"
-                        "signsgd|signum")
-    g.add_argument("--memory", default="none", help="none|residual")
-    g.add_argument("--communicator", default="allgather",
-                   help="allreduce|allgather|broadcast|sign_allreduce|"
-                        "twoshot|ring|rscatter|identity")
-    g.add_argument("--compress-ratio", type=float, default=0.01)
-    g.add_argument("--quantum-num", type=int, default=64)
-    g.add_argument("--momentum", type=float, default=0.9)
-    g.add_argument("--fusion", default="flat",
-                   help="flat|none: one pipeline over the concatenated "
-                        "gradient, or one a leaf")
-    g.add_argument("--topk-algorithm", default="exact", help="exact|chunk")
-    g.add_argument("--use-pallas", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="the kernel path (auto, on) or the staged one (off)")
-    g.add_argument("--memory-dtype", default=None,
-                   help="storage dtype of the residual (e.g. bfloat16)")
-    g.add_argument("--seed", type=int, default=42)
-
-
-def grace_params_from_args(args) -> dict:
-    fusion = None if args.fusion in ("none", "None", "") else args.fusion
-    params = {"compressor": args.compressor, "memory": args.memory,
-              "communicator": args.communicator,
-              "compress_ratio": args.compress_ratio,
-              "quantum_num": args.quantum_num, "momentum": args.momentum,
-              "fusion": fusion, "topk_algorithm": args.topk_algorithm}
-    if args.use_pallas != "auto":
-        params["use_pallas"] = args.use_pallas == "on"
-    if args.memory_dtype:
-        if args.memory != "residual":
-            raise SystemExit(f"--memory-dtype applies only to --memory "
-                             f"residual (got --memory {args.memory})")
-        params["memory_dtype"] = args.memory_dtype
-    return params
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,7 +75,21 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda (NCCL, one card a rank) or cpu (gloo)")
     parser.add_argument("--nproc", type=int, default=1,
                         help="ranks to spawn, one process each")
+    parser.add_argument("--prefetch", type=int, default=2,
+                        help="batches copied to the device ahead of the step "
+                             "(data.prefetch_to_device); 0: a blocking copy "
+                             "a step")
     return parser
+
+
+def device_batches(host, dev, prefetch: int):
+    """The host batches ``host`` on ``dev``: through ``prefetch_to_device``
+    ``prefetch`` batches ahead, or (``prefetch`` 0) one blocking copy each
+    as it is pulled."""
+    if prefetch:
+        return prefetch_to_device(host, dev, size=prefetch)
+    return ((torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev))
+            for xb, yb in host)
 
 
 def _loss_fn(model, batch):
@@ -178,13 +155,13 @@ def train(args, group, device, log=print) -> dict:
     t0 = time.perf_counter()
     for epoch in range(1, args.epochs + 1):
         losses = []
-        for xb, yb in batches(x_train, y_train, args.batch_size,
-                              shuffle=True, seed=args.seed + epoch):
+        rows_of = slice(rank * local, (rank + 1) * local)
+        host = ((xb[rows_of], yb[rows_of].astype(np.int64))
+                for xb, yb in batches(x_train, y_train, args.batch_size,
+                                      shuffle=True, seed=args.seed + epoch))
+        for batch in device_batches(host, dev, args.prefetch):
             if args.cosine_lr:
                 set_lr(opt, cosine, steps)
-            rows_of = slice(rank * local, (rank + 1) * local)
-            batch = (torch.from_numpy(xb[rows_of]).to(dev),
-                     torch.from_numpy(yb[rows_of]).long().to(dev))
             state, loss = step(state, batch)
             losses.append(float(loss))
             steps += 1

@@ -7,7 +7,9 @@ carries a hash of its source, of every header and of the compiler flags,
 so a changed source or header is rebuilt and an unchanged one is reused. Builds go to
 ``grace_tpu_torch/_build`` (listed in ``.gitignore``) at first use: a
 fresh checkout builds its kernels on the first call that launches one.
-Sources are compiled in parallel, one ``nvcc`` process each.
+Sources are compiled in parallel, one ``nvcc`` process each. The host
+loader's ``csrc/dataloader.cpp`` is plain C++: ``host_library`` builds it
+with the host compiler into the same directory.
 
 There is no fallback: without ``nvcc``, or when the build fails, loading
 raises. Only the CPU path (the kernels' plain versions) runs without it.
@@ -96,6 +98,41 @@ def build_all() -> Dict[str, Path]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library built from ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build_all()[name]))
+
+
+# The host loader (csrc/dataloader.cpp): plain C++ for the host compiler,
+# never nvcc, and no header of the CUDA toolkit or PyTorch.
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+
+
+def find_host_cxx() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) found to build "
+                           "grace_tpu_torch/csrc/dataloader.cpp")
+    return path
+
+
+@functools.cache
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded shared library built from ``csrc/<name>.cpp`` with the
+    host C++ compiler, into ``_build/lib<name>-<hash>.so`` (the hash of the
+    source and the flags); built at the first call, reused after."""
+    src = CSRC_DIR / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(HOST_CXX_FLAGS).encode())
+    target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if not target.exists():
+        cxx = find_host_cxx()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_CXX_FLAGS, str(src), "-o",
+                               str(tmp)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed to build {src.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, target)           # atomic: no half-written library
+    return ctypes.CDLL(str(target))
 
 
 def build_log(name: str) -> str:

@@ -37,11 +37,19 @@ FIELDS = (
     ("wire_bytes", "first"),        # effective bytes received this step
     ("dense_bytes", "first"),       # raw dense bytes of the gradients
     ("fallback", "max"),            # 1.0 while the dense escape runs
-    ("audit_bytes", "first"),       # consensus audit cost (0: not ported)
+    ("audit_bytes", "first"),       # consensus-audit wire cost this step:
+                                    # fingerprint gather + any repair
+                                    # broadcast, added after the step by
+                                    # resilience.consensus (also into
+                                    # wire_bytes, not the per-link split)
     ("wire_bytes_ici", "first"),    # wire_bytes split by link class
     ("wire_bytes_dcn", "first"),
     ("wire_bytes_wan", "first"),
-    ("watch_bytes", "first"),       # health-gather cost (0: not ported)
+    ("watch_bytes", "first"),       # watch health-gather wire cost: non-
+                                    # zero on window-boundary steps only,
+                                    # folded into wire_bytes AND the
+                                    # per-link split (a flat full-group
+                                    # collective)
     ("negotiation_bytes", "first"), # shared-scale negotiation cost
     ("adapt_rung", "first"),        # effective adaptive rung (-1: off)
     ("adapt_bytes", "first"),       # the adaptive signal's cost
