@@ -322,6 +322,26 @@ The data path:
     a step and the profiler's busy share of a LeNet epoch with and without
     prefetch.
 
+The 2-D mesh and the profiler's read side:
+
+32. [5]'s HEADLINE topk1pct (same model, batch and seed) on a 1×1
+    dp×fsdp mesh from parallel.make_mesh over NCCL ("fsdp_axis": "fsdp",
+    make_train_step(mesh=...)): its 2 + 5 steps equal [5]'s 1-D steps,
+    re-run beside it with cuDNN deterministic, bit for bit (losses,
+    parameters and BatchNorm statistics, residuals), with one launch of
+    each chunk kernel a step. Real ResNet-50 gradients of one step split in
+    two on each leaf's last axis (HWIO's and (din, dout)'s output channels:
+    JAX's P(..., "fsdp")): shard 0's leaves through the 2-D transform at
+    dp=1 hold residuals of the shard shapes, and both chunk kernels equal
+    their plain versions on them bit for bit. One 2-D step under
+    utils.profiling.trace, exported as a Chrome trace and read by
+    profiling.analyze_trace: the stage table, its device total against
+    device_events' sum of the same capture (within 2%, or the line says
+    why), the overlap fraction, StepTimer's p50 over the 5 timed steps,
+    device_memory_watermarks against torch.cuda.max_memory_allocated and
+    one ProfileRecorder flush record through a JSONLSink, each time and
+    size beside the card's name and power limit.
+
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Without CUDA, or without the rest of the
@@ -5159,6 +5179,274 @@ def data_path_phase(dev, group, runs, smi) -> None:
     log(f"[31] {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 32: the 2-D mesh and the profiler's read side ----------------------
+
+def _mesh_headline_run(dev, group, x, y, mesh=None, recorder=None):
+    """[5]'s topk1pct steps (2 + 5, SGD lr 1e-3, seed 0): over ``group``
+    through make_stateful_train_step as [5] runs them, or over the 2-D
+    ``mesh`` through make_train_step(mesh=...). The chunk kernels' launch
+    counts are set to 0 just before the steps and read just after."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.train import (init_stateful_train_state,
+                                       init_train_state, make_train_step,
+                                       make_stateful_train_step)
+
+    params = HEADLINE[1]["params"]
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    if mesh is None:
+        tx = grace_from_params(params, group=group).transform(seed=SEED)
+        state = init_stateful_train_state(model, tx, opt, group)
+        step = make_stateful_train_step(loss_fn, tx, group)
+    else:
+        tx = grace_from_params({**params, "fsdp_axis": "fsdp"},
+                               group=mesh).transform(seed=SEED)
+        state = init_train_state(model, tx, opt, mesh=mesh, param_specs={})
+        step = make_train_step(loss_fn, tx, mesh=mesh, param_specs={})
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                 # just before the main path
+    losses = []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        if recorder is None:
+            state, loss = step(state, (x, y))
+        else:
+            with recorder.step():
+                state, loss = step(state, (x, y))
+                recorder.sync_on(loss)
+        losses.append(loss.detach().clone())
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()            # just after it
+    return state, step, torch.stack(losses), launches
+
+
+def _mesh_state_bits(state) -> dict:
+    out = {f"model/{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    out.update({f"mem/{i}": m.detach().clone()
+                for i, m in enumerate(state.grace.mem) if m is not None})
+    return out
+
+
+def check_shard_kernels(dev, shards, errs) -> int:
+    """Both chunk kernels on the shard leaves' real gradients (1%, one
+    grouped launch each, residual feedback, W=1), bit for bit against the
+    grouped plain versions."""
+    import torch
+    from grace_tpu_torch.compressors import static_k
+    from grace_tpu_torch.ops import chunk_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    gs = [g.reshape(-1) for g in shards]
+    ns = [g.numel() for g in gs]
+    ks = [static_k(n, 0.01) for n in ns]
+    rs = [torch.randn(n, generator=gen, device=dev) * 1e-3 for n in ns]
+    want = ck.chunk_compress_feedback_grouped_plain(gs, rs, ks)
+    got = ck.chunk_compress_feedback_grouped(gs, [r.clone() for r in rs], ks)
+    agg_want = ck.chunk_aggregate_dense_grouped_plain(
+        want[0][None], want[1][None], ks, ns, True)
+    agg = ck.chunk_aggregate_dense_grouped(want[0][None], want[1][None], ks,
+                                           ns, True)
+    torch.cuda.synchronize()
+    pairs = [("chunk_compress_feedback", "values", want[0], got[0]),
+             ("chunk_compress_feedback", "rows", want[1], got[1]),
+             ("chunk_aggregate_dense", "aggregate", agg_want, agg)]
+    pairs += [("chunk_compress_feedback", f"residual {i}", w, o.reshape(-1))
+              for i, (w, o) in enumerate(zip(want[2], got[2]))]
+    for kname, what, w, o in pairs:
+        if not same_bits(w, o):
+            fail(f"[32] shard 0: {kname} {what} differs from the plain "
+                 f"version (max abs err {max_abs_err(w, o)})")
+        if w.is_floating_point():
+            errs[kname] = max(errs[kname], max_abs_err(w, o))
+    return len(pairs)
+
+
+def mesh_profiling_phase(dev, group, x, y, runs, errs, smi) -> None:
+    """Phase 32 (module docstring): the HEADLINE on a 1×1 dp×fsdp mesh
+    against [5]'s 1-D steps, shard 0 of real gradients through the 2-D
+    transform and the chunk kernels, and one 2-D step read back through the
+    ported profiler."""
+    import tempfile
+
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.parallel import make_mesh
+    from grace_tpu_torch.profiling import (ProfileRecorder, analyze_trace,
+                                           device_memory_watermarks,
+                                           find_latest_trace,
+                                           load_trace_events)
+    from grace_tpu_torch.telemetry import JSONLSink
+    from grace_tpu_torch.transform import leaf_order
+
+    t0 = time.perf_counter()
+    want = {"chunk_compress_feedback": WARMUP_STEPS + TIMED_STEPS,
+            "chunk_aggregate_dense": WARMUP_STEPS + TIMED_STEPS}
+    mesh = make_mesh((1, 1), ("data", "fsdp"), group=group)
+    if mesh.dp_group is not group or (mesh.dp_index, mesh.fsdp_index) != \
+            (0, 0):
+        fail(f"[32] the 1×1 mesh's dp group is not the world group "
+             f"({mesh})")
+    # -- 32a: the 2-D HEADLINE against [5]'s 1-D steps ----------------------
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        one_d, _, loss_1d, launches_1d = _mesh_headline_run(dev, group, x, y)
+        want_bits = _mesh_state_bits(one_d)
+        del one_d
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tmp = tempfile.mkdtemp(prefix="grace_mesh_")
+        sink_path = os.path.join(tmp, "profile.jsonl")
+        rec = ProfileRecorder(JSONLSink(sink_path), every=1000,
+                              warmup=WARMUP_STEPS)
+        two_d, step, loss_2d, launches = _mesh_headline_run(
+            dev, group, x, y, mesh=mesh, recorder=rec)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    launches_1d = {k: v for k, v in launches_1d.items() if v}
+    launches = {k: v for k, v in launches.items() if v}
+    for label, got in (("1-D", launches_1d), ("2-D", launches)):
+        if got != want:
+            fail(f"[32] the {label} HEADLINE launched {got} over "
+                 f"{WARMUP_STEPS + TIMED_STEPS} steps, expected {want}")
+    if not same_bits(loss_1d, loss_2d):
+        fail(f"[32] the 2-D losses {loss_2d.tolist()} differ from the 1-D "
+             f"{loss_1d.tolist()}")
+    got_bits = _mesh_state_bits(two_d)
+    if set(got_bits) != set(want_bits):
+        fail("[32] the 2-D state's tensors are not the 1-D state's")
+    for path, w in want_bits.items():
+        if not same_bits(got_bits[path], w):
+            fail(f"[32] {path} after {WARMUP_STEPS + TIMED_STEPS} steps "
+                 f"differs between the 2-D and the 1-D run")
+    p50_ms = rec.timer.p50_sec * 1e3
+    runs["mesh_1x1_topk1pct"] = {"launches": launches,
+                                 "steps": WARMUP_STEPS + TIMED_STEPS,
+                                 "p50_ms": p50_ms,
+                                 "losses": loss_2d.tolist()}
+    log(f"[32a] topk1pct on the 1×1 mesh (make_mesh over NCCL, "
+        f"make_train_step(mesh=...)) = [5]'s 1-D steps re-run with cuDNN "
+        f"deterministic, bit for bit over {WARMUP_STEPS + TIMED_STEPS} "
+        f"steps: losses {loss_2d[0].item():.4f} -> {loss_2d[-1].item():.4f} "
+        f"([5]: {runs['topk1pct']['first_loss']:.4f} -> "
+        f"{runs['topk1pct']['last_loss']:.4f}), {len(got_bits)} tensors "
+        f"(parameters, BatchNorm statistics, residuals); launches {launches}")
+    # -- 32b: shard 0 of real gradients through the 2-D transform ----------
+    grads = resnet50_leaf_grads(dev, count=1)[0]
+    shards, split = {}, 0
+    for n, g in grads.items():
+        if g.shape[-1] >= 2 and g.shape[-1] % 2 == 0:
+            shards[n] = g.narrow(-1, 0, g.shape[-1] // 2).contiguous()
+            split += 1
+        else:
+            shards[n] = g
+    del grads
+    tx = grace_from_params({**HEADLINE[1]["params"], "fsdp_axis": "fsdp"},
+                           group=mesh).transform(seed=SEED)
+    st = tx.init(shards)
+    names = leaf_order(shards)
+    for n, m in zip(names, st.mem):
+        if m is None or tuple(m.shape) != tuple(shards[n].shape):
+            fail(f"[32] shard 0's residual of {n} is "
+                 f"{None if m is None else tuple(m.shape)}, expected the "
+                 f"shard's {tuple(shards[n].shape)}")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                 # just before the shard path
+    tx.update({n: g.clone() for n, g in shards.items()}, st)
+    torch.cuda.synchronize()
+    shard_launches = {k: v for k, v in ops.launch_counts().items()
+                      if v}                   # just after it
+    if shard_launches != {k: 1 for k in want}:
+        fail(f"[32] the shard-0 update launched {shard_launches}, expected "
+             "one of each chunk kernel")
+    runs["mesh_shard0_update"] = {"launches": shard_launches, "steps": 1}
+    cases = check_shard_kernels(dev, [shards[n] for n in names], errs)
+    half = sum(g.numel() for g in shards.values())
+    log(f"[32b] shard 0 of real ResNet-50 gradients ({split} of "
+        f"{len(shards)} leaves split on their last axis, {half} elements): "
+        f"residuals of the shard shapes, one launch of each chunk kernel, "
+        f"both kernels bit for bit against their plain versions in {cases} "
+        "cases")
+    del shards, st
+    torch.cuda.empty_cache()
+    # -- 32c: one 2-D step through the ported profiler ----------------------
+    from grace_tpu_torch.utils.profiling import trace
+    warm_profiler()
+    logdir = os.path.join(tmp, "trace")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with trace(logdir, device=dev) as prof:
+        two_d, _ = step(two_d, (x, y))
+    profiled = {k: v for k, v in ops.launch_counts().items() if v}
+    if profiled != {k: 1 for k in want}:
+        fail(f"[32] the profiled 2-D step launched {profiled}, expected one "
+             "of each chunk kernel")
+    path = find_latest_trace(logdir)
+    if path is None:
+        fail(f"[32] utils.profiling.trace wrote no trace under {logdir}")
+    analysis = analyze_trace(logdir)
+    events = device_events(prof)
+    ev_ms = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in events) / 1e3
+    total_ms = analysis.total_us / 1e3
+    spans = load_trace_events(path)
+    lanes = sorted({(s.device, s.lane) for s in spans if s.cat == "kernel"})
+    kernels = [s for s in spans if s.cat == "kernel"]
+    staged = sum(1 for s in kernels if s.stage())
+    ranges_ms = sum(s.dur for s in spans if s.cat == "gpu_user_annotation"
+                    and not s.stage()) / 1e3
+    if not analysis.device_lanes_detected or not any(
+            s.stage() for s in spans if s.cat == "kernel"):
+        fail(f"[32] the analyzer found no device lane or attributed no "
+             f"kernel to a grace/ stage (kernel lanes {lanes})")
+    rel = abs(total_ms - ev_ms) / max(ev_ms, 1e-9)
+    why = "" if rel <= 0.02 else (
+        f"; not within 2%: device_events sums the profiler's CUDA rows, "
+        f"which hold {ranges_ms:.3f} ms of non-grace gpu_user_annotation "
+        f"ranges (the optimizer's) that the analyzer leaves out")
+    log(f"[32c] {smi}: one 2-D step under utils.profiling.trace "
+        f"({os.path.basename(path)}, {len(spans)} spans, kernel lanes "
+        f"{lanes}, {staged} of {len(kernels)} kernels attributed to a "
+        f"grace/ stage); analyze_trace:")
+    for line in analysis.render().splitlines():
+        log(f"      {line}")
+    log(f"[32c] {smi}: analyzer device total {total_ms:.3f} ms against "
+        f"device_events' {ev_ms:.3f} ms over {sum(e.count for e in events)} "
+        f"CUDA rows ({100 * rel:.2f}% apart){why}; overlap fraction "
+        f"{analysis.overlap_fraction}")
+    rec.flush(WARMUP_STEPS + TIMED_STEPS - 1)
+    rec.close()
+    with open(sink_path) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    mem = device_memory_watermarks()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if mem is None or mem["peak_bytes_in_use"] != peak:
+        fail(f"[32] device_memory_watermarks {mem} against "
+             f"max_memory_allocated {peak}")
+    log(f"[32c] {smi}: StepTimer p50 over the {TIMED_STEPS} timed 2-D steps "
+        f"{p50_ms:.3f} ms; device_memory_watermarks peak "
+        f"{mem['peak_bytes_in_use'] / 1e9:.3f} GB = max_memory_allocated "
+        f"{peak / 1e9:.3f} GB (in use {mem['bytes_in_use'] / 1e9:.3f} GB)")
+    for r in records:
+        if r.get("event") != "perf_step_times" or "sync_missing" in r:
+            continue
+        log(f"[32c] ProfileRecorder flush record: {json.dumps(r)}")
+        break
+    else:
+        fail(f"[32] no synchronised perf_step_times record in {records}")
+    runs["mesh_1x1_topk1pct"].update(
+        profiled_launches=profiled, analyzer_total_ms=total_ms,
+        device_events_ms=ev_ms, overlap_fraction=analysis.overlap_fraction,
+        stages_ms=analysis.as_dict()["stages_ms"],
+        peak_mem_gb=peak / 1e9)
+    log(f"[32] {time.perf_counter() - t0:.1f} s")
+
+
 @functools.cache
 def warm_profiler() -> None:
     """One short profiler session, once a process: the first session of a
@@ -5552,6 +5840,11 @@ def main() -> int:
         log(f"[31] the data path: the native loader, prefetch_to_device and "
             f"LeNet on the bundled MNIST split, batch {DATA_BATCH}")
         data_path_phase(dev, group, runs, smi)
+        # -- 32. the 2-D mesh and the profiler's read side ------------------
+        log(f"[32] ResNet-50, batch {bs}: topk1pct on a 1×1 dp×fsdp mesh "
+            f"against [5]'s steps, shard 0 of real gradients, one step "
+            f"through the ported profiler")
+        mesh_profiling_phase(dev, group, x, y, runs, errs, smi)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

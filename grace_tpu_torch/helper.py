@@ -8,13 +8,20 @@ name, with the JAX defaults, every ``fusion`` setting (None, ``'flat'``,
 resilience and observability keys ``escape``, ``telemetry``, ``consensus``,
 ``watch`` and ``adapt`` (their configurations validated here, with the JAX
 package's errors; ``watch`` without ``telemetry`` and ``adapt`` without
-``escape`` or ``telemetry`` raise at ``.transform()``, as in JAX). A key
-that the port does not carry yet (``fsdp_axis``) or an unknown name raises
+``escape`` or ``telemetry`` raise at ``.transform()``, as in JAX), and
+``fsdp_axis``, the 2-D dp×fsdp layout. An unknown key or name raises
 ``ValueError`` naming it, instead of being dropped. PowerSGD's and the DGC
 memory's collectives run over the ``group`` given here. ``world_size`` is
 accepted and ignored, as in the JAX package: the world is the process
 group's. The process group itself is passed as ``group=`` (the JAX
-package's ``axis_name``).
+package's ``axis_name``); on a 2-D mesh pass the mesh
+(``parallel.make_mesh``): the communicator, PowerSGD and the DGC memory
+then run over its dp group, and ``Grace.mesh`` carries it::
+
+    mesh = make_mesh((4, 2), ("data", "fsdp"))
+    grc = grace_from_params({"compressor": "topk", "compress_ratio": 0.3,
+                             "memory": "residual", "communicator": "rscatter",
+                             "fsdp_axis": "fsdp"}, group=mesh)
 
 An adaptive ladder names its rungs as override dicts merged over the
 config's own params, safest first; the config's own codec is the top rung::
@@ -47,8 +54,9 @@ from grace_tpu_torch.core import (Communicator, Compressor, LinkBytes, Memory,
                                   Topology, negotiation_bytes_for)
 from grace_tpu_torch.resilience.consensus import normalize_consensus
 from grace_tpu_torch.telemetry.aggregate import normalize_watch
-from grace_tpu_torch.transform import (GraceTransform, _normalize_telemetry,
-                                       _struct, check_fusion, grace_transform,
+from grace_tpu_torch.transform import (GraceTransform, MeshSpec,
+                                       _normalize_telemetry, _struct,
+                                       check_fusion, grace_transform,
                                        leaf_order, leaf_path_str,
                                        normalize_routes, route_for)
 
@@ -61,7 +69,7 @@ PORTED_KEYS = frozenset({
     "slice_size", "region_size", "wan_compressor", "compress_rank",
     "threshold", "capacity_ratio", "lr", "gradient_clipping",
     "recall_target", "route", "escape", "telemetry", "consensus",
-    "watch", "adapt"})
+    "watch", "adapt", "fsdp_axis"})
 
 COMPRESSORS = ("none", "fp16", "bf16", "bfloat16", "cyclictopk", "topk",
                "randomk", "threshold", "qsgd", "homoqsgd", "countsketch",
@@ -93,7 +101,9 @@ class Grace:
     ``train.make_train_step(consensus=...)`` for the hook. ``watch`` is
     the cross-rank watch ring's ``WatchConfig`` (None: off). ``adapt`` is
     the adaptive ladder's ``AdaptConfig`` with its built rung codecs, the
-    base codec on top (None: off)."""
+    base codec on top (None: off). ``mesh`` is the 2-D
+    :class:`~grace_tpu_torch.transform.MeshSpec` that ``fsdp_axis`` declares
+    (None: pure data parallelism over the communicator's group)."""
 
     compressor: Compressor
     memory: Memory
@@ -106,6 +116,7 @@ class Grace:
     consensus: Any = None
     watch: Any = None
     adapt: Any = None
+    mesh: Any = None
 
     def transform(self, seed: int = 0) -> GraceTransform:
         return grace_transform(self.compressor, self.memory,
@@ -115,7 +126,7 @@ class Grace:
                                escape=self.escape, telemetry=self.telemetry,
                                topology=self.topology,
                                consensus=self.consensus, watch=self.watch,
-                               adapt=self.adapt)
+                               adapt=self.adapt, mesh=self.mesh)
 
 
 def _pad_powersgd_states(base: Compressor, rungs: Tuple[Compressor, ...]
@@ -336,11 +347,33 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
          "communicator": "allgather",
          "route": [("*bn*", {"compressor": "fp16", "memory": "none",
                              "communicator": "allreduce"})]}
+
+    ``fsdp_axis`` names the mesh axis that parameters and optimizer state
+    shard over: the 2-D dp×fsdp layout (``transform.MeshSpec``), whose
+    exchange stays the per-shard reduce over the dp axis. ``group`` may
+    then be a mesh from ``parallel.make_mesh``: the communicator, the
+    routes' and the ladder's, PowerSGD and the DGC memory run over its dp
+    group, and ``Grace.mesh`` is the mesh (the guard ORs its verdict over
+    all of it). Without a mesh the spec names the axes only and the
+    groups are the ones given.
     """
     unported = sorted(set(params) - PORTED_KEYS)
     if unported:
         raise ValueError(f"params keys not ported to grace_tpu_torch yet: "
                          f"{unported} (ROADMAP queue 1)")
+    mesh = None
+    if isinstance(group, MeshSpec):
+        mesh, group = group, group.dp_group
+    fsdp_axis = params.get("fsdp_axis")
+    if fsdp_axis:
+        if mesh is None:
+            mesh = MeshSpec(fsdp_axis=str(fsdp_axis))
+        elif mesh.fsdp_axis != fsdp_axis:
+            raise ValueError(
+                f"fsdp_axis {fsdp_axis!r} differs from the mesh's "
+                f"{mesh.fsdp_axis!r}")
+    elif mesh is not None and not mesh.is_2d:
+        mesh = None                    # a 1-D mesh: its group alone
     fusion = params.get("fusion")
     if fusion in ("none", "None", ""):     # CLI spelling of "no fusion"
         fusion = None
@@ -352,7 +385,8 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
         for pattern, overrides in params["route"]:
             merged = {k: v for k, v in params.items() if k != "route"}
             merged.update(dict(overrides))
-            entries.append((str(pattern), grace_from_params(merged, group)))
+            entries.append((str(pattern), grace_from_params(
+                merged, group if mesh is None else mesh)))
         routes = normalize_routes(entries, communicator)
     slice_size, region_size = params.get("slice_size"), \
         params.get("region_size")
@@ -371,7 +405,7 @@ def grace_from_params(params: Dict[str, Any], group: Optional[Any] = None
                  telemetry=_normalize_telemetry(params.get("telemetry")),
                  consensus=normalize_consensus(params.get("consensus")),
                  watch=normalize_watch(params.get("watch")),
-                 adapt=adapt)
+                 adapt=adapt, mesh=mesh)
 
 
 def route_leaves(grace: Grace, tree: Mapping[str, Any]) -> list:

@@ -11,10 +11,17 @@ quietly.
 ``parallel.broadcast_tree`` and ``parallel.metric_average`` over a process
 group: the identity (and ``numpy`` leaves) at one rank, one collective
 beyond it.
+
+``make_mesh((dp, fsdp), ("data", "fsdp"))`` is the JAX package's
+``make_mesh`` for the 2-D sharded-model track: a ``transform.MeshSpec``
+bound to this rank's dp group, fsdp group and the whole mesh. ``psum`` and
+``all_gather`` are the differentiable cross-shard collectives a sharded
+model's loss calls over ``mesh.fsdp_group``, with JAX's transposes.
 """
 
 from __future__ import annotations
 
+import math
 import socket
 from typing import Optional
 from urllib.parse import urlparse
@@ -85,6 +92,128 @@ def _world(group) -> int:
     if not (dist.is_available() and dist.is_initialized()):
         return 1
     return dist.get_world_size(group)
+
+
+def make_mesh(shape, axis_names=("data", "fsdp"), group=None):
+    """The 2-D (or 1-D) process-group mesh over ``group`` (None: the
+    default group): a bound :class:`~grace_tpu_torch.transform.MeshSpec`.
+
+    ``shape`` is ``(dp,)`` or ``(dp, fsdp)`` with ``dp·fsdp`` the group's
+    size, ``axis_names`` the JAX package's axis names. Rank ``r`` of
+    ``group`` sits at dp index ``r // fsdp`` and fsdp index ``r % fsdp``,
+    the device layout of ``jax.make_mesh((dp, fsdp))``, so rank ``r`` holds
+    what JAX's device row ``r`` holds. The spec carries this rank's **dp
+    group** (the ranks of its fsdp index: the compressed exchange), its
+    **fsdp group** (the ranks of its dp index: the model's cross-shard
+    collectives) and the whole mesh (``group``: the guard's verdict).
+
+    Every rank calls ``dist.new_group`` for every subgroup in one order (dp
+    groups by fsdp index, then fsdp groups by dp index), with
+    ``use_local_synchronization`` as ``comm._hier_groups`` does; a subgroup
+    that spans the whole mesh is ``group`` itself, so a 1-wide axis adds no
+    communicator. A group ranks its members by ascending global rank, the
+    order of the mesh index along the axis. Call it once a mesh: each call
+    makes new groups."""
+    from grace_tpu_torch.transform import MeshSpec
+
+    shape = tuple(int(n) for n in shape)
+    names = tuple(axis_names)[:len(shape)]
+    if len(shape) not in (1, 2) or len(names) != len(shape) \
+            or min(shape) < 1:
+        raise ValueError(f"make_mesh takes (dp,) or (dp, fsdp) with one "
+                         f"name an axis; got shape {shape}, axis_names "
+                         f"{tuple(axis_names)}")
+    world = _world(group)
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} has {math.prod(shape)} ranks "
+                         f"but the group has {world}")
+    dp = shape[0]
+    fsdp = shape[1] if len(shape) > 1 else 1
+    me = dist.get_rank(group) if world > 1 or dist.is_initialized() else 0
+
+    def global_rank(j):
+        return j if group is None else dist.get_global_rank(group, j)
+
+    def subgroup(lists):
+        mine = group
+        for ranks in lists:
+            if len(ranks) == world:
+                continue
+            pg = dist.new_group([global_rank(j) for j in ranks],
+                                use_local_synchronization=True)
+            if me in ranks:
+                mine = pg
+        return mine
+
+    dp_group = subgroup([[d * fsdp + f for d in range(dp)]
+                         for f in range(fsdp)])
+    fsdp_group = subgroup([[d * fsdp + f for f in range(fsdp)]
+                           for d in range(dp)])
+    return MeshSpec(dp_axis=names[0],
+                    fsdp_axis=names[1] if len(names) > 1 else None,
+                    shape=shape, group=group, dp_group=dp_group,
+                    fsdp_group=fsdp_group if len(shape) > 1 else None,
+                    dp_index=me // fsdp, fsdp_index=me % fsdp)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        from grace_tpu_torch.comm import _all_gather_into
+
+        world = dist.get_world_size(group)
+        ctx.group, ctx.dim, ctx.size = group, dim, t.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        flat = torch.empty(world * t.numel(), dtype=t.dtype, device=t.device)
+        _all_gather_into(flat, t.contiguous().view(-1), group=group)
+        parts = flat.view((world,) + tuple(t.shape))
+        return torch.cat(list(parts), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return (g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size)
+                .contiguous(), None, None)
+
+
+def psum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, differentiable: its backward pass
+    sums the cotangents over the group, as the JAX package's transpose of
+    ``lax.psum`` under ``shard_map(check_vma=False)`` does (so a loss
+    replicated over the group gives each rank the group's width times its
+    own gradient, JAX's per-shard gradient). The identity at one rank.
+    ``loss_fn``'s cross-shard reduce over ``mesh.fsdp_group``."""
+    if _world(group) == 1:
+        return t
+    return _Psum.apply(t, group)
+
+
+def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` concatenated on ``dim`` in group-rank order,
+    differentiable: JAX's ``lax.all_gather(t, axis, axis=dim,
+    tiled=True)``, whose backward pass is the sum of the cotangents over
+    the group, this rank's slice of it (JAX's transpose, ``psum_scatter``).
+    One flat all-gather forward and one all-reduce backward, so gloo
+    subgroups work. The identity at one rank."""
+    if _world(group) == 1:
+        return t
+    return _AllGather.apply(t, group, dim)
 
 
 def broadcast_tree(tree, root_process: int = 0, group=None):

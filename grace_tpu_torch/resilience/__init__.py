@@ -82,7 +82,11 @@ def guarded_chain(grace, *, seed: int = 0, max_norm: Optional[float] = None,
                   fallback_after: Optional[int] = None,
                   fallback_steps: Optional[int] = None) -> GuardTransform:
     """``guard_transform(grace.transform(seed))`` with the guard's verdict
-    OR-reduced over the grace communicator's process group.
+    OR-reduced over the grace communicator's process group, or, on a 2-D
+    dp×fsdp mesh (``grace.mesh``), over the whole mesh: the per-rank state
+    scans can disagree across fsdp shards too, and the fallback window must
+    open on every rank or the per-shard exchanges fall out of step (the JAX
+    package's psum over both axes).
 
     The chain is the transform followed by the train state's torch
     optimizer, which the guard steps and rolls back
@@ -91,8 +95,10 @@ def guarded_chain(grace, *, seed: int = 0, max_norm: Optional[float] = None,
     :class:`~grace_tpu_torch.helper.Grace`; its ``escape`` (e.g.
     ``"escape": "fp16"`` in ``grace_from_params``) is the dense codec of
     the window that ``fallback_after``/``fallback_steps`` control."""
+    mesh = getattr(grace, "mesh", None)
+    group = (mesh.group if getattr(mesh, "is_2d", False)
+             else grace.communicator.group)
     return guard_transform(grace.transform(seed=seed), max_norm=max_norm,
                            check_state=check_state,
                            fallback_after=fallback_after,
-                           fallback_steps=fallback_steps,
-                           group=grace.communicator.group)
+                           fallback_steps=fallback_steps, group=group)

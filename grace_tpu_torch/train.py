@@ -36,12 +36,29 @@ parameters (with the model's buffers in the stateful step), the
 optimizer's state and every GraceState, and repairs a divergent rank
 (:mod:`grace_tpu_torch.resilience.consensus`). The transform must carry an
 ``AuditState`` (``grace_from_params({"consensus": ...})``).
+
+Sharded models (the JAX package's dp×fsdp track): pass ``mesh=`` (a
+:class:`~grace_tpu_torch.transform.MeshSpec` from
+``parallel.make_mesh((dp, fsdp))``) and ``param_specs=`` (a parameter name
+→ the dimension it is split on over fsdp, or None for replicated; JAX's
+``P("fsdp", None)`` is dim 0). The model then holds this rank's shards
+(``shard_params`` cuts them from whole tensors), the optimizer and the
+GraceState are built on them, so residuals are per shard by construction,
+and ``loss_fn`` owns its cross-shard collectives over ``mesh.fsdp_group``
+(``parallel.psum`` and ``parallel.all_gather``, whose backward passes sum
+the cotangents over the group as JAX's transposes of ``psum`` and a tiled
+``all_gather`` do, the fsdp width's factor included). The batch a rank
+passes is the rows of its dp index (``mesh.dp_rows``: both fsdp shards of
+a dp row see the same rows); the parameters broadcast, the loss and the
+model's buffers average, and the audit runs over the dp group only, so
+replicas match per fsdp shard. The guard's verdict spans the whole mesh
+(``resilience.guarded_chain``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -50,11 +67,11 @@ from torch import nn
 from grace_tpu_torch.telemetry.scopes import (STAGE_CONSENSUS,
                                               STAGE_FWD_BWD,
                                               STAGE_OPTIMIZER, trace_stage)
-from grace_tpu_torch.transform import GraceState, GraceTransform
+from grace_tpu_torch.transform import GraceState, GraceTransform, MeshSpec
 
 __all__ = ["TrainState", "make_train_step", "make_stateful_train_step",
            "make_eval_step", "init_train_state", "init_stateful_train_state",
-           "warmup_schedule", "set_lr"]
+           "shard_params", "warmup_schedule", "set_lr"]
 
 
 @dataclasses.dataclass
@@ -68,16 +85,61 @@ def _src_rank(group) -> int:
     return 0 if group is None else dist.get_global_rank(group, 0)
 
 
+def _dp_group(group, mesh: Optional[MeshSpec]):
+    """The group the step's replicated collectives run over: the mesh's dp
+    group when a bound mesh is given, else ``group``."""
+    if mesh is None or not mesh.bound:
+        return group
+    if group is not None and group is not mesh.dp_group:
+        raise ValueError("group= and mesh= disagree: on a mesh the step "
+                         "runs over mesh.dp_group; pass the mesh alone")
+    return mesh.dp_group
+
+
+def _check_specs(named, param_specs) -> None:
+    """Raise ``ValueError`` unless every ``param_specs`` entry names a
+    parameter and a dimension of its shard (or None)."""
+    specs = dict(param_specs or {})
+    unknown = sorted(set(specs) - set(named))
+    if unknown:
+        raise ValueError(f"param_specs names no parameter of the model: "
+                         f"{unknown}")
+    for name, dim in specs.items():
+        if dim is not None and not -named[name].dim() <= dim \
+                < named[name].dim():
+            raise ValueError(f"param_specs[{name!r}] = {dim} is not a "
+                             f"dimension of its {named[name].dim()}-D shard")
+
+
+def shard_params(params: Dict[str, torch.Tensor], param_specs,
+                 mesh: MeshSpec) -> Dict[str, torch.Tensor]:
+    """This rank's shards of whole parameters: each named tensor split
+    evenly on its ``param_specs`` dimension over the fsdp axis
+    (``mesh.local_shard``), a tensor without a spec whole. The JAX
+    package's ``NamedSharding`` placement of ``init_train_state``."""
+    specs = dict(param_specs or {})
+    return {n: mesh.local_shard(t, specs.get(n)) for n, t in params.items()}
+
+
 def init_train_state(model: nn.Module, grace_tx: GraceTransform,
                      optimizer: torch.optim.Optimizer,
-                     group: Optional[Any] = None) -> TrainState:
+                     group: Optional[Any] = None,
+                     mesh: Optional[MeshSpec] = None,
+                     param_specs=None) -> TrainState:
     """Replicate the model from the group's first rank (the JAX package
-    replicates params over the mesh) and initialise the GRACE state."""
+    replicates params over the mesh) and initialise the GRACE state.
+
+    On a mesh (module docstring) the model holds this rank's shards; they
+    and the replicated parameters broadcast over the dp group from its
+    first rank, and the GRACE state is initialised on the local shards
+    (the JAX package's ``init_opt_state`` over ``param_specs``)."""
+    group = _dp_group(group, mesh)
+    named = dict(model.named_parameters())
+    _check_specs(named, param_specs)
     with torch.no_grad():
         for t in list(model.parameters()) + list(model.buffers()):
             dist.broadcast(t, src=_src_rank(group), group=group)
-    return TrainState(model, optimizer,
-                      grace_tx.init(dict(model.named_parameters())))
+    return TrainState(model, optimizer, grace_tx.init(named))
 
 
 # Models with BatchNorm stats carry them as buffers of the same module.
@@ -90,7 +152,9 @@ def _mean_over_group(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _make_step(loss_fn, grace_tx: GraceTransform, group,
-               sync_model_state: bool, consensus=None):
+               sync_model_state: bool, consensus=None, mesh=None,
+               param_specs=None):
+    group = _dp_group(group, mesh)
     if consensus is not None and consensus is not False:
         # Lazy: resilience imports transform, as this module does.
         from grace_tpu_torch.resilience.consensus import (consensus_step,
@@ -99,10 +163,15 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
     else:
         consensus = None
 
+    unchecked = [param_specs is not None]
+
     def step(state: TrainState, batch):
         model = state.model
         model.train()
         named = dict(model.named_parameters())
+        if unchecked[0]:                  # the first step's model
+            _check_specs(named, param_specs)
+            unchecked[0] = False
         state.optimizer.zero_grad(set_to_none=True)
         with trace_stage(STAGE_FWD_BWD):
             loss = loss_fn(model, batch)
@@ -142,25 +211,31 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
 
 def make_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
                     grace_tx: GraceTransform, group: Optional[Any] = None,
-                    consensus=None):
+                    consensus=None, mesh: Optional[MeshSpec] = None,
+                    param_specs=None):
     """``step(state, batch) -> (state, loss)``. ``loss_fn(model, batch)``
     returns the mean loss over the local batch. ``grace_tx`` is a
-    GraceTransform or a guarded chain, ``consensus`` the audit's config
-    (module docstring)."""
+    GraceTransform or a guarded chain, ``consensus`` the audit's config,
+    ``mesh`` and ``param_specs`` the sharded-model layout (module
+    docstring)."""
     return _make_step(loss_fn, grace_tx, group, sync_model_state=False,
-                      consensus=consensus)
+                      consensus=consensus, mesh=mesh,
+                      param_specs=param_specs)
 
 
 def make_stateful_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
                              grace_tx: GraceTransform,
                              group: Optional[Any] = None,
-                             sync_model_state: bool = True, consensus=None):
+                             sync_model_state: bool = True, consensus=None,
+                             mesh: Optional[MeshSpec] = None,
+                             param_specs=None):
     """Like :func:`make_train_step` for models whose buffers change in the
     forward pass (BatchNorm running stats); ``sync_model_state`` averages
-    them over the group after each backward pass, and the audit then
-    fingerprints them too."""
+    them over the group (the dp group on a mesh) after each backward pass,
+    and the audit then fingerprints them too."""
     return _make_step(loss_fn, grace_tx, group, sync_model_state,
-                      consensus=consensus)
+                      consensus=consensus, mesh=mesh,
+                      param_specs=param_specs)
 
 
 def make_eval_step(metric_fn: Callable[[nn.Module, Any], Any],

@@ -137,6 +137,131 @@ def common_dtype(tensors) -> torch.dtype:
     return functools.reduce(torch.promote_types, (t.dtype for t in tensors))
 
 
+# -- the mesh ------------------------------------------------------------------
+
+DEFAULT_AXIS = "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """The transform's view of the mesh: a data-parallel axis plus an
+    optional FSDP (sharded-model) axis; the JAX package's ``MeshSpec``.
+
+    Pure data parallelism is the 1-axis case (``fsdp_axis=None``). With
+    ``fsdp_axis`` set, the ranks form a 2-D ``dp×fsdp`` mesh:
+
+    * each rank's model holds its **shard** of every sharded parameter
+      (``train.make_train_step(param_specs=...)`` says which dimension; a
+      replicated parameter is whole on every rank), and its optimizer and
+      GraceState are initialised on those local shards;
+    * the gradient a rank hands the transform is its per-shard gradient,
+      and the compressed exchange is the per-shard reduce over the rank's
+      **dp group** (the ranks that share its fsdp index): the
+      communicator's group must be that group;
+    * the per-rank GraceState fields (``mem``, ``comp``, ``telem``,
+      ``watch``) of a rank cover its own parameter shard: residuals live on
+      the shard owner. The JAX package spells this as a leading world axis
+      over the dp×fsdp product (``varying_spec``: ``P((dp, fsdp))``, one
+      row per device); the port has no such axis, since each process holds
+      its own rank's state, and JAX's row ``r`` is rank ``r``'s state;
+    * the replicated fields (``count``, ``seed``, ``fallback``, ``audit``,
+      ``adapt``) stay bit-identical across both axes, which lets the
+      consensus audit compare replicas per fsdp shard over the dp group.
+
+    The process-group view is bound by :func:`grace_tpu_torch.parallel.
+    make_mesh`: ``group`` (the whole mesh), this rank's ``dp_group`` and
+    ``fsdp_group``, the mesh ``shape`` and this rank's indices. Rank ``r``
+    of the mesh sits at dp index ``r // fsdp`` and fsdp index ``r % fsdp``,
+    as ``jax.make_mesh((dp, fsdp))`` lays out devices. A spec built by hand
+    names the axes only (``bound`` is False): its groups are the default
+    process group's."""
+
+    dp_axis: str = DEFAULT_AXIS
+    fsdp_axis: Optional[str] = None
+    # The process-group view (parallel.make_mesh); not part of equality.
+    shape: Optional[Tuple[int, ...]] = dataclasses.field(
+        default=None, compare=False)
+    group: Optional[object] = dataclasses.field(default=None, compare=False)
+    dp_group: Optional[object] = dataclasses.field(default=None,
+                                                   compare=False)
+    fsdp_group: Optional[object] = dataclasses.field(default=None,
+                                                     compare=False)
+    dp_index: int = dataclasses.field(default=0, compare=False)
+    fsdp_index: int = dataclasses.field(default=0, compare=False)
+
+    def __post_init__(self):
+        if self.fsdp_axis is not None and self.fsdp_axis == self.dp_axis:
+            raise ValueError(
+                f"fsdp_axis must differ from dp_axis; both are "
+                f"{self.dp_axis!r}")
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axis names, dp first."""
+        if self.fsdp_axis is None:
+            return (self.dp_axis,)
+        return (self.dp_axis, self.fsdp_axis)
+
+    @property
+    def is_2d(self) -> bool:
+        return self.fsdp_axis is not None
+
+    @property
+    def bound(self) -> bool:
+        """True when :func:`~grace_tpu_torch.parallel.make_mesh` built it
+        (it carries process groups)."""
+        return self.shape is not None
+
+    @property
+    def dp_size(self) -> int:
+        return self.shape[0] if self.bound else 1
+
+    @property
+    def fsdp_size(self) -> int:
+        return self.shape[1] if self.bound and len(self.shape) > 1 else 1
+
+    def local_shard(self, t: torch.Tensor, dim: Optional[int]
+                    ) -> torch.Tensor:
+        """This rank's fsdp shard of the whole tensor ``t`` split evenly
+        on ``dim`` (JAX's ``P(..., "fsdp", ...)`` at that dimension); ``t``
+        itself for ``dim=None`` (replicated)."""
+        if dim is None:
+            return t
+        n = self.fsdp_size
+        if t.shape[dim] % n:
+            raise ValueError(
+                f"dimension {dim} of size {t.shape[dim]} does not split "
+                f"evenly over the fsdp axis of size {n}")
+        size = t.shape[dim] // n
+        return t.narrow(dim, self.fsdp_index * size, size)
+
+    def dp_rows(self, batch):
+        """This rank's rows of a global batch (a tensor or a tuple/list of
+        them, split on dim 0 over the dp axis only): both fsdp shards of a
+        dp row see the same rows, as JAX's ``P(dp)`` batch spec gives."""
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self.dp_rows(b) for b in batch)
+        n = self.dp_size
+        if batch.shape[0] % n:
+            raise ValueError(f"batch of {batch.shape[0]} rows does not "
+                             f"split over {n} dp ranks")
+        size = batch.shape[0] // n
+        return batch[self.dp_index * size:(self.dp_index + 1) * size]
+
+    @classmethod
+    def normalize(cls, spec) -> "MeshSpec":
+        """Accept the ergonomic spellings: an axis-name string (pure dp),
+        a MeshSpec, or None (the default axis)."""
+        if spec is None:
+            return cls()
+        if isinstance(spec, cls):
+            return spec
+        if isinstance(spec, str):
+            return cls(dp_axis=spec)
+        raise TypeError(f"mesh must be an axis-name str or MeshSpec; got "
+                        f"{type(spec).__name__}")
+
+
 # -- fusion plans: plain functions over (shape, dtype) -----------------------
 
 def _struct(leaf) -> Tuple[Tuple[int, ...], torch.dtype]:
@@ -630,6 +755,7 @@ class GraceTransform:
     consensus: bool = False                     # carry an AuditState
     watch: Optional[WatchConfig] = None
     adapt: Optional["AdaptConfig"] = None      # the adaptive ladder
+    mesh: Optional[MeshSpec] = None             # the dp×fsdp layout
     _wire_plans: dict = dataclasses.field(default_factory=dict,
                                           compare=False, repr=False)
 
@@ -1141,7 +1267,7 @@ def grace_transform(compressor: Compressor, memory: Memory,
                     routes: Optional[Sequence] = None,
                     escape: Optional[Compressor] = None, telemetry=None,
                     topology: Optional[Topology] = None, consensus=None,
-                    watch=None, adapt=None) -> GraceTransform:
+                    watch=None, adapt=None, mesh=None) -> GraceTransform:
     """Build the compressed-exchange transform (module docstring): the
     executor is picked by ``fusion`` (None, ``'flat'``, ``'grouped'`` or
     bucket bytes) and ``routes`` (``[(pattern, triad), ...]``, see
@@ -1168,7 +1294,23 @@ def grace_transform(compressor: Compressor, memory: Memory,
     :class:`~grace_tpu_torch.resilience.adapt.AdaptConfig`) arms the
     adaptive ladder (module docstring); it needs ``escape`` (rung 0),
     ``telemetry`` with its compression error (the signal) and no
-    ``routes`` (a rung swaps the codec wholesale)."""
+    ``routes`` (a rung swaps the codec wholesale).
+
+    ``mesh`` (None, an axis-name str or a :class:`MeshSpec`): the layout the
+    transform runs under. None or a str is pure data parallelism over the
+    communicator's group. A 2-D spec declares the sharded-model track: the
+    exchange is the per-shard reduce over the dp axis, so a spec that
+    :func:`~grace_tpu_torch.parallel.make_mesh` bound must have its
+    ``dp_group`` as the communicator's group (``grace_from_params(params,
+    group=mesh)`` builds it so)."""
+    mesh = MeshSpec.normalize(mesh)
+    if mesh.bound and communicator.group is not mesh.dp_group:
+        raise ValueError(
+            f"mesh.dp_axis {mesh.dp_axis!r} (its dp group "
+            f"{mesh.dp_group!r}) differs from the communicator's group "
+            f"{communicator.group!r} — the compressed exchange IS the "
+            "per-shard reduce over the dp axis, so the two must name the "
+            "same mesh axis.")
     routes = normalize_routes(routes, communicator) if routes else ()
     check_fusion(fusion, bool(routes))
     if fusion == "grouped" and communicator.shard_parallel:
@@ -1234,4 +1376,5 @@ def grace_transform(compressor: Compressor, memory: Memory,
     return GraceTransform(compressor, memory, communicator, seed=seed,
                           fusion=fusion, routes=routes, escape=escape,
                           telemetry=telemetry, topology=topology,
-                          consensus=armed, watch=watch, adapt=adapt)
+                          consensus=armed, watch=watch, adapt=adapt,
+                          mesh=mesh)

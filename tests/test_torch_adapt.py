@@ -843,8 +843,15 @@ def test_helper_builds_jax_ladders(group):
     assert passed.adapt.window == 3 and passed.adapt.n_rungs == 3
     with pytest.raises(TypeError, match="adapt must be"):
         grace_from_params({**params, "adapt": "yes"}, group=group)
-    with pytest.raises(ValueError, match="fsdp_axis"):
-        grace_from_params({**params, "fsdp_axis": "fsdp"}, group=group)
+    # fsdp_axis is ported: on a 1×1 mesh over the group the ladder's
+    # rungs and the communicator run on its dp group
+    from grace_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((1, 1), ("data", "fsdp"), group=group)
+    two_d = grace_from_params({**params, "fsdp_axis": "fsdp"}, group=mesh)
+    assert two_d.mesh is mesh and two_d.adapt.n_rungs == grc.adapt.n_rungs
+    assert two_d.communicator.group is mesh.dp_group
+    with pytest.raises(ValueError, match="fsdp_axes"):
+        grace_from_params({**params, "fsdp_axes": "fsdp"}, group=group)
 
 
 def test_powersgd_ladder_states_padded_to_max_rank(group):

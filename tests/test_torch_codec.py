@@ -266,8 +266,12 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="fusion"):
         grace_transform(NoneCompressor(), NoneMemory(), comm.Identity(),
                         fusion="bucketed")
-    with pytest.raises(ValueError, match="fsdp_axis"):
-        grace_from_params({"fsdp_axis": "fsdp"})
+    # fsdp_axis is ported: a 2-D Grace builds (the axes alone, no mesh
+    # groups); a misspelt key raises, naming it
+    assert grace_from_params({"fsdp_axis": "fsdp"}).mesh.axes == \
+        ("data", "fsdp")
+    with pytest.raises(ValueError, match="fsdp_axes"):
+        grace_from_params({"fsdp_axes": "fsdp"})
     with pytest.raises(ValueError):
         TopKCompressor(use_pallas=1)
     with pytest.raises(ValueError):

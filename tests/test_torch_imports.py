@@ -87,6 +87,13 @@ ADAPT_ELASTIC_MODULES = {
     "grace_tpu_torch.resilience.adapt", "grace_tpu_torch.resilience.elastic",
     "grace_tpu_torch.profiling", "grace_tpu_torch.profiling.recorder"}
 
+# The profiler's read side and the 2-D mesh's modules.
+PROFILING_MESH_MODULES = {
+    "grace_tpu_torch.profiling.trace_analysis",
+    "grace_tpu_torch.profiling.trace_export",
+    "grace_tpu_torch.utils.profiling", "grace_tpu_torch.parallel",
+    "grace_tpu_torch.train", "grace_tpu_torch.transform"}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -105,6 +112,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert GUARDED_STEP_MODULES <= names
     assert CROSS_RANK_MODULES <= names
     assert ADAPT_ELASTIC_MODULES <= names
+    assert PROFILING_MESH_MODULES <= names
     assert leaked.strip() == "[]"
 
 

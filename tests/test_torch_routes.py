@@ -8,8 +8,10 @@
   leaves in both packages.
 * ``route_leaves`` and ``routed_recv_link_bytes`` equal JAX's at W in
   {2, 8, 16} under two topologies.
-* The refusals: ``fsdp_axis`` is not ported; routes need ``fusion=None``;
-  a route's communicator must run over the base one's group.
+* ``fsdp_axis`` builds a 2-D routed ``Grace`` whose communicators, the
+  routes' too, run over the mesh's dp group; an unknown key still raises.
+* The refusals: routes need ``fusion=None``; a route's communicator must
+  run over the base one's group.
 """
 
 import jax
@@ -139,8 +141,19 @@ def test_routed_recv_link_bytes_equal_jax(config, topology, world):
 
 
 def test_fsdp_axis_still_raises():
-    with pytest.raises(ValueError, match="fsdp_axis"):
-        grace_from_params({**TOPK_CHUNK, "fsdp_axis": "fsdp"})
+    """``fsdp_axis`` is ported: the 2-D routed Grace builds on a mesh, every
+    communicator on its dp group; a misspelt key still raises, naming it."""
+    from grace_tpu_torch.parallel import make_mesh
+    from grace_tpu_torch.transform import MeshSpec
+
+    mesh = make_mesh((1, 1), ("data", "fsdp"))
+    grc = grace_from_params({**BN_ROUTED, "fsdp_axis": "fsdp"}, group=mesh)
+    assert grc.mesh is mesh and grc.mesh == MeshSpec("data", "fsdp")
+    assert grc.communicator.group is mesh.dp_group
+    assert all(cm.group is mesh.dp_group for _p, _c, _m, cm in grc.routes)
+    assert grc.transform(0).mesh is mesh
+    with pytest.raises(ValueError, match="fsdp_axes"):
+        grace_from_params({**TOPK_CHUNK, "fsdp_axes": "fsdp"})
 
 
 @pytest.mark.parametrize("fusion", ["flat", "grouped", 1024])
