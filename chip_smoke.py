@@ -9,9 +9,9 @@ collectives are real calls). Every phase passes or ends the script with a
 non-zero exit; nothing is caught and allowed to continue. It refuses to
 start while any GRACE_DISABLE_PALLAS* variable is set: a kernel family
 turned off would make its checks compare plain versions with themselves.
-With ``--times-from ROOT`` it runs phase 8's and phase 12's timings
-alone, of the kernels of the checkout at ROOT (an earlier commit, unpacked
-with ``git archive``), so that two versions compare within one call.
+With ``--times-from ROOT`` it runs phase 3's, 8's and 12's timings alone,
+of the kernels of the checkout at ROOT (an earlier commit, unpacked with
+``git archive``), so that two versions compare within one call.
 
 Every timed kernel row of phases 3, 8 and 12 reads the kernel alone with
 two clocks: the profiler's device time of the kernel, and CUDA events
@@ -341,6 +341,27 @@ The 2-D mesh and the profiler's read side:
     device_memory_watermarks against torch.cuda.max_memory_allocated and
     one ProfileRecorder flush record through a JSONLSink, each time and
     size beside the card's name and power limit.
+
+The static auditor (grace_tpu_torch.analysis), in processes of their own
+(the script's NCCL group owns the default process group; the auditor
+traces over a fake one), all started together:
+
+33. The HEADLINE topk1pct at full ResNet-50 width traced on the card's
+    route at W=8 (python -m grace_tpu_torch.analysis --model resnet50):
+    one chunk_compress_feedback and one chunk_aggregate_dense node (the
+    grouped launches), no host read, and the received bytes counted from
+    its collectives equal to the wire model's integer. Its W=1 trace
+    against one real step on the card: the kernel nodes equal
+    launch_counts() (1 + 1) and the card syncs equal the calls
+    torch.cuda.set_sync_debug_mode flags (0); a W=1 trace of
+    phase29_consensus's audit step shows one sync, [29]'s audit its one
+    flagged call. footprint_model for the HEADLINE against what a real
+    init requests of the caching allocator (memory_stats'
+    requested_bytes, within 512 B a state tensor of the model; its
+    allocated bytes, rounded blocks, are printed beside it). The whole registry audited on both routes gives
+    the same findings. The cost of the kernel wrappers' fake check (one
+    isinstance a call) on a real tensor and the phase's seconds are
+    printed.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -5505,9 +5526,10 @@ def kernel_device_ms(fn, kernel_name: str, runs: int = TIMING_RUNS,
 
 
 def times_from(root: str) -> int:
-    """``--times-from ROOT``: phase 8's and phase 12's timings alone, of the
-    kernels of the checkout at ROOT (an earlier commit unpacked with ``git
-    archive``), for a comparison inside one call. Prints one JSON line."""
+    """``--times-from ROOT``: phase 3's, 8's and 12's timings alone, of
+    the kernels and wrappers of the checkout at ROOT (an earlier commit
+    unpacked with ``git archive``), for a comparison inside one call.
+    Prints one JSON line."""
     import torch
     sys.path.insert(0, str(Path(root).resolve()))
     import grace_tpu_torch
@@ -5518,14 +5540,188 @@ def times_from(root: str) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     leaves = resnet50_leaves()
+    log(f"[3] the kernels of {root}: chunk Top-K times")
+    times = time_kernels(dev, leaves)
     (flat,) = resnet50_flat_grads(dev, count=1)
     log(f"[8] the kernels of {root}: wire-path times (flat n={flat.numel()})")
     wire_times = time_wire_kernels(dev, leaves, flat)
     log(f"[12] the kernels of {root}: packed_int_accumulate times")
-    print(json.dumps({"times_from": root, "wire_times": wire_times,
+    print(json.dumps({"times_from": root, "times": times,
+                      "wire_times": wire_times,
                       "accum_times": time_accum_kernel(dev, flat)}))
     print(nvidia_smi_line(), flush=True)
     return 0
+
+
+# -- phase 33 -----------------------------------------------------------------
+
+AUDIT_TIMEOUT_S = 240
+# Allocator rounding: each state tensor's block is a multiple of 512 B.
+ALLOC_ROUND = 512
+
+
+def _audit_cli(out_dir: Path, name: str, *args: str) -> subprocess.Popen:
+    """``python -m grace_tpu_torch.analysis ... --json <out>/<name>.json``
+    started (not waited for), from the repository root."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "grace_tpu_torch.analysis", *args,
+         "--json", str(out_dir / f"{name}.json")],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def static_audit_phase(dev, group, x, y, runs, smi) -> None:
+    """Phase 33 (module docstring). Every audit runs in a child process:
+    the auditor owns a fake default process group, which this process's
+    NCCL group excludes."""
+    import tempfile
+
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.analysis.flow import footprint_model
+    from grace_tpu_torch.models.resnet import resnet50
+
+    t0 = time.perf_counter()
+    headline = json.dumps(HEADLINE[1]["params"])
+    consensus = WATCH_ROWS[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        procs = {
+            "w8": _audit_cli(out, "w8", "--params", headline, "--model",
+                             "resnet50", "--world", "8"),
+            "w1": _audit_cli(out, "w1", "--params", headline, "--model",
+                             "resnet50", "--world", "1"),
+            "audit_w1": _audit_cli(
+                out, "audit_w1", "--params", json.dumps(
+                    {**consensus["params"], "consensus": {"audit_every": 1}}),
+                "--mode", "train", "--guard", json.dumps(consensus["guard"]),
+                "--world", "1"),
+            "cpu": _audit_cli(out, "cpu", "--all-configs", "--device", "cpu"),
+            "cuda": _audit_cli(out, "cuda", "--all-configs"),
+        }
+        # The real side while the children trace: one HEADLINE step on the
+        # card, its launches and synchronizing calls, and init's memory.
+        model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+        named = dict(model.named_parameters())
+        loss_fn(model, (x, y)).backward()
+        grads = {k: p.grad.detach().clone() for k, p in named.items()}
+        model.zero_grad(set_to_none=True)
+        grace = grace_from_params(HEADLINE[1]["params"], group=group)
+        tx = grace.transform(seed=SEED)
+        torch.cuda.synchronize()
+        stats0 = torch.cuda.memory_stats(dev)
+        state = tx.init(named)
+        torch.cuda.synchronize()
+        stats1 = torch.cuda.memory_stats(dev)
+        # Requested bytes are the tensors' sizes; allocated bytes also hold
+        # the allocator's rounding (a large-pool block is not split when
+        # less than 1 MB would remain).
+        requested, grown = (stats1[k] - stats0[k] for k in (
+            "requested_bytes.all.current", "allocated_bytes.all.current"))
+        structs = {k: (tuple(p.shape), p.dtype) for k, p in named.items()}
+        model_fp = footprint_model(grace, structs)
+        # The fake branch's whole cost on a real tensor: the one check
+        # every wrapper call now makes first.
+        from timeit import timeit
+
+        from grace_tpu_torch.ops.fake import is_fake
+        leaf = grads["fc.w"]
+        check_us = timeit(lambda: is_fake(leaf), number=100_000) * 10
+        ops.reset_launch_counts()                 # just before the step
+        _, step_syncs = _sync_count(lambda: tx.update(grads, state))
+        torch.cuda.synchronize()
+        step_launches = ops.launch_counts()       # just after it
+        step_launches = {k: v for k, v in step_launches.items() if v}
+        del model, named, grads, state
+        torch.cuda.empty_cache()
+        docs = {}
+        for key, proc in procs.items():
+            text, _ = proc.communicate(timeout=AUDIT_TIMEOUT_S)
+            path = out / f"{key}.json"
+            if not path.exists():
+                raise SystemExit(f"[33] the {key} audit wrote nothing "
+                                 f"(exit {proc.returncode}):\n{text[-2000:]}")
+            docs[key] = json.loads(path.read_text())
+            docs[key]["returncode"] = proc.returncode
+    # (a) the HEADLINE at ResNet-50 width, W=8, the card's route.
+    w8 = docs["w8"]["configs"]["adhoc"]
+    base8 = w8["branches"]["base"]
+    want = {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1}
+    if docs["w8"]["returncode"] or docs["w8"]["errors"]:
+        raise SystemExit(f"[33] the W=8 HEADLINE audit has findings: "
+                         f"{w8['findings']}")
+    if base8["kernels"] != want or base8["host_reads"]:
+        raise SystemExit(f"[33] the W=8 HEADLINE trace launches "
+                         f"{base8['kernels']} with {base8['host_reads']} "
+                         f"host reads; want {want} and none")
+    if base8["recv_bytes"] != w8["model_bytes"]:
+        raise SystemExit(f"[33] the W=8 HEADLINE moves {base8['recv_bytes']}"
+                         f" B a rank, the wire model says {w8['model_bytes']}")
+    # (b) the W=1 trace against the real step; the audit step's one read.
+    base1 = docs["w1"]["configs"]["adhoc"]["branches"]["base"]
+    if base1["kernels"] != step_launches or base1["syncs"] != step_syncs:
+        raise SystemExit(f"[33] the W=1 trace launches {base1['kernels']} "
+                         f"with {base1['syncs']} card syncs; the real step "
+                         f"{step_launches} with {step_syncs} flagged calls")
+    audit1 = docs["audit_w1"]["configs"]["adhoc"]["branches"]["audit"]
+    audit_real = runs["phase29_audit_cost"]["resnet50"]["audit_syncs"]
+    if audit1["syncs"] != audit_real or audit1["syncs"] != 1:
+        raise SystemExit(f"[33] phase29_consensus's traced audit step syncs "
+                         f"{audit1['syncs']} times ({audit1['sync_sites']}); "
+                         f"[29]'s audit made {audit_real} flagged calls")
+    # (c) the footprint model against init's real allocations.
+    device_model = (model_fp["mem_bytes"] + model_fp["comp_bytes"]
+                    + model_fp["telem_bytes"])
+    slack = ALLOC_ROUND * docs["w1"]["configs"]["adhoc"]["state_tensors"]
+    if not device_model <= requested <= device_model + slack \
+            or grown < requested:
+        raise SystemExit(f"[33] init requested {requested} B (allocated "
+                         f"{grown} B); the footprint model says "
+                         f"{device_model} B (+{slack} B slack)")
+    # (d) the registry on both routes.
+    found = {d: sorted((f["config"], f["pass"], f["severity"])
+                       for f in docs[d]["findings"]) for d in ("cpu", "cuda")}
+    if found["cpu"] != found["cuda"] or docs["cuda"]["configs_audited"] \
+            != docs["cpu"]["configs_audited"]:
+        raise SystemExit(f"[33] the registry's findings differ by route: "
+                         f"cpu {found['cpu']}, cuda {found['cuda']}")
+    seconds = time.perf_counter() - t0
+    runs["phase33_static_audit"] = {
+        "launches": {}, "seconds": seconds,
+        "headline_w8": {"kernels": base8["kernels"],
+                        "host_reads": base8["host_reads"],
+                        "recv_bytes": base8["recv_bytes"],
+                        "model_bytes": w8["model_bytes"],
+                        "trace_s": w8["seconds"]},
+        "headline_w1": {"kernels": base1["kernels"],
+                        "syncs": base1["syncs"],
+                        "real_launches": step_launches,
+                        "real_flagged_syncs": step_syncs},
+        "audit_step_w1": {"syncs": audit1["syncs"],
+                          "sites": audit1["sync_sites"],
+                          "real_flagged_syncs": audit_real},
+        "fake_check_us": check_us,
+        "footprint": {"model_device_bytes": device_model,
+                      "init_requested_bytes": requested,
+                      "init_allocated_bytes": grown, "slack_bytes": slack},
+        "registry": {d: {"configs": docs[d]["configs_audited"],
+                         "errors": docs[d]["errors"],
+                         "findings": len(found[d]),
+                         "seconds": docs[d]["seconds"]}
+                     for d in ("cpu", "cuda")}}
+    log(f"[33] HEADLINE at W=8 on the card's route: {base8['kernels']}, "
+        f"{base8['host_reads']} host reads, {base8['recv_bytes']} B a rank "
+        f"= the model's {w8['model_bytes']} B (traced in {w8['seconds']:.1f} "
+        f"s); W=1: {base1['kernels']} and {base1['syncs']} syncs = the real "
+        f"step's {step_launches} and {step_syncs} flagged calls; the audit "
+        f"step: {audit1['syncs']} sync = [29]'s {audit_real}; init "
+        f"requested {requested} B (allocated {grown} B) for the model's "
+        f"{device_model} B; the registry "
+        f"({docs['cuda']['configs_audited']} configs) has "
+        f"{len(found['cuda'])} findings on both routes (cpu "
+        f"{docs['cpu']['seconds']:.1f} s, cuda {docs['cuda']['seconds']:.1f}"
+        f" s of tracing); the wrappers' fake check costs {check_us:.3f} µs "
+        f"a call; phase {seconds:.1f} s | {smi}")
 
 
 def main() -> int:
@@ -5845,6 +6041,11 @@ def main() -> int:
             f"against [5]'s steps, shard 0 of real gradients, one step "
             f"through the ported profiler")
         mesh_profiling_phase(dev, group, x, y, runs, errs, smi)
+        # -- 33. the static auditor ------------------------------------------
+        log("[33] the static auditor: the HEADLINE at ResNet-50 width traced "
+            "on the card's route at W=8 and W=1, phase29_consensus's audit "
+            "step, the footprint model, the registry on both routes")
+        static_audit_phase(dev, group, x, y, runs, smi)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -35,7 +35,8 @@ from grace_tpu_torch.core import (SINGLE_SLICE, Communicator, Compressor,
                                   Topology, mean_scale)
 from grace_tpu_torch.telemetry.scopes import (STAGE_COMPRESS,
                                               STAGE_DECOMPRESS,
-                                              STAGE_EXCHANGE, trace_stage)
+                                              STAGE_EXCHANGE, STAGE_PIPELINE,
+                                              STAGE_RING_HOP, trace_stage)
 
 __all__ = ["Allreduce", "Allgather", "Broadcast", "Identity",
            "SignAllreduce", "TwoShotAllreduce", "RingAllreduce",
@@ -205,7 +206,8 @@ def _psum_majority_vote(dec: torch.Tensor, group,
             f"this group has {w}: use vote_dtype='float32'.")
     vdt = _torch_dtype(vote_dtype)
     summed = dec.to(vdt, copy=True)
-    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+    with trace_stage(f"{STAGE_EXCHANGE}/psum_vote"):
+        dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
     out = (summed >= 0).to(vdt) * 2 - 1
     return out.to(dec.dtype)
 
@@ -240,11 +242,18 @@ def _vote_step_leaves(comm: Communicator, xs, mem_states, comp_states,
     # only), so the collectives line up.
     with trace_stage(STAGE_DECOMPRESS):
         dec = compressor.decompress_leaves(payload, ctx)
+        views = compressor.leaf_views(dec, ctx)
+        sizes = [v.numel() for v in views]
+        if sum(sizes) != dec.numel():
+            # The tally moves the leaves' elements only: the decode's
+            # padding lanes (up to 127 a leaf) are not on the wire model.
+            dec = torch.cat([v.reshape(-1) for v in views])
     with trace_stage(STAGE_EXCHANGE):
         voted = _psum_majority_vote(dec, comm.group, vote_dtype)
+    outs = [t.view(v.shape) for t, v in zip(torch.split(voted, sizes),
+                                             views)]
     return _merge_leaves(comm, xs, mem_states, comp_states, memory,
-                         compressor, rngs, taken,
-                         compressor.leaf_views(voted, ctx), new_mem)
+                         compressor, rngs, taken, outs, new_mem)
 
 
 def _merge_leaves(comm: Communicator, xs, mem_states, comp_states, memory,
@@ -271,12 +280,14 @@ def _gather(payload: Payload, group) -> Payload:
     both."""
     world = dist.get_world_size(group)
     gathered = []
-    for t in payload:
-        buf = _wire(t)
-        out = torch.empty(world * buf.numel(), dtype=buf.dtype,
-                          device=buf.device)
-        _all_gather_into(out, buf, group=group)
-        gathered.append(out.view(t.dtype).view((world,) + tuple(t.shape)))
+    with trace_stage(STAGE_EXCHANGE):
+        for t in payload:
+            buf = _wire(t)
+            out = torch.empty(world * buf.numel(), dtype=buf.dtype,
+                              device=buf.device)
+            _all_gather_into(out, buf, group=group)
+            gathered.append(out.view(t.dtype).view((world,)
+                                                   + tuple(t.shape)))
     return tuple(gathered)
 
 
@@ -285,11 +296,12 @@ def _all_to_all(stacked: Payload, group) -> Payload:
     per-chunk payloads goes through one ``all_to_all_single``, after which
     row ``j`` holds rank ``j``'s payload for this rank's chunk."""
     out = []
-    for s in stacked:
-        buf = _wire(s)
-        recv = torch.empty_like(buf)
-        dist.all_to_all_single(recv, buf, group=group)
-        out.append(recv.view(s.dtype).view(s.shape))
+    with trace_stage(STAGE_EXCHANGE):
+        for s in stacked:
+            buf = _wire(s)
+            recv = torch.empty_like(buf)
+            dist.all_to_all_single(recv, buf, group=group)
+            out.append(recv.view(s.dtype).view(s.shape))
     return tuple(out)
 
 
@@ -875,7 +887,8 @@ class RingAllreduce(Communicator):
         # the segmentation: every segment and shard encodes against it.
         shared = None
         if algebra == "shared_scale":
-            shared = compressor.negotiate(flat, self.group, rng=rng)
+            with trace_stage(f"{STAGE_EXCHANGE}/negotiate_scale"):
+                shared = compressor.negotiate(flat, self.group, rng=rng)
         segs = _pipeline_segments(n, self.pipeline)
         if len(segs) == 1:
             out, payloads, ctxs = self._segment_schedule(
@@ -885,9 +898,10 @@ class RingAllreduce(Communicator):
         else:
             outs, seg_pay, seg_ctx = [], [], []
             for p, (lo, hi) in enumerate(segs):
-                o, pay, ctxs = self._segment_schedule(
-                    flat[lo:hi], compressor, rng.fold(p), exact, homo,
-                    shared)
+                with trace_stage(f"{STAGE_PIPELINE}/{p}"):
+                    o, pay, ctxs = self._segment_schedule(
+                        flat[lo:hi], compressor, rng.fold(p), exact, homo,
+                        shared)
                 outs.append(o)
                 seg_pay.append(pay)
                 seg_ctx.append((ctxs, hi - lo, (hi - lo,), flat.dtype, None))
@@ -966,8 +980,9 @@ def _shift(send: Payload, group, to: int, frm: int) -> Payload:
     recv = [torch.empty_like(b) for b in bufs]
     ops = [dist.P2POp(dist.isend, b, peer(to), group) for b in bufs]
     ops += [dist.P2POp(dist.irecv, r, peer(frm), group) for r in recv]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    with trace_stage(STAGE_RING_HOP):
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     return tuple(r.view(t.dtype).view(t.shape) for r, t in zip(recv, send))
 
 
@@ -1108,7 +1123,8 @@ class ReduceScatterAllreduce(Communicator):
                   else flat).reshape(w, m)
         shared = None
         if algebra == "shared_scale":
-            shared = compressor.negotiate(flat, self.group, rng=rng)
+            with trace_stage(f"{STAGE_EXCHANGE}/negotiate_scale"):
+                shared = compressor.negotiate(flat, self.group, rng=rng)
         payloads, ctxs = _shard_compress(compressor, chunks, rng,
                                          "ReduceScatterAllreduce",
                                          shared=shared)
@@ -1444,7 +1460,8 @@ class HierarchicalAllreduce(Communicator):
         # segmentation: a per-slice scale would break the cross-slice sum.
         shared = None
         if algebra == "shared_scale":
-            shared = compressor.negotiate(flat, self.group, rng=rng)
+            with trace_stage(f"{STAGE_EXCHANGE}/negotiate_scale"):
+                shared = compressor.negotiate(flat, self.group, rng=rng)
         groups = _hier_groups(self.group, w, s, kr, r)
         layout = (w, s, kr, r, groups)
         segs = _pipeline_segments(n, self.pipeline)
@@ -1456,9 +1473,10 @@ class HierarchicalAllreduce(Communicator):
         else:
             outs, seg_pay, seg_ctx = [], [], []
             for p, (lo, hi) in enumerate(segs):
-                o, pay, ctxs = self._segment_schedule(
-                    flat[lo:hi], compressor, rng.fold(p), shared, homo,
-                    exact, layout)
+                with trace_stage(f"{STAGE_PIPELINE}/{p}"):
+                    o, pay, ctxs = self._segment_schedule(
+                        flat[lo:hi], compressor, rng.fold(p), shared, homo,
+                        exact, layout)
                 outs.append(o)
                 seg_pay.append(pay)
                 seg_ctx.append((ctxs, hi - lo, (hi - lo,), flat.dtype, None))

@@ -59,7 +59,11 @@ def bin_sums(flat: torch.Tensor, ids: torch.Tensor, bins: int
     atomic ``index_add_`` adds in whatever order the card schedules, and
     its sums differ from run to run."""
     order = torch.sort(ids, stable=True).indices
-    lengths = torch.bincount(ids, minlength=bins)
+    # A scatter of ones, not torch.bincount: the ids lie in [0, bins), so
+    # the counts' length is known, where bincount reads the largest id back
+    # to the host to size its output (a sync on the card every compress).
+    lengths = torch.zeros(bins, dtype=torch.int64, device=ids.device)
+    lengths.scatter_add_(0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
     sums = torch.segment_reduce(flat[order], "sum", lengths=lengths,
                                 unsafe=True)
     return sums, lengths.to(flat.dtype)

@@ -48,6 +48,17 @@ def mean_scale(world: int) -> float:
     return float(np.float32(1.0) / np.float32(world))
 
 
+# The tolerance of the wire model (Communicator.recv_wire_bytes) against
+# the bytes counted from the collectives a step really issues, which the
+# static auditor's wire reconciliation enforces (grace_tpu_torch.analysis):
+# rtol covers per-shard rounding (packed bytes rounded up, per-shard top-k
+# counts, per-chunk norms), atol the scalar bookkeeping collectives. The
+# JAX package's values. Widening them to pass a drifted model defeats the
+# audit: fix the model.
+WIRE_MODEL_RTOL = 0.10
+WIRE_MODEL_ATOL = 256
+
+
 def needs_negotiation(compressor) -> bool:
     """Whether a communicator must run ``compressor.negotiate`` before the
     encode: every ``shared_scale`` codec, plus codecs that declare

@@ -45,6 +45,7 @@ import torch
 
 from grace_tpu_torch.core import mean_scale
 from grace_tpu_torch.ops import _build
+from grace_tpu_torch.ops import fake as _fake
 
 # The kernels' tile width and leaf table capacity (csrc/chunk_topk.cu
 # kTileCols and kMaxLeaves).
@@ -343,6 +344,28 @@ def _launch_aggregate(rows: np.ndarray, vals, idx, average, wire_indices,
 _dtype = operator.attrgetter("dtype")
 
 
+def _fake_compress(grads, residuals, ks, wire_bf16, grouped=False):
+    """A fake compress launch's ``(result, written)``: the payload of
+    ``sum(ks)`` values and indices, and the new residuals (each residual
+    itself, written in place; a fresh buffer where it is None)."""
+    if not grouped:
+        grads, residuals = [grads], [residuals]
+    dev = grads[0].device
+    vals = torch.empty(sum(ks), dtype=torch.bfloat16 if wire_bf16
+                       else torch.float32, device=dev)
+    idx = torch.empty(sum(ks), dtype=torch.int32, device=dev)
+    new = [torch.empty_like(g) if r is None else r
+           for g, r in zip(grads, residuals)]
+    return (vals, idx, new if grouped else new[0]), [vals, idx] + new
+
+
+def _fresh_out(n: int, device):
+    """A fake launch's ``(result, written)``: one float32 output of ``n``
+    elements."""
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    return out, (out,)
+
+
 def _check_cuda(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"no {name} for {t.device}")
@@ -373,6 +396,10 @@ def chunk_compress_feedback(flat: torch.Tensor,
                                     and not residual.is_contiguous()):
         raise ValueError("chunk_compress_feedback takes contiguous buffers")
     dev = flat.device
+    if _fake.is_fake(flat):
+        return _fake.launch(
+            "chunk_compress_feedback", [flat, residual],
+            lambda: _fake_compress(flat, residual, [k], wire_bf16))
     vals = torch.empty(k, dtype=torch.bfloat16 if wire_bf16 else torch.float32,
                        device=dev)
     win = torch.empty(k, dtype=torch.int32, device=dev)
@@ -401,6 +428,9 @@ def chunk_aggregate_dense(vals: torch.Tensor, win: torch.Tensor, k: int,
     _check_aggregate_args(vals, win, k, n)
     if not vals.is_contiguous() or not win.is_contiguous():
         raise ValueError("chunk_aggregate_dense takes contiguous payloads")
+    if _fake.is_fake(vals):
+        return _fake.launch("chunk_aggregate_dense", [vals, win],
+                            lambda: _fresh_out(n, vals.device))
     out = torch.empty(n, dtype=torch.float32, device=vals.device)
     rows = np.array([[out.data_ptr(), n, k, 0, 0]], dtype=np.int64)
     _launch_aggregate(rows, vals, win, average, False, vals.device)
@@ -459,6 +489,10 @@ def chunk_compress_feedback_grouped(
             f"leaves and residuals of their sizes on {dev}; got dtypes "
             f"{sorted(map(str, dtypes))}, devices {sorted(devices)}, all "
             f"contiguous {contiguous}, residual sizes matching {sizes}")
+    if _fake.is_fake(grads[0]):
+        return _fake.launch(
+            "chunk_compress_feedback", list(grads) + given,
+            lambda: _fake_compress(grads, residuals, ks, wire_bf16, True))
     new_resids = [torch.empty_like(g) if r is None else r
                   for g, r in zip(grads, residuals)]
     gptr = list(map(torch.Tensor.data_ptr, grads))
@@ -504,6 +538,9 @@ def chunk_aggregate_dense_grouped(vals: torch.Tensor, indices: torch.Tensor,
     if not vals.is_contiguous() or not indices.is_contiguous():
         raise ValueError("chunk_aggregate_dense_grouped takes contiguous "
                          "payloads")
+    if _fake.is_fake(vals):
+        return _fake.launch("chunk_aggregate_dense", [vals, indices],
+                            lambda: _fresh_out(plan.n_total, vals.device))
     out = torch.empty(plan.n_total, dtype=torch.float32, device=vals.device)
     for lo, hi in plan.launches:
         rows = plan.table(lo, hi, 1)

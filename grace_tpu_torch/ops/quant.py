@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from grace_tpu_torch.ops import _build
+from grace_tpu_torch.ops import fake as _fake
 from grace_tpu_torch.ops.packing import PACKERS, pack_bits, unpack_bits
 
 # The Pallas kernels' hash block: (ROWS_PER_BLOCK, LANES) = (64, 256).
@@ -299,6 +300,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _fresh(n: int, dtype, device, head: Optional[int] = None):
+    """A fake launch's ``(result, written)``: a fresh output of ``n``
+    elements, the result its first ``head`` where given (the wire payload
+    at the head of a padded buffer)."""
+    out = torch.empty(n, dtype=dtype, device=device)
+    return (out if head is None else out[:head]), (out,)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
@@ -328,6 +337,10 @@ def quantize_stochastic(flat: torch.Tensor, norm: torch.Tensor, seed: int,
     flat, norm = _cuda_inputs("quantize_stochastic", flat, norm)
     if out_dtype not in _LEVEL_DTYPES:
         raise ValueError(f"out_dtype must be int8 or int16; got {out_dtype}")
+    if _fake.is_fake(flat) and flat.numel():
+        return _fake.launch("quantize_stochastic", [flat, norm],
+                            lambda: _fresh(flat.numel(), out_dtype,
+                                           flat.device))
     out = torch.empty(flat.numel(), dtype=out_dtype, device=flat.device)
     if flat.numel():
         with torch.cuda.device(flat.device):
@@ -361,6 +374,11 @@ def quantize_pack_stochastic(flat: torch.Tensor, norm: torch.Tensor,
     n = flat.numel()
     # The kernel stores whole 32-bit words of whole 128-code rows; the wire
     # payload is the first ceil(n * width / 8) bytes.
+    if _fake.is_fake(flat) and n:
+        return _fake.launch(
+            "quantize_pack_stochastic", [flat, norm],
+            lambda: _fresh(-(-n // PACK_ROW) * 16 * width, torch.uint8,
+                           flat.device, -(-n * width // 8)))
     out = torch.empty(-(-n // PACK_ROW) * 16 * width, dtype=torch.uint8,
                       device=flat.device)
     if n:
@@ -405,6 +423,10 @@ def sign_pack(flat: torch.Tensor) -> torch.Tensor:
     if not n:
         return torch.empty(0, dtype=torch.uint8, device=flat.device)
     plan = sign_plan((n,))
+    if _fake.is_fake(flat):
+        return _fake.launch("sign_pack", [flat],
+                            lambda: _fresh(plan.nbytes, torch.uint8,
+                                           flat.device, -(-n // 8)))
     payload = torch.empty(plan.nbytes, dtype=torch.uint8, device=flat.device)
     rows = plan.table(0, 1)
     rows[0, 0] = flat.data_ptr()
@@ -462,6 +484,13 @@ def sign_pack_grouped(grads: Sequence[torch.Tensor],
             f"sizes on {dev}; got dtypes {sorted(map(str, dtypes))}, devices "
             f"{sorted(devices)}, all contiguous {contiguous}, residual sizes "
             f"matching {sizes}")
+    if _fake.is_fake(grads[0]):
+        def outputs():
+            payload = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+            new = None if residuals is None else list(residuals)
+            return (payload, new), [payload] + (new or [])
+
+        return _fake.launch("sign_pack", tensors, outputs)
     payload = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
     gptr = list(map(torch.Tensor.data_ptr, grads))
     # The table's dtype column is 0 (float32) unless a leaf is narrower.

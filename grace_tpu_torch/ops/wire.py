@@ -32,6 +32,7 @@ import functools
 import torch
 
 from grace_tpu_torch.ops import _build
+from grace_tpu_torch.ops import fake as _fake
 from grace_tpu_torch.ops.packing import PACKERS
 
 __all__ = ["decode_accumulate", "decode_accumulate_plain", "stack_payloads",
@@ -141,6 +142,10 @@ def decode_accumulate(stacked: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"decode_accumulate reads each payload row as "
                          f"bytes in order; got strides {stacked.stride()}")
     scales = scales.contiguous()
+    if _fake.is_fake(stacked) and numel:
+        return _fake.launch("decode_accumulate", [stacked, scales],
+                            lambda: _fresh(numel, torch.float32,
+                                           stacked.device))
     out = torch.empty(numel, dtype=torch.float32, device=stacked.device)
     if numel:
         with torch.cuda.device(stacked.device):
@@ -204,6 +209,26 @@ def row_tiles(rows: list, out) -> list:
                       for i in range(0, len(rest), ACCUM_ROW_TILE - 1)]
 
 
+def _fresh(n: int, dtype, device):
+    """A fake launch's ``(result, written)``: one fresh output."""
+    out = torch.empty(n, dtype=dtype, device=device)
+    return out, (out,)
+
+
+def _fake_accumulate(reads, k: int, nbytes: int, device) -> torch.Tensor:
+    """The fake launches of :func:`_accumulate_rows` over ``k`` rows of
+    ``nbytes``: one node a launch of :func:`row_tiles`, each writing the
+    output (and the later ones reading it too)."""
+    out = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    if not nbytes:
+        return out
+    for i, tile in enumerate(row_tiles(list(range(k)), out)):
+        _fake.launch("packed_int_accumulate",
+                     list(reads) + ([out] if i else []),
+                     lambda: (out, (out,)))
+    return out
+
+
 def _accumulate_rows(ptrs, nbytes: int, numel: int, width: int,
                      device: torch.device) -> torch.Tensor:
     """Launch the kernel over the rows at the device addresses ``ptrs``
@@ -242,6 +267,9 @@ def packed_int_accumulate(stacked: torch.Tensor, numel: int, width: int
     if stacked.stride(1) != 1 and stacked.shape[1] > 1:
         raise ValueError(f"packed_int_accumulate reads each payload row as "
                          f"bytes in order; got strides {stacked.stride()}")
+    if _fake.is_fake(stacked):
+        return _fake_accumulate([stacked], stacked.shape[0],
+                                stacked.shape[1], stacked.device)
     base, pitch = stacked.data_ptr(), stacked.stride(0)
     ptrs = [base + i * pitch for i in range(stacked.shape[0])]
     return _accumulate_rows(ptrs, stacked.shape[1], numel, width,
@@ -274,6 +302,8 @@ def packed_int_accumulate_rows(rows, numel: int, width: int
     if first.numel() > 1 and any(r.stride(0) != 1 for r in rows):
         raise ValueError("packed_int_accumulate_rows reads each payload as "
                          "bytes in order; got a strided row")
+    if _fake.is_fake(first):
+        return _fake_accumulate(rows, len(rows), first.numel(), first.device)
     return _accumulate_rows([r.data_ptr() for r in rows], first.numel(),
                             numel, width, first.device)
 

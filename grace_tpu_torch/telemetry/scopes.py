@@ -7,13 +7,15 @@ packages' traces. :func:`trace_stage` opens a
 profiler's trace and ``key_averages()`` show as a host range with the
 kernels launched inside it; the JAX package names XLA op metadata instead.
 Outside a profiler session it does nothing, so the per-leaf paths pay no
-host time for it.
+host time for it. While the static auditor (:mod:`grace_tpu_torch.analysis`)
+records a trace, it also pushes its name onto the recorder's stage stack
+(:data:`STAGE_STACK`), which names the stage of every recorded op.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -71,12 +73,25 @@ def match_stage(path: str) -> str:
     return "/".join(segs[i:i + 2])
 
 
+# The auditor's stage stack while it records a trace (analysis.trace sets
+# and clears it), else None.
+STAGE_STACK: Optional[List[str]] = None
+
+
 @contextlib.contextmanager
 def trace_stage(name: str) -> Iterator[None]:
     """A ``record_function`` span named ``name`` while a profiler records;
-    nothing otherwise."""
-    if not torch.autograd._profiler_enabled():
-        yield
-        return
-    with torch.profiler.record_function(name):
-        yield
+    nothing otherwise. Under the auditor's recorder, ``name`` is on its
+    stage stack for the span's length."""
+    stack = STAGE_STACK
+    if stack is not None:
+        stack.append(name)
+    try:
+        if not torch.autograd._profiler_enabled():
+            yield
+            return
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if stack is not None:
+            stack.pop()

@@ -18,6 +18,7 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 
 from grace_tpu_torch.core import Compressor, LeafKey
+from grace_tpu_torch.ops.fake import is_fake
 
 __all__ = ["LeafReport", "CompressionReport", "payload_nbytes",
            "wire_report", "guard_report", "debug_nan_residuals", "HostCopy"]
@@ -26,10 +27,14 @@ __all__ = ["LeafReport", "CompressionReport", "payload_nbytes",
 class HostCopy:
     """A device tensor on its way to the host: on CUDA a copy into pinned
     memory that does not block, with an event recorded after it; on the
-    CPU the tensor itself. :meth:`wait` waits for that copy only."""
+    CPU the tensor itself. :meth:`wait` waits for that copy only. A fake
+    CUDA tensor (the static auditor's trace) takes a copy to the host that
+    does not block, which the trace records."""
 
     def __init__(self, x: torch.Tensor):
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and is_fake(x):
+            self.host, self.event = x.to("cpu", non_blocking=True), None
+        elif x.device.type == "cuda":
             self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             self.host.copy_(x, non_blocking=True)
             self.event = torch.cuda.Event()

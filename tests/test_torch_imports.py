@@ -94,6 +94,12 @@ PROFILING_MESH_MODULES = {
     "grace_tpu_torch.utils.profiling", "grace_tpu_torch.parallel",
     "grace_tpu_torch.train", "grace_tpu_torch.transform"}
 
+# The static auditor and the kernel wrappers' fake branch.
+ANALYSIS_MODULES = {
+    "grace_tpu_torch.analysis", "grace_tpu_torch.ops.fake",
+    *(f"grace_tpu_torch.analysis.{m}" for m in (
+        "trace", "passes", "flow", "configs", "report", "__main__"))}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -113,6 +119,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert CROSS_RANK_MODULES <= names
     assert ADAPT_ELASTIC_MODULES <= names
     assert PROFILING_MESH_MODULES <= names
+    assert ANALYSIS_MODULES <= names
     assert leaked.strip() == "[]"
 
 
