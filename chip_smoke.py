@@ -184,7 +184,8 @@ The executors and the front end:
     under four executor configurations: HEADLINE's Top-K 1% with fusion
     'grouped' (28 groups: each chunk Top-K kernel 28 times a step, two
     gathers a group), bench_all.py's topk1pct_64mib (2 buckets, one launch
-    of each kernel over both) and qsgd4_packed_bucketed_pallas_bs256 (143
+    of each kernel and two gathers a bucket) and
+    qsgd4_packed_bucketed_pallas_bs256 (143
     buckets of 1024 bytes over the ring: quantize-and-pack twice a
     bucket), verbatim, and HEADLINE's params with the 106 BatchNorm leaves
     routed to a dense fp16 all-reduce; assert each row's launches and the
@@ -361,7 +362,27 @@ traces over a fake one), all started together:
     allocated bytes, rounded blocks, are printed beside it). The whole registry audited on both routes gives
     the same findings. The cost of the kernel wrappers' fake check (one
     isinstance a call) on a real tensor and the phase's seconds are
-    printed.
+    printed. Every audit runs all ten passes, the registry's children the
+    four AST repo rules too (--rules), each with 0 findings; the registry
+    runs in three shards a route. The guarded HEADLINE train step at
+    ResNet-50 width (HEADLINE + fp16 escape, the registry's guard) traced
+    at W=8 as rank 0 and as rank 7 (--rank): 1 + 1 chunk kernel nodes, 0
+    findings (the state passes compare each with the other end's trace).
+
+The tuner (grace_tpu_torch.tuning), in processes of its own (the
+measured one started before phase 33's audits, beside them):
+
+34. The static funnel at ResNet-50 width (--model resnet50) for the
+    targets 8 and 256,8 under the port's H100 cost model: the funnel's
+    counts and the shortlists. The W=8 target's shortlist measured on the
+    card at W=1 with the toy model (as the JAX package measures), the
+    candidates named with --include (TUNE_INCLUDE: the kernel twin of the
+    packed qsgd4 ring, and the bucketed chunk Top-K all-gather) measured
+    with it: each row's measured and projected ms, the kernels it
+    launched in its timed steps (ops.launch_counts() around them), the
+    winner and its overlap sandwich (the capture's measured overlap
+    against the static bound). Fails unless the document is ok, the
+    sandwich holds and each named candidate launched its kernels.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -528,9 +549,10 @@ HIER_PATH = [
 ]
 HIER_WARMUP_STEPS = 1
 HIER_TIMED_STEPS = 3
-# Phase 20's catalog rows, host-bound (up to ~1.8 s a step): 2 timed steps,
-# to keep the call near its time with phases 24-27 added.
-CATALOG_TIMED_STEPS = 2
+# Phase 20's catalog rows, host-bound (up to ~3 s a step): 1 timed step (2
+# before phases 33-34 came), to keep the call near its time; each row's
+# device ms comes from its profiled step.
+CATALOG_TIMED_STEPS = 1
 # The rest of the codec catalog (phases 19 and 20). Phase 19: one step of
 # each new codec over the 161 ResNet-50 leaves on the card against the
 # same step on the CPU, under the analysis registry's configuration of the
@@ -616,7 +638,7 @@ for _cfg in CATALOG_PATH:
 # The executors (phase 21): bench.py HEADLINE's Top-K 1% main path with
 # fusion 'grouped' (28 groups over the 161 leaves: one grouped compress, two
 # gathers and one grouped aggregate a group), bench_all.py's topk1pct_64mib
-# (2 buckets, one grouped launch over both) and
+# (2 buckets, each its own pipeline: one grouped launch a bucket) and
 # qsgd4_packed_bucketed_pallas_bs256 (1024-byte buckets over the ring,
 # verbatim), and HEADLINE's params with the 106 BatchNorm leaves routed to a
 # dense fp16 all-reduce (the routing grace_tpu/helper.py's docstring gives
@@ -632,8 +654,8 @@ EXEC_PATH = [
      "params": {"compressor": "topk", "compress_ratio": 0.01,
                 "topk_algorithm": "chunk", "memory": "residual",
                 "communicator": "allgather", "fusion": 64 * 2**20},
-     "per_step": {"chunk_compress_feedback": 1, "chunk_aggregate_dense": 1},
-     "collectives_per_step": 2},
+     "per_bucket": {"chunk_compress_feedback": 1,
+                    "chunk_aggregate_dense": 1}},
     {"name": "qsgd4_packed_bucketed_pallas_bs256", "per_device_bs": 256,
      "params": {"compressor": "qsgd", "quantum_num": 7,
                 "use_pallas": True, "memory": "none",
@@ -1337,12 +1359,15 @@ def check_reference(dev, group):
              "ones in two steps, expected 2 and 0")
 
 
-def device_events(prof) -> list:
+def device_events(prof, averages=None) -> list:
     """The profiler's kernel rows: CUDA events, less the device ranges of
     the pipeline's named stages (``telemetry.scopes``' ``grace/...``
-    spans), which would count their kernels' time twice."""
+    spans), which would count their kernels' time twice. ``averages``:
+    ``prof.key_averages()`` when the caller has it (each call walks every
+    event again)."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
+    averages = prof.key_averages() if averages is None else averages
+    return [e for e in averages
             if e.device_type == DeviceType.CUDA
             and not e.key.startswith("grace/")]
 
@@ -1364,7 +1389,8 @@ def profile_step(step, state, batch, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernels only: an operator's own row repeats its kernels' time.
-    events = device_events(prof)
+    averages = prof.key_averages()
+    events = device_events(prof, averages)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -1377,7 +1403,7 @@ def profile_step(step, state, batch, label):
         f"{total_ms / wall_ms:.2f})")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
-    stages = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+    stages = {e.key: e.cpu_time_total / 1e3 for e in averages
               if e.device_type == DeviceType.CPU
               and e.key.startswith("grace/")}
     top = ("grace/forward_backward", "grace/optimizer", "grace/telemetry",
@@ -2968,16 +2994,17 @@ def exec_path(dev, group):
             grace = grace_from_params({**cfg["params"], "fusion": "flat"},
                                       group=group)
             install_collective_counter()
+            flat = torch.ones(1000, device=dev)
             before = COLLECTIVES[0]
             grace.communicator.step(
-                torch.ones(1000, device=dev), None, None, grace.memory,
+                flat, grace.memory.init_state(flat),
+                grace.compressor.init_state(flat), grace.memory,
                 grace.compressor, LeafKey(SEED, 0, 0))
             cfg["collectives_per_step"] = (COLLECTIVES[0] - before) * buckets
             cfg["per_step"] = {k: v * buckets for k, v in per.items()}
             cfg["plan"] = f"{buckets} buckets"
         else:
-            cfg["plan"] = {"topk1pct_64mib": "2 buckets"}.get(
-                cfg["name"], f"{EXEC_BN_LEAVES} routed leaves")
+            cfg["plan"] = f"{EXEC_BN_LEAVES} routed leaves"
         rows.append(cfg)
     return rows
 
@@ -5556,6 +5583,11 @@ def times_from(root: str) -> int:
 # -- phase 33 -----------------------------------------------------------------
 
 AUDIT_TIMEOUT_S = 240
+# The registry's children a route (--shard I/N), and its entries.
+REGISTRY_SHARDS = 3
+REGISTRY_ENTRIES = 79
+# The registry's guard (grace_tpu/analysis/configs.py's train entries).
+GUARD_33 = {"fallback_after": 3, "fallback_steps": 8}
 # Allocator rounding: each state tensor's block is a multiple of 512 B.
 ALLOC_ROUND = 512
 
@@ -5583,6 +5615,7 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
 
     t0 = time.perf_counter()
     headline = json.dumps(HEADLINE[1]["params"])
+    guarded = json.dumps({**HEADLINE[1]["params"], "escape": "fp16"})
     consensus = WATCH_ROWS[1]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
@@ -5596,8 +5629,18 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
                     {**consensus["params"], "consensus": {"audit_every": 1}}),
                 "--mode", "train", "--guard", json.dumps(consensus["guard"]),
                 "--world", "1"),
-            "cpu": _audit_cli(out, "cpu", "--all-configs", "--device", "cpu"),
-            "cuda": _audit_cli(out, "cuda", "--all-configs"),
+            # The guarded HEADLINE train step at ResNet-50 width, as rank 0
+            # and as rank W-1 (each against the other in the state passes).
+            **{f"train_r{r}": _audit_cli(
+                out, f"train_r{r}", "--params", guarded, "--mode", "train",
+                "--guard", json.dumps(GUARD_33), "--model", "resnet50",
+                "--world", "8", "--rank", str(r)) for r in (0, 7)},
+            # The registry on each route, all ten passes and the repo
+            # rules, in shards.
+            **{f"{d}{i}": _audit_cli(out, f"{d}{i}", "--all-configs",
+                                     "--device", d, "--rules", "--shard",
+                                     f"{i}/{REGISTRY_SHARDS}")
+               for d in ("cpu", "cuda") for i in range(REGISTRY_SHARDS)},
         }
         # The real side while the children trace: one HEADLINE step on the
         # card, its launches and synchronizing calls, and init's memory.
@@ -5663,6 +5706,24 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
         raise SystemExit(f"[33] the W=1 trace launches {base1['kernels']} "
                          f"with {base1['syncs']} card syncs; the real step "
                          f"{step_launches} with {step_syncs} flagged calls")
+    # (b') the guarded step at ResNet-50 width, as rank 0 and rank W-1.
+    trains = {}
+    for r in (0, 7):
+        doc = docs[f"train_r{r}"]
+        rep = doc["configs"]["adhoc"]
+        if doc["returncode"] or rep["findings"] or doc["rank"] != r \
+                or len(doc["passes_run"]) != 10:
+            raise SystemExit(f"[33] the guarded HEADLINE train step as rank "
+                             f"{r} has findings over {doc['passes_run']}: "
+                             f"{rep['findings']}")
+        if rep["branches"]["base"]["kernels"] != want:
+            raise SystemExit(f"[33] the guarded train step as rank {r} "
+                             f"launches {rep['branches']['base']['kernels']}"
+                             f"; want {want}")
+        trains[r] = {"branches": sorted(rep["branches"]),
+                     "kernels": rep["branches"]["base"]["kernels"],
+                     "recv_bytes": rep["branches"]["base"]["recv_bytes"],
+                     "trace_s": doc["seconds"]}
     audit1 = docs["audit_w1"]["configs"]["adhoc"]["branches"]["audit"]
     audit_real = runs["phase29_audit_cost"]["resnet50"]["audit_syncs"]
     if audit1["syncs"] != audit_real or audit1["syncs"] != 1:
@@ -5678,13 +5739,25 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
         raise SystemExit(f"[33] init requested {requested} B (allocated "
                          f"{grown} B); the footprint model says "
                          f"{device_model} B (+{slack} B slack)")
-    # (d) the registry on both routes.
-    found = {d: sorted((f["config"], f["pass"], f["severity"])
-                       for f in docs[d]["findings"]) for d in ("cpu", "cuda")}
-    if found["cpu"] != found["cuda"] or docs["cuda"]["configs_audited"] \
-            != docs["cpu"]["configs_audited"]:
-        raise SystemExit(f"[33] the registry's findings differ by route: "
-                         f"cpu {found['cpu']}, cuda {found['cuda']}")
+    # (d) the registry on both routes, ten passes and the rules, clean.
+    route = {d: {"findings": [f for i in range(REGISTRY_SHARDS)
+                              for f in docs[f"{d}{i}"]["findings"]],
+                 "configs": sum(docs[f"{d}{i}"]["configs_audited"]
+                                for i in range(REGISTRY_SHARDS)),
+                 "rules": min(docs[f"{d}{i}"]["rules_checked"]
+                              for i in range(REGISTRY_SHARDS)),
+                 "passes": sorted({p for i in range(REGISTRY_SHARDS)
+                                   for p in docs[f"{d}{i}"]["passes_run"]}),
+                 "seconds": max(docs[f"{d}{i}"]["seconds"]
+                                for i in range(REGISTRY_SHARDS))}
+             for d in ("cpu", "cuda")}
+    for d, v in route.items():
+        if v["findings"] or v["configs"] != REGISTRY_ENTRIES \
+                or v["rules"] != 4 or len(v["passes"]) != 10:
+            raise SystemExit(f"[33] the registry on the {d} route: "
+                             f"{v['configs']} configs, {v['rules']} rules, "
+                             f"passes {v['passes']}, findings "
+                             f"{v['findings']}")
     seconds = time.perf_counter() - t0
     runs["phase33_static_audit"] = {
         "launches": {}, "seconds": seconds,
@@ -5704,11 +5777,12 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
         "footprint": {"model_device_bytes": device_model,
                       "init_requested_bytes": requested,
                       "init_allocated_bytes": grown, "slack_bytes": slack},
-        "registry": {d: {"configs": docs[d]["configs_audited"],
-                         "errors": docs[d]["errors"],
-                         "findings": len(found[d]),
-                         "seconds": docs[d]["seconds"]}
-                     for d in ("cpu", "cuda")}}
+        "guarded_train_w8": trains,
+        "registry": {d: {"configs": v["configs"], "rules": v["rules"],
+                         "passes": len(v["passes"]),
+                         "findings": len(v["findings"]),
+                         "seconds": v["seconds"]}
+                     for d, v in route.items()}}
     log(f"[33] HEADLINE at W=8 on the card's route: {base8['kernels']}, "
         f"{base8['host_reads']} host reads, {base8['recv_bytes']} B a rank "
         f"= the model's {w8['model_bytes']} B (traced in {w8['seconds']:.1f} "
@@ -5716,12 +5790,128 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
         f"step's {step_launches} and {step_syncs} flagged calls; the audit "
         f"step: {audit1['syncs']} sync = [29]'s {audit_real}; init "
         f"requested {requested} B (allocated {grown} B) for the model's "
-        f"{device_model} B; the registry "
-        f"({docs['cuda']['configs_audited']} configs) has "
-        f"{len(found['cuda'])} findings on both routes (cpu "
-        f"{docs['cpu']['seconds']:.1f} s, cuda {docs['cuda']['seconds']:.1f}"
-        f" s of tracing); the wrappers' fake check costs {check_us:.3f} µs "
-        f"a call; phase {seconds:.1f} s | {smi}")
+        f"{device_model} B; the guarded step at ResNet-50 width as rank 0 "
+        f"and rank 7: {trains[0]['kernels']} and {trains[7]['kernels']}, 0 "
+        f"findings over 10 passes (branches {trains[0]['branches']}; "
+        f"{trains[0]['trace_s']:.1f}, {trains[7]['trace_s']:.1f} s); the "
+        f"registry ({route['cuda']['configs']} configs, 10 passes, 4 repo "
+        f"rules) has 0 findings on both routes (cpu "
+        f"{route['cpu']['seconds']:.1f} s, cuda "
+        f"{route['cuda']['seconds']:.1f} s a shard); the wrappers' fake "
+        f"check costs {check_us:.3f} µs a call; phase {seconds:.1f} s | "
+        f"{smi}")
+
+
+# -- phase 34 -----------------------------------------------------------------
+
+TUNE_TIMEOUT_S = 300
+# The measured candidates named besides the shortlist, with the kernels
+# each must launch: the kernel twin of the packed qsgd4 ring, and the
+# bucketed chunk Top-K all-gather (the HEADLINE's two chunk kernels).
+TUNE_INCLUDE = {
+    "tune-qsgd4-ring-packed-bucketed-pallas": ("quantize_pack_stochastic",),
+    "tune-topk1pct-allgather-bucketed": ("chunk_compress_feedback",
+                                         "chunk_aggregate_dense")}
+
+
+def _tune_cli(out_dir: Path, name: str, *args: str) -> subprocess.Popen:
+    """``python -m grace_tpu_torch.tuning ... --out <out>/<name>.json``
+    started (not waited for), from the repository root."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "grace_tpu_torch.tuning", *args,
+         "--out", str(out_dir / f"{name}.json")],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def start_measured_tune(out: Path) -> subprocess.Popen:
+    """[34]'s measured tune (the W8 shortlist and the named candidates on
+    the card), started ahead of phase 33: it needs the card and little of
+    the host, so it runs while [33]'s audits trace."""
+    return _tune_cli(out, "measured", "--topology", "8",
+                     *(a for n in TUNE_INCLUDE for a in ("--include", n)))
+
+
+def tuner_phase(runs, smi, measured_proc: subprocess.Popen,
+                out: Path) -> None:
+    """Phase 34 (module docstring): the tuner in processes of its own (its
+    static stage traces over a fake default process group, and its
+    measured stage makes a one-rank NCCL group of its own):
+    ``measured_proc`` (:func:`start_measured_tune`) and the static funnel
+    at ResNet-50 width, both writing into ``out``."""
+    t0 = time.perf_counter()
+    procs = {"static": _tune_cli(out, "static", "--static-only", "--model",
+                                 "resnet50", "--topology", "8",
+                                 "--topology", "256,8"),
+             "measured": measured_proc}
+    docs, texts = {}, {}
+    for key, proc in procs.items():
+        texts[key], _ = proc.communicate(timeout=TUNE_TIMEOUT_S)
+        path = out / f"{key}.json"
+        if not path.exists():
+            raise SystemExit(f"[34] the {key} tuner wrote nothing (exit "
+                             f"{proc.returncode}):\n{texts[key][-3000:]}")
+        docs[key] = json.loads(path.read_text())
+        docs[key]["returncode"] = proc.returncode
+    static, measured = docs["static"], docs["measured"]
+    for label, st in static["static"].items():
+        c = st["counts"]
+        log(f"[34] static funnel at ResNet-50 width, {label} (the port's "
+            f"H100 cost model): {c['enumerated']} enumerated, "
+            f"{c['capability_rejected']} capability, {c['numeric_rejected']} "
+            f"numeric, {c['degradation_rejected']} degradation rejected, "
+            f"{c['priced']} priced, {c['flow_rejected']} flow rejected; "
+            f"shortlist {st['shortlist']}")
+    if static["returncode"] or not static["ok"] or not all(
+            st["shortlist"] for st in static["static"].values()):
+        raise SystemExit(f"[34] the static funnel failed:\n"
+                         f"{texts['static'][-3000:]}")
+    m = measured.get("measured") or {}
+    rows = {r["candidate"]: r for r in m.get("rows", ())}
+    for r in rows.values():
+        log(f"[34] {r['candidate']}: measured {r['measured_step_ms']:.4f} "
+            f"ms a step (dense {r['baseline_step_ms']:.4f}; samples "
+            f"{r['samples_ms']}) -> projected {r['projected_step_ms']:.4f} "
+            f"ms at W8; kernels {r['launches'] or 'none'} in "
+            f"{r['steps_run']} steps")
+    for r in m.get("skipped", ()):
+        log(f"[34] {r['candidate']}: skipped ({r['reason']})")
+    winner = measured.get("winner") or {}
+    sandwich = winner.get("overlap_sandwich") or {}
+    silent = {n: ks for n, ks in TUNE_INCLUDE.items()
+              if not all(rows.get(n, {}).get("launches", {}).get(k)
+                         for k in ks)}
+    if measured["returncode"] or not measured["ok"] \
+            or m.get("device", "").split(":")[0] != "cuda" \
+            or not sandwich.get("holds") or silent:
+        raise SystemExit(f"[34] the measured tune failed (ok "
+                         f"{measured['ok']}, sandwich {sandwich}, kernels "
+                         f"not launched {silent}):\n"
+                         f"{texts['measured'][-3000:]}")
+    launches: dict = {}
+    for r in rows.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t0
+    runs["phase34_tune"] = {
+        "launches": launches, "seconds": seconds,
+        "static": {label: {"counts": st["counts"],
+                           "shortlist": st["shortlist"],
+                           "head": st["ranking"][:3]}
+                   for label, st in static["static"].items()},
+        "measured": {n: {k: r[k] for k in (
+            "measured_step_ms", "baseline_step_ms", "samples_ms",
+            "projected_step_ms", "launches", "steps_run")}
+            for n, r in rows.items()},
+        "winner": winner.get("candidate"), "sandwich": sandwich,
+        "measured_world": m.get("measured_world")}
+    log(f"[34] winner {winner['candidate']}: measured "
+        f"{winner['measured']['measured_step_ms']:.4f} ms, projected "
+        f"{winner['measured']['projected_step_ms']:.4f} ms at W8; overlap "
+        f"sandwich: measured {sandwich['measured_overlap']} <= static bound "
+        f"{sandwich['static_overlap_bound']} (+{sandwich['slack']}): holds; "
+        f"kernels {launches}; phase {seconds:.1f} s after [33] (the "
+        f"measured tune ran beside [33]) | {smi}")
 
 
 def main() -> int:
@@ -6045,7 +6235,21 @@ def main() -> int:
         log("[33] the static auditor: the HEADLINE at ResNet-50 width traced "
             "on the card's route at W=8 and W=1, phase29_consensus's audit "
             "step, the footprint model, the registry on both routes")
-        static_audit_phase(dev, group, x, y, runs, smi)
+        import tempfile
+        with tempfile.TemporaryDirectory() as tune_dir:
+            measured = start_measured_tune(Path(tune_dir))
+            try:
+                static_audit_phase(dev, group, x, y, runs, smi)
+                # -- 34. the tuner --------------------------------------------
+                log("[34] the tuner: the static funnel at ResNet-50 width for "
+                    "W8 and W256/slice8, the W8 shortlist measured on the "
+                    "card (toy model, W=1) with the kernel candidates named, "
+                    "the winner's overlap sandwich")
+                tuner_phase(runs, smi, measured, Path(tune_dir))
+            finally:
+                if measured.poll() is None:
+                    measured.kill()
+                    measured.wait()
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -9,8 +9,11 @@ needed) or the CPU's, over the default audit parameters or a model's
 PATH`` writes them with each config's per-branch report (collectives,
 received bytes against the wire model, kernel launches, host reads, card
 syncs) and the state footprint model; ``--jsonl PATH`` appends them as
-``lint_finding`` events that ``tools/telemetry_report.py`` renders. Exits
-1 when there is an error finding, 2 on a bad argument.
+``lint_finding`` events that ``tools/telemetry_report.py`` renders.
+``--rules`` runs the four AST repo rules (:mod:`.rules`) over the port's
+source, alone or beside the configs a ``--config``/``--all-configs``/
+``--params`` selects. Exits 1 when there is an error finding, 2 on a bad
+argument.
 """
 
 from __future__ import annotations
@@ -29,22 +32,7 @@ CORE_CONFIGS = ("none-allreduce", "topk-allgather", "signsgd-sign_allreduce",
                 "topk-guard-consensus")
 
 
-def model_param_structs(model: str):
-    """``{name: (shape, dtype)}`` of ``model``'s parameters (``default``:
-    the audit's own; ``resnet50``: ResNet-50 at 1000 classes)."""
-    from grace_tpu_torch.analysis.trace import default_param_structs
-
-    if model == "default":
-        return default_param_structs()
-    if model == "resnet50":
-        from grace_tpu_torch.models.resnet import resnet50
-        net = resnet50(1000, device="cpu")
-        return {n: (tuple(p.shape), p.dtype)
-                for n, p in net.named_parameters()}
-    raise ValueError(f"unknown model {model!r}")
-
-
-def _report(entry, structs, world: int, device: str):
+def _report(entry, structs, world: int, device: str, rank: int = 0):
     """``(report, findings)`` of one config: the per-branch report, its
     wire and footprint models, and the findings."""
     from grace_tpu_torch.analysis.configs import audit_traces
@@ -54,7 +42,7 @@ def _report(entry, structs, world: int, device: str):
 
     t0 = time.perf_counter()
     traces, findings = audit_traces(entry, world=world, device=device,
-                                    params=structs)
+                                    params=structs, rank=rank)
     out = {"seconds": time.perf_counter() - t0, "branches": {},
            "findings": [f.as_dict() for f in findings]}
     for t in traces:
@@ -106,17 +94,26 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="write the findings and per-config reports here")
     ap.add_argument("--jsonl", default=None, metavar="PATH",
                     help="append the findings as lint_finding events")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank to trace as (default 0; the state "
+                         "passes compare it with the other end's)")
+    ap.add_argument("--rules", action="store_true",
+                    help="run the AST repo rules; alone unless configs "
+                         "are selected too")
     ap.add_argument("--shard", default=None, metavar="I/N",
                     help="audit every N-th selected config from the I-th "
                          "(0-based): N processes together audit them all")
     args = ap.parse_args(argv)
 
-    from grace_tpu_torch.analysis.configs import AUDIT_CONFIGS
+    from grace_tpu_torch.analysis.configs import (AUDIT_CONFIGS,
+                                                  model_param_structs)
     from grace_tpu_torch.analysis.passes import PASS_NAMES
     from grace_tpu_torch.analysis.report import render_text, write_jsonl
 
     by_name = {e["name"]: e for e in AUDIT_CONFIGS}
-    if args.params:
+    if args.rules and not (args.params or args.config or args.all_configs):
+        configs = []
+    elif args.params:
         params = json.loads(args.params)
         configs = [{"name": "adhoc", "params": params, "passes": PASS_NAMES,
                     "mode": args.mode,
@@ -150,21 +147,31 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"--shard {args.shard}: need 0 <= I < N", file=sys.stderr)
             return 2
         configs = configs[i::n]
-    structs = model_param_structs(args.model)
+    # None: the audit's own parameters (and, in train mode, its model).
+    structs = (None if args.model == "default"
+               else model_param_structs(args.model))
     findings, reports = [], {}
     t0 = time.perf_counter()
+    rules_checked = 0
+    if args.rules:
+        from grace_tpu_torch.analysis.rules import RULE_NAMES, run_repo_rules
+        findings += run_repo_rules()
+        rules_checked = len(RULE_NAMES)
     for entry in configs:
         print(f"[analysis] tracing {entry['name']}", file=sys.stderr,
               flush=True)
         reports[entry["name"]], found = _report(entry, structs, args.world,
-                                                args.device)
+                                                args.device, args.rank)
         findings += found
-    print(render_text(findings, audited=len(configs)))
+    print(render_text(findings, audited=len(configs),
+                      rules_checked=rules_checked))
     errors = sum(1 for f in findings if f.severity == "error")
     if args.json:
         doc = {"tool": "grace_tpu_torch.analysis", "errors": errors,
                "warnings": len(findings) - errors,
-               "configs_audited": len(configs), "world": args.world,
+               "configs_audited": len(configs),
+               "rules_checked": rules_checked, "world": args.world,
+               "rank": args.rank,
                "device": args.device, "model": args.model,
                "seconds": time.perf_counter() - t0,
                "passes_run": sorted({p for e in configs

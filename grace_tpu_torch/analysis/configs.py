@@ -23,8 +23,8 @@ from grace_tpu_torch.analysis.trace import (Branch, TracedGraph,
                                             trace_train_step, trace_update)
 
 __all__ = ["AUDIT_CONFIGS", "audit_all", "audit_config", "audit_traces",
-           "branches", "build_grace", "overlap_bound_report",
-           "trace_config"]
+           "branches", "build_grace", "model_param_structs",
+           "overlap_bound_report", "trace_config"]
 
 _ALL = tuple(PASS_NAMES)
 _NO_WIRE = tuple(p for p in PASS_NAMES if p != "wire_reconciliation")
@@ -406,6 +406,21 @@ AUDIT_CONFIGS.extend([
 ])
 
 
+def model_param_structs(model: str):
+    """``{name: (shape, dtype)}`` of ``model``'s parameters (``default``:
+    the audit's own; ``resnet50``: ResNet-50 at 1000 classes)."""
+    from grace_tpu_torch.analysis.trace import default_param_structs
+
+    if model == "default":
+        return default_param_structs()
+    if model == "resnet50":
+        from grace_tpu_torch.models.resnet import resnet50
+        net = resnet50(1000, device="cpu")
+        return {n: (tuple(p.shape), p.dtype)
+                for n, p in net.named_parameters()}
+    raise ValueError(f"unknown model {model!r}")
+
+
 def build_grace(entry: Dict[str, Any]):
     """The Grace bundle of one registry entry, over the default group (a
     2-D entry's mesh names its axes only: :func:`audit_config` builds it
@@ -454,10 +469,10 @@ def branches(entry: Dict[str, Any]) -> List[Branch]:
 
 def trace_config(entry: Dict[str, Any], branch: Optional[Branch] = None, *,
                  world: int = 8, device: str = "cuda",
-                 params=None) -> TracedGraph:
-    """Trace one entry under one host branch (default: the base step);
-    ``params`` (``{name: (shape, dtype)}``) replaces the default audit
-    parameters of an update trace."""
+                 params=None, rank: int = 0) -> TracedGraph:
+    """Trace one entry under one host branch (default: the base step) as
+    ``rank``; ``params`` (``{name: (shape, dtype)}``) replaces the default
+    audit parameters (a train trace's model then holds those leaves)."""
     world = int(entry.get("world") or world)
     meta = {"params": entry.get("params")}
     if params is not None:
@@ -466,11 +481,12 @@ def trace_config(entry: Dict[str, Any], branch: Optional[Branch] = None, *,
         return trace_train_step(
             dict(entry["params"]), world=world, guard=entry.get("guard"),
             consensus=entry.get("consensus"), name=entry["name"], meta=meta,
-            fsdp=entry.get("fsdp"), device=device, branch=branch)
+            fsdp=entry.get("fsdp"), device=device, branch=branch,
+            rank=rank, params=params)
     return trace_update(dict(entry["params"]), world=world,
                         name=entry["name"], meta=meta,
                         fsdp=entry.get("fsdp"), device=device,
-                        branch=branch, params=params)
+                        branch=branch, params=params, rank=rank)
 
 
 def _trace_finding(entry, exc: Exception, branch: Branch) -> Finding:
@@ -482,7 +498,7 @@ def _trace_finding(entry, exc: Exception, branch: Branch) -> Finding:
 
 
 def audit_traces(entry: Dict[str, Any], *, world: int = 8,
-                 device: str = "cuda", params=None):
+                 device: str = "cuda", params=None, rank: int = 0):
     """``(traces, findings)``: one entry's trace of every host branch and
     every finding of its passes over them (the same finding from two
     branches once). A branch that fails to trace is a ``trace`` finding
@@ -492,7 +508,7 @@ def audit_traces(entry: Dict[str, Any], *, world: int = 8,
     for branch in branches(entry):
         try:
             traced = trace_config(entry, branch, world=world, device=device,
-                                  params=params)
+                                  params=params, rank=rank)
         except Exception as e:                           # noqa: BLE001
             findings.append(_trace_finding(entry, e, branch))
             return traces, findings

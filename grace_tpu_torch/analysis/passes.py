@@ -52,13 +52,13 @@ _ALLTOALL = frozenset({"c10d.alltoall_base_", "c10d.alltoall_"})
 _SCATTERS = frozenset({"c10d._reduce_scatter_base_", "c10d.reduce_scatter_",
                        "c10d.reduce_scatter_tensor_coalesced_"})
 
-# The passes ported so far; flow.py holds 5-7 (resolved lazily: it imports
-# this module). The JAX package's rng_lineage, rollback_coverage and
-# replication_contract (its state_passes.py) are the next slice.
+# The JAX package's ten passes, in its order: flow.py holds 5-7 and
+# state_passes.py 8-10 (both resolved lazily: they import this module).
 PASS_NAMES = ("collective_consistency", "bit_exactness",
               "wire_reconciliation", "signature_stability",
               "overlap_schedulability", "numeric_safety",
-              "memory_footprint")
+              "memory_footprint", "rng_lineage", "rollback_coverage",
+              "replication_contract")
 
 # The host reads the port's contract names, by the site that makes them
 # (``<module>:<function>``): each reads a value that every rank holds
@@ -120,18 +120,21 @@ def replication(traced: TracedGraph) -> Dict[str, Dict[int, bool]]:
     for axis in traced.axes:
         var = dict(traced.seeds.get(axis, {}))
         for node in traced.nodes:
+            if node.kind != "collective":
+                # Per output: a _foreach_ op's element j reads its own
+                # list elements.
+                for j, v in enumerate(node.outs):
+                    var[v] = any(var.get(u, False) for u in node.sources(j))
+                continue
             any_in = any(var.get(v, False) for v in node.ins)
-            if node.kind == "collective":
-                ranks = node.attrs.get("ranks", ())
-                name = node.name
-                if name in _SENDS:
-                    continue
-                if name in _RECVS or name in _ALLTOALL or name in _SCATTERS:
-                    flag = _along(traced, node, axis) or any_in
-                elif traced.replicates(ranks, axis):
-                    flag = False
-                else:
-                    flag = any_in
+            ranks = node.attrs.get("ranks", ())
+            name = node.name
+            if name in _SENDS:
+                continue
+            if name in _RECVS or name in _ALLTOALL or name in _SCATTERS:
+                flag = _along(traced, node, axis) or any_in
+            elif traced.replicates(ranks, axis):
+                flag = False
             else:
                 flag = any_in
             for v in node.outs:
@@ -551,8 +554,9 @@ _PASS_FNS = {
 def _resolve_pass(name: str):
     fn = _PASS_FNS.get(name)
     if fn is None:
-        from grace_tpu_torch.analysis import flow
+        from grace_tpu_torch.analysis import flow, state_passes
         _PASS_FNS.update(flow.PASS_FNS)
+        _PASS_FNS.update(state_passes.PASS_FNS)
         fn = _PASS_FNS.get(name)
         if fn is None:
             raise ValueError(f"unknown pass {name!r}; the passes are "
@@ -562,7 +566,7 @@ def _resolve_pass(name: str):
 
 def run_passes(traced: TracedGraph,
                passes: Optional[Sequence[str]] = None) -> List[Finding]:
-    """Run the named passes (default: all seven) over one trace."""
+    """Run the named passes (default: all ten) over one trace."""
     out: List[Finding] = []
     for name in (passes if passes is not None else PASS_NAMES):
         out.extend(_resolve_pass(name)(traced))

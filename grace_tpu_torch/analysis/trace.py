@@ -51,7 +51,8 @@ import dataclasses
 import math
 import os
 import sys
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Set, Tuple)
 from unittest import mock
 
 import numpy as np
@@ -65,9 +66,10 @@ from grace_tpu_torch.ops import fake as _fake_ops
 from grace_tpu_torch.telemetry import scopes
 from grace_tpu_torch.telemetry.scopes import match_stage
 
-__all__ = ["Branch", "HostRead", "Node", "TracedGraph", "fake_world",
-           "default_param_structs", "trace_fn", "trace_update",
-           "trace_train_step", "state_leaves", "DEFAULT_AXIS"]
+__all__ = ["Branch", "HostRead", "Node", "TensorRef", "TracedGraph",
+           "fake_world", "default_param_structs", "trace_fn",
+           "trace_update", "trace_train_step", "state_leaves",
+           "DEFAULT_AXIS"]
 
 DEFAULT_AXIS = "data"
 
@@ -88,13 +90,19 @@ def default_param_structs() -> Dict[str, Tuple[Tuple[int, ...],
 @dataclasses.dataclass
 class Node:
     """One recorded op. ``kind``: ``"op"`` (aten), ``"collective"``
-    (c10d), ``"kernel"`` (a kernel wrapper's fake launch) or
-    ``"host_read"``. ``ins``/``outs``: the value ids it reads and writes;
+    (c10d), ``"kernel"`` (a kernel wrapper's fake launch), ``"host_read"``
+    or ``"draw"`` (a ``LeafKey`` consumption: host-side, no values).
+    ``ins``/``outs``: the value ids it reads and writes;
     ``in_meta``/``out_meta``: their ``(shape, dtype)``. ``attrs`` holds
     what a pass needs of the op: a collective's ``ranks`` (its group's
     global ranks), ``reduce_op``, ``peer`` (a p2p op's global peer) and
     ``nbytes`` (its operand bytes); a dtype view's ``src``/``dst``; a
-    reduction's ``extent``; a host read's ``method`` and ``site``."""
+    reduction's ``extent``; a host read's ``method``, ``site`` and
+    ``index`` (its place among the trace's host reads); a ``_foreach_``
+    op's ``edges`` (per output, the ids of the list elements it reads:
+    one edge a list element, where ``ins`` joins them all); a draw's
+    ``method``, ``shape``, ``dtype``, ``lineage``, ``fields`` and
+    ``derived`` (the key's derived seed)."""
 
     idx: int
     kind: str
@@ -115,6 +123,12 @@ class Node:
     def in_nbytes(self) -> int:
         return sum(_nbytes(s, d) for s, d in self.in_meta)
 
+    def sources(self, j: int) -> Tuple[int, ...]:
+        """The values output ``j`` is computed from: its own list
+        elements for a ``_foreach_`` op, else every input."""
+        edges = self.attrs.get("edges")
+        return edges[j] if edges is not None else self.ins
+
 
 @dataclasses.dataclass(frozen=True)
 class HostRead:
@@ -125,6 +139,7 @@ class HostRead:
     stage: str
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    index: int = -1          # its place among the trace's host reads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +152,9 @@ class Branch:
     window's clock); ``warmup``: steps run unrecorded before the traced
     one (a pending ladder boundary or guard verdict is then read in it);
     ``reads``: chooses the stub a host read returns (a callable of
-    :class:`HostRead` giving an array-like, or None for zeros)."""
+    :class:`HostRead` giving an array-like, or None for zeros). It must
+    not depend on the traced rank: the state passes trace a branch as
+    rank 0 and as rank W−1 and compare the two."""
 
     label: str = "base"
     fallback: bool = False
@@ -150,6 +167,16 @@ class Branch:
 
 def _nbytes(shape, dtype) -> int:
     return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+class TensorRef(NamedTuple):
+    """A state tensor's identity in a trace: its storage and the value id
+    of that storage's current write. Equal refs before and after a step:
+    the leaf passed through untouched; the same storage with another
+    ``vid``: written in place; another storage: replaced."""
+
+    storage: int
+    vid: int
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -244,6 +271,11 @@ class _Recorder:
         self._p2p_sends: List[int] = []
         self.undo: List[Tuple[int, Optional[int]]] = []
         self._stages: Dict[str, str] = {}
+        self.n_reads = 0                       # host reads so far
+        self.scans: Set[int] = set()           # non-finite scan results
+        # The stub chooser of quiet host reads (the state probes'), else
+        # zeros.
+        self.forced: Optional[Callable[[HostRead], Any]] = None
 
     @contextlib.contextmanager
     def quiet(self):
@@ -312,24 +344,32 @@ class _Recorder:
         return stage, scope
 
     def _add(self, kind, name, reads, writes, fresh=(), attrs=None,
-             extra_ins=()) -> Node:
+             extra_ins=(), lanes=None) -> Node:
         ins = [self.read(t) for t in reads] + list(extra_ins)
+        # Per output, the values it reads (read before any write).
+        edges = ([[self.read(t) for t in lane] for lane in lanes]
+                 if lanes is not None else None)
         outs = []
-        for t in writes:
+        for j, t in enumerate(writes):
             vid, old = self.write(t)
             outs.append(vid)
             if old is not None:
                 ins.append(old)
+                if edges is not None:
+                    edges[j].append(old)
         for t in fresh:
             vid, _ = self.write(t)
             outs.append(vid)
+        attrs = attrs or {}
+        if edges is not None:
+            attrs["edges"] = tuple(tuple(e) for e in edges)
         stage, scope = self._stage()
         node = Node(idx=len(self.nodes), kind=kind, name=name, stage=stage,
                     scope=scope, ins=tuple(ins), outs=tuple(outs),
                     in_meta=tuple(_meta(t) for t in reads),
                     out_meta=tuple(_meta(t) for t in list(writes)
                                    + list(fresh)),
-                    attrs=attrs or {})
+                    attrs=attrs)
         self.nodes.append(node)
         return node
 
@@ -340,12 +380,14 @@ class _Recorder:
             return
         self._p2p_sends = []
         reads, writes = [], []
+        lists, singles = [], []
         for i, (arg, written) in enumerate(_schema_args(func)):
             v = args[i] if i < len(args) else kwargs.get(arg, None)
             ts = _flat_tensors(v)
             reads += ts
             if written:
                 writes += ts
+            (lists if isinstance(v, (list, tuple)) else singles).append(ts)
         in_keys = {_storage_key(t) for t in reads}
         written = {_storage_key(t) for t in writes}
         fresh = [t for t in _flat_tensors(out)
@@ -368,7 +410,16 @@ class _Recorder:
                 args[1], args[0].device,
                 args[2] if len(args) > 2 else kwargs.get("non_blocking",
                                                          False))}
-        self._add("op", name, reads, writes, fresh, attrs)
+        lanes = None
+        if name.startswith("aten._foreach_") and lists:
+            # One edge a list element: output j reads element j of every
+            # list argument and the op's single tensors.
+            n = len(lists[0])
+            if all(len(ts) == n for ts in lists) \
+                    and len(writes) + len(fresh) == n:
+                one = [t for ts in singles for t in ts]
+                lanes = [[ts[j] for ts in lists] + one for j in range(n)]
+        self._add("op", name, reads, writes, fresh, attrs, lanes=lanes)
 
     def _collective(self, func, args, kwargs) -> None:
         from torch._C._distributed_c10d import ProcessGroup
@@ -425,16 +476,42 @@ class _Recorder:
     def host_read(self, method: str, t: torch.Tensor):
         """Record a host read of ``t`` and return the stub it gets."""
         if self._quiet:
-            return _stub(method, HostRead(method, "", "", tuple(t.shape),
-                                          t.dtype), None)
+            req = HostRead(method, _package_site(), "", tuple(t.shape),
+                           t.dtype)
+            return _stub(method, req,
+                         self.forced(req) if self.forced else None)
         stage, _scope = self._stage()
         req = HostRead(method=method, site=_package_site(), stage=stage,
-                       shape=tuple(t.shape), dtype=t.dtype)
+                       shape=tuple(t.shape), dtype=t.dtype,
+                       index=self.n_reads)
+        self.n_reads += 1
         self._add("host_read", method, [t], [],
                   attrs={"method": method, "site": req.site,
-                         "sync": t.device.type == "cuda"})
+                         "sync": t.device.type == "cuda",
+                         "index": req.index})
         chosen = self.branch.reads(req) if self.branch.reads else None
         return _stub(method, req, chosen)
+
+    def draw(self, key, method: str, shape, dtype: str) -> None:
+        """Record one consumption of ``key`` (``core.LeafKey``'s hook)."""
+        if self._quiet:
+            return
+        fields = tuple(key.fields)
+        root = (("fields",) + fields if fields
+                else ("const", int(key.seed), int(key.count)))
+        lineage = root + (("leaf", int(key.leaf)),
+                          ("folds", tuple(key.folds)))
+        self._add("draw", f"draw.{method}", [], [],
+                  attrs={"method": method, "shape": tuple(shape),
+                         "dtype": dtype, "lineage": lineage,
+                         "fields": fields, "derived": key.derived_seed()})
+
+    def mark_scan(self, out) -> None:
+        """Note ``out`` (a non-finite test's result) as the scan's."""
+        for t in _flat_tensors(out):
+            vid = self.current.get(_storage_key(t))
+            if vid is not None:
+                self.scans.add(vid)
 
 
 def _blocking_to_host(src: torch.Tensor, device, non_blocking) -> bool:
@@ -543,13 +620,23 @@ class _FunctionMode(TorchFunctionMode):
                 return _on_host(func, args, kwargs, on_card)
         mark = self.rec.mark()
         try:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
         except RuntimeError as e:
             on_card = _fake_cuda(list(args) + list(kwargs.values()))
             if _NO_CUDA not in str(e) or not on_card:
                 raise
             self.rec.rollback(mark)
-            return _on_host(func, args, kwargs, on_card)
+            out = _on_host(func, args, kwargs, on_card)
+        if name in _SCAN_FUNCS and not self.rec._quiet:
+            # The test decomposes into plain comparisons; its result is
+            # what the state passes call the non-finite scan.
+            self.rec.mark_scan(out)
+        return out
+
+
+# The non-finite tests whose results the guard's bad flag descends from.
+_SCAN_FUNCS = frozenset({"isfinite", "isnan", "isinf", "isposinf",
+                         "isneginf"})
 
 
 # What torch raises where a binding enters a CUDA device guard in a build
@@ -577,12 +664,14 @@ def _on_host(func, args, kwargs, on_card):
 # -- the fake world --------------------------------------------------------------
 
 @contextlib.contextmanager
-def fake_world(world: int):
+def fake_world(world: int, rank: int = 0):
     """A default process group of the ``"fake"`` backend at ``world``
-    ranks, this process being rank 0, for the block's length; destroyed
+    ranks, this process being ``rank``, for the block's length; destroyed
     afterwards, and the communicators' cached subgroups of it dropped.
     Raises when a default group exists already: the tracer never shares
     one (a gloo test's or a training script's group stays untouched)."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a world of {world}")
     if dist.is_available() and dist.is_initialized():
         raise RuntimeError(
             "the static auditor traces over a fake process group of its "
@@ -595,7 +684,7 @@ def fake_world(world: int):
     from grace_tpu_torch import comm
 
     cached = set(comm._HIER_GROUPS)
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     try:
         yield
@@ -606,7 +695,7 @@ def fake_world(world: int):
 
 
 def _host_generator(key, device) -> torch.Generator:
-    """``LeafKey.generator`` for a fake CUDA trace: a CPU generator (a
+    """``LeafKey``'s generator for a fake CUDA trace: a CPU generator (a
     CUDA one needs the CUDA library; fake draws read only its device
     type's shapes, not its numbers)."""
     gen = torch.Generator(device="cpu")
@@ -627,23 +716,26 @@ def _cuda_patches(device: str):
         torch.cuda, "get_device_capability", lambda *a, **k: (9, 0)))
     stack.enter_context(mock.patch.object(
         torch.cuda, "current_device", lambda: 0))
-    stack.enter_context(mock.patch.object(LeafKey, "generator",
+    stack.enter_context(mock.patch.object(LeafKey, "_generator",
                                           _host_generator))
     return stack
 
 
 @contextlib.contextmanager
 def _recording(branch: Branch, device: str):
+    from grace_tpu_torch import core
+
     rec = _Recorder(branch)
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
-    prev_stack, prev_rec = scopes.STAGE_STACK, _fake_ops.RECORDER
-    scopes.STAGE_STACK, _fake_ops.RECORDER = rec.stack, rec
+    prev = scopes.STAGE_STACK, _fake_ops.RECORDER, core.DRAW_RECORDER
+    scopes.STAGE_STACK, _fake_ops.RECORDER, core.DRAW_RECORDER = \
+        rec.stack, rec, rec
     try:
         with _cuda_patches(device), fake_mode, _DispatchRecorder(rec), \
                 _FunctionMode(rec):
             yield rec
     finally:
-        scopes.STAGE_STACK, _fake_ops.RECORDER = prev_stack, prev_rec
+        scopes.STAGE_STACK, _fake_ops.RECORDER, core.DRAW_RECORDER = prev
 
 
 # -- the traced graph --------------------------------------------------------------
@@ -652,16 +744,24 @@ def _recording(branch: Branch, device: str):
 class TracedGraph:
     """One audited step: the record plus audit context.
 
-    ``world`` is the size of the exchange (dp) axis (the traced rank is
-    rank 0), ``mesh_axes`` the axis names (dp first) with ``axis_sizes``;
-    rank ``r`` of a 2-D mesh sits at ``(r // fsdp, r % fsdp)``.
-    ``seeds[axis][vid]``: the rank variance of each root value over each
-    axis. ``grad_in``: the gradient (or batch) values, the dependence
-    graph's bucket roots. ``state_in``/``state_out``: aligned ``(path,
-    signature)`` lists of the transform state before and after the update
-    (update traces only), ``state_replicated`` the replicated state
-    tensors' ``(path, (shape, dtype))``. ``meta``: what findings report
-    (``grace``, ``param_structs``, ...)."""
+    ``world`` is the size of the exchange (dp) axis, ``rank`` the traced
+    rank (0 unless asked), ``mesh_axes`` the axis names (dp first) with
+    ``axis_sizes``; rank ``r`` of a 2-D mesh sits at ``(r // fsdp, r %
+    fsdp)``. ``seeds[axis][vid]``: the rank variance of each root value
+    over each axis. ``grad_in``: the gradient (or batch) values, the
+    dependence graph's bucket roots. ``state_in``/``state_out``: aligned
+    ``(path, signature)`` lists of the transform state before and after
+    the update (update traces only), ``state_replicated`` the replicated
+    state tensors' ``(path, (shape, dtype))``. ``leaves_in``/
+    ``leaves_out``: ``(path, identity)`` of the state before and after the
+    step, a :class:`TensorRef` for a tensor and the value itself for a
+    host leaf (train traces: ``params/...`` and ``grace/...``).
+    ``guard_probe`` (guarded train traces): the guarded update's own
+    state going in and coming out, settled under each verdict
+    (:func:`trace_train_step`). ``scans``: the values of the step's
+    non-finite tests. ``meta``: what findings report (``grace``,
+    ``param_structs``, ...). :meth:`twin` is the same trace taken as the
+    last rank."""
 
     name: str
     nodes: List[Node]
@@ -681,8 +781,18 @@ class TracedGraph:
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     branch: str = "base"
     start: int = 0
-    # The traced rank: every trace is rank 0's program.
-    rank = 0
+    rank: int = 0
+    leaves_in: List[Tuple[str, Any]] = dataclasses.field(
+        default_factory=list)
+    leaves_out: List[Tuple[str, Any]] = dataclasses.field(
+        default_factory=list)
+    guard_probe: Optional[Dict[str, Any]] = None
+    scans: Set[int] = dataclasses.field(default_factory=set)
+    # ``retrace(rank, reads)``: this trace again as ``rank``, its host
+    # reads stubbed by ``reads``.
+    retrace: Optional[Callable] = dataclasses.field(default=None,
+                                                    repr=False)
+    _twin: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def step_nodes(self) -> List[Node]:
@@ -744,11 +854,72 @@ class TracedGraph:
         ``torch.cuda.set_sync_debug_mode`` flags)."""
         return [n for n in self.step_nodes if n.attrs.get("sync")]
 
+    @property
+    def draws(self) -> List[Node]:
+        """The step's ``LeafKey`` consumptions, in order."""
+        return [n for n in self.step_nodes if n.kind == "draw"]
+
     def kernel_counts(self) -> Dict[str, int]:
         out: Dict[str, int] = {}
         for n in self.kernels:
             out[n.name] = out.get(n.name, 0) + 1
         return out
+
+    def twin(self) -> Optional["TracedGraph"]:
+        """This trace again as the rank at the other end of the world:
+        ``n_ranks − 1`` for rank 0, else 0 (None at one rank), made once.
+        Every host read gets the stub it got here, but a read of a value
+        that varies by rank here, which gets another one (a bool flipped,
+        a number plus one): what a host field or a branch computes from
+        such a read then differs between the two traces. Raises what that
+        trace raises."""
+        if self.n_ranks == 1 or self.retrace is None:
+            return None
+        if self._twin is None:
+            from grace_tpu_torch.analysis.passes import replication
+
+            var = replication(self)
+            varying = {n.attrs["index"] for n in self.nodes
+                       if n.kind == "host_read"
+                       and any(var[a].get(n.ins[0], False)
+                               for a in self.axes)}
+            other = self.n_ranks - 1 if self.rank != self.n_ranks - 1 \
+                else 0
+            self._twin = self.retrace(other, varying)
+        return self._twin
+
+
+def _perturbed(reads, varying):
+    """A stub chooser: ``reads``' stubs, but for the reads whose index is
+    in ``varying``, which get another value."""
+    def choose(req: HostRead):
+        chosen = reads(req) if reads is not None else None
+        if req.index not in varying:
+            return chosen
+        dt = _np_dtype(req.dtype)
+        arr = (np.zeros(req.shape, dt) if chosen is None
+               else np.asarray(chosen, dtype=dt).reshape(req.shape))
+        return ~arr if arr.dtype == np.bool_ else arr + 1
+    return choose
+
+
+def _retracer(entry, branch: Branch, **kwargs):
+    """``retrace(rank, varying)`` of a trace made by ``entry(**kwargs)``
+    under ``branch`` (:meth:`TracedGraph.twin`)."""
+    def retrace(rank: int, varying):
+        return entry(**kwargs, rank=rank, branch=dataclasses.replace(
+            branch, reads=_perturbed(branch.reads, varying)))
+    return retrace
+
+
+def _ref(rec: "_Recorder", t: torch.Tensor) -> TensorRef:
+    return TensorRef(_storage_key(t), rec.read(t))
+
+
+def _identities(rec: "_Recorder", leaves) -> List[Tuple[str, Any]]:
+    """``(path, TensorRef or host value)`` of ``state_leaves``' output."""
+    return [(p, _ref(rec, x) if isinstance(x, torch.Tensor) else x)
+            for p, x in leaves]
 
 
 def _layout(world: int, fsdp: Optional[int], fsdp_axis: Optional[str]):
@@ -779,8 +950,11 @@ def trace_fn(fn, args: Sequence[Any], *, world: int = 8,
              name: str = "fn", meta: Optional[dict] = None,
              mesh_axes: Optional[Sequence[Tuple[str, int]]] = None,
              varying_axes: Optional[Dict[str, Sequence[bool]]] = None,
-             branch: Optional[Branch] = None) -> TracedGraph:
-    """Trace ``fn(*tensors)`` as rank 0 of a fake world.
+             branch: Optional[Branch] = None,
+             state: Optional[Sequence[str]] = None,
+             host: Optional[Dict[str, Any]] = None,
+             rank: int = 0) -> TracedGraph:
+    """Trace ``fn(*tensors)`` as ``rank`` (default 0) of a fake world.
 
     ``args`` are tensors or ``(shape, dtype)`` pairs, made fake on
     ``device``; ``varying`` flags each as rank-varying (default: all, the
@@ -789,7 +963,14 @@ def trace_fn(fn, args: Sequence[Any], *, world: int = 8,
     ``dp·fsdp`` ranks instead of the 1-D ``(data, world)``. ``fn`` calls
     ``torch.distributed`` on the default (fake) group. The low-level entry
     the seeded-hazard tests use; config audits go through
-    :func:`trace_update` and :func:`trace_train_step`."""
+    :func:`trace_update` and :func:`trace_train_step`.
+
+    State, for the state passes: ``state`` names the first
+    ``len(state)`` args as state leaves (paths as GraceState's:
+    ``mem/w``, ``count``, ...); each leaves the step as the tensor ``fn``
+    returns at its position, or else as the arg itself (written in place
+    or not). ``host``: host leaves by path; ``fn`` is then called as
+    ``fn(*tensors, fields)`` with a copy of it to update."""
     layout = (tuple((str(n), int(s)) for n, s in mesh_axes)
               if mesh_axes is not None else ((DEFAULT_AXIS, int(world)),))
     axes = tuple(a for a, _ in layout)
@@ -803,17 +984,39 @@ def trace_fn(fn, args: Sequence[Any], *, world: int = 8,
     masks = {a: list(varying_axes[a]) if varying_axes and a in varying_axes
              else mask for a in axes}
     branch = branch or Branch()
-    with fake_world(n_ranks), _recording(branch, device) as rec:
+    paths = list(state or ())
+    with fake_world(n_ranks, rank), _recording(branch, device) as rec:
         with rec.quiet():
             tensors = [_empty(s, d, device) for s, d in structs]
         vids = [rec.root(t, f"arg{i}") for i, t in enumerate(tensors)]
-        fn(*tensors)
+        leaves_in = _identities(rec, zip(paths, tensors))
+        fields = dict(host) if host is not None else None
+        if fields is not None:
+            leaves_in += sorted(fields.items())
+            out = fn(*tensors, fields)
+        else:
+            out = fn(*tensors)
+        outs = list(out) if isinstance(out, (tuple, list)) else []
+        leaves_out = _identities(rec, (
+            (p, outs[i] if i < len(outs)
+             and isinstance(outs[i], torch.Tensor) else tensors[i])
+            for i, p in enumerate(paths)))
+        if fields is not None:
+            leaves_out += sorted(fields.items())
     seeds = {a: {v: bool(m) for v, m in zip(vids, masks[a])} for a in axes}
     return TracedGraph(name=name, nodes=rec.nodes, values=rec.values,
                        world=sizes[axes[0]], device=device,
                        mesh_axes=axes, axis_sizes=sizes, seeds=seeds,
                        grad_in=list(vids), meta=dict(meta or {}),
-                       branch=branch.label)
+                       branch=branch.label, rank=rank,
+                       leaves_in=leaves_in, leaves_out=leaves_out,
+                       scans=set(rec.scans),
+                       retrace=_retracer(
+                           trace_fn, branch, fn=fn, args=args, world=world,
+                           device=device, varying=varying, name=name,
+                           meta=meta, mesh_axes=mesh_axes,
+                           varying_axes=varying_axes, state=state,
+                           host=host))
 
 
 # -- state flattening ------------------------------------------------------------
@@ -935,9 +1138,10 @@ def _apply_branch(state, branch: Branch):
 def trace_update(grace, *, world: int = 8, params=None,
                  name: str = "update", meta: Optional[dict] = None,
                  fsdp: Optional[int] = None, device: str = "cuda",
-                 branch: Optional[Branch] = None) -> TracedGraph:
+                 branch: Optional[Branch] = None, rank: int = 0
+                 ) -> TracedGraph:
     """Trace one ``GraceTransform.update`` (the whole pipeline, the escape
-    and telemetry included) at ``world`` ranks, as rank 0.
+    and telemetry included) at ``world`` ranks, as ``rank`` (default 0).
 
     ``grace`` is a ``Grace`` bundle (``helper.grace_from_params``), an
     object with ``.transform(seed)`` and ``.communicator``, or a params
@@ -951,10 +1155,13 @@ def trace_update(grace, *, world: int = 8, params=None,
     ``"cuda"`` traces the card's route (the kernel wrappers' fake
     branches), ``"cpu"`` the plain versions."""
     branch = branch or Branch()
+    retrace = _retracer(trace_update, branch, grace=grace, world=world,
+                        params=params, name=name, meta=meta, fsdp=fsdp,
+                        device=device)
     mesh_axes, sizes, dp = _layout(world, fsdp, _fsdp_axis(grace))
     params = params if params is not None else default_param_structs()
     params = {k: _struct_of(v) for k, v in params.items()}
-    with fake_world(math.prod(sizes.values())), \
+    with fake_world(math.prod(sizes.values()), rank), \
             _recording(branch, device) as rec:
         with rec.quiet():
             grace = _prepare_grace(grace, mesh_axes, sizes)
@@ -995,8 +1202,11 @@ def trace_update(grace, *, world: int = 8, params=None,
                       if isinstance(x, torch.Tensor)
                       and not _is_varying_field(p)]
         grad_in = [rec.read(grads[k]) for k in leaf_order(grads)]
+        leaves_in = _identities(rec, leaves)
         _updates, new_state = tx.update(grads, state)
-        state_out = [(p, _signature(x)) for p, x in state_leaves(new_state)]
+        leaves = state_leaves(new_state)
+        state_out = [(p, _signature(x)) for p, x in leaves]
+        leaves_out = _identities(rec, leaves)
     given = meta is not None and "grace" in meta
     meta = dict(meta or {})
     meta.setdefault("grace", grace)
@@ -1007,7 +1217,10 @@ def trace_update(grace, *, world: int = 8, params=None,
                        mesh_axes=mesh_axes, axis_sizes=sizes, seeds=seeds,
                        grad_in=grad_in, state_in=state_in,
                        state_out=state_out, state_replicated=replicated,
-                       meta=meta, branch=branch.label, start=start)
+                       meta=meta, branch=branch.label, start=start,
+                       rank=rank, leaves_in=leaves_in,
+                       leaves_out=leaves_out, scans=set(rec.scans),
+                       retrace=retrace)
 
 
 class _AuditModel(torch.nn.Module):
@@ -1031,7 +1244,33 @@ def _audit_loss(model: _AuditModel, batch) -> torch.Tensor:
     return torch.nn.functional.cross_entropy(logits, y)
 
 
-def _gradient_roots(model: _AuditModel, loss_fn, rec: _Recorder,
+class _StructModel(torch.nn.Module):
+    """Parameters of the given ``{dotted name: (shape, dtype)}`` (nested
+    modules, so that they keep their names) under :func:`_struct_loss`:
+    a model's leaves without its layers."""
+
+    def __init__(self, params, device):
+        super().__init__()
+        for name, (shape, dtype) in params.items():
+            *path, leaf = name.split(".")
+            mod = self
+            for part in path:
+                if not hasattr(mod, part):
+                    mod.add_module(part, torch.nn.Module())
+                mod = getattr(mod, part)
+            mod.register_parameter(leaf, torch.nn.Parameter(
+                _empty(shape, dtype, device)))
+
+
+def _struct_loss(model: _StructModel, batch) -> torch.Tensor:
+    """Every parameter's square sum scaled by the batch's mean: each
+    gradient reads its parameter and the (rank-varying) batch."""
+    x, _y = batch
+    return sum(p.float().square().sum()
+               for p in model.parameters()) * x.mean()
+
+
+def _gradient_roots(model: torch.nn.Module, loss_fn, rec: _Recorder,
                     grads: Dict[str, int]):
     """``loss_fn`` with two hooks on the backward pass. Each parameter's
     gradient value is noted in ``grads`` as it lands (a post-accumulate
@@ -1069,32 +1308,124 @@ def _gradient_roots(model: _AuditModel, loss_fn, rec: _Recorder,
     return loss
 
 
+class _GuardProbe:
+    """A guarded chain whose ``apply`` is observed once armed
+    (:func:`trace_train_step`): the state it takes and the state it
+    returns, that state settled under a bad and under a good verdict
+    (the verdict's read stubbed quietly: the step's own read, later,
+    is recorded as always), and the verdict flags' value."""
+
+    _VERDICTS = (("bad", (1, 0)), ("good", (0, 1)))
+
+    def __init__(self, tx, rec: "_Recorder"):
+        self._tx, self._rec = tx, rec
+        self.armed = False
+        self.probe: Optional[Dict[str, Any]] = None
+
+    def __getattr__(self, name):
+        return getattr(self._tx, name)
+
+    def apply(self, params, grads, state, optimizer):
+        from grace_tpu_torch.resilience.guard import _COUNTERS, GuardState
+
+        if not self.armed:
+            return self._tx.apply(params, grads, state, optimizer)
+        rec = self._rec
+        state.settle()                  # what apply does first
+        probe = {"in": _identities(rec, _step_leaves(params, optimizer,
+                                                     state))}
+        out = self._tx.apply(params, grads, state, optimizer)
+        probe["out"] = _identities(rec, _step_leaves(params, optimizer, out))
+        pending = out._pending
+        probe["flags"] = rec.read(pending.flags.host)
+        saved = {p: dict(st) for p, st in optimizer.state.items()}
+        for label, flags in self._VERDICTS:
+            settled = GuardState(inner=out._inner, pending=pending,
+                                 host_step=out.host_step,
+                                 **{n: getattr(out, n) for n in _COUNTERS})
+            rec.forced = _verdict_stub(flags)
+            try:
+                with rec.quiet():
+                    settled.settle()
+            finally:
+                rec.forced = None
+            probe[label] = _identities(rec, _step_leaves(params, optimizer,
+                                                         settled))
+            for p, st in saved.items():      # a bad verdict's restores
+                optimizer.state[p].clear()
+                optimizer.state[p].update(st)
+        self.probe = probe
+        return out
+
+
+# The guard's read of its [bad, fallback] pair (passes.HOST_READ_CONTRACT).
+GUARD_READ_SITE = "resilience/guard.py:read"
+
+
+def _verdict_stub(flags):
+    """A stub chooser giving the guard's read ``flags``: the whole pair,
+    or one element a read (``tolist`` of a fake tensor reads each)."""
+    left = list(flags)
+
+    def choose(req: HostRead):
+        if req.site != GUARD_READ_SITE:
+            return None
+        if req.shape:
+            return np.asarray(flags)
+        return left.pop(0)
+    return choose
+
+
+def _step_leaves(params, optimizer, grace_state) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` of a train step's state: ``params/<name>``,
+    ``opt/<name>/<key>`` (the optimizer's per-parameter state) and
+    ``grace/...`` (:func:`state_leaves`)."""
+    out: List[Tuple[str, Any]] = []
+    for name, p in params.items():
+        out.append((f"params/{name}", p))
+        for key, v in sorted(optimizer.state.get(p, {}).items()):
+            out.append((f"opt/{name}/{key}", v))
+    return out + state_leaves(grace_state, "grace/")
+
+
 def trace_train_step(grace, *, world: int = 8, guard: Optional[dict] = None,
                      consensus=None, name: str = "train_step",
                      meta: Optional[dict] = None, fsdp: Optional[int] = None,
-                     device: str = "cuda", branch: Optional[Branch] = None
-                     ) -> TracedGraph:
+                     device: str = "cuda", branch: Optional[Branch] = None,
+                     rank: int = 0, params=None) -> TracedGraph:
     """Trace one ``train.make_train_step`` step (forward and backward, the
     exchange, SGD(0.1), the optional guard and the consensus audit) at
-    ``world`` ranks, as rank 0, on the JAX package's audit model
-    with a local batch of 4 rows. ``guard``: ``guarded_chain``'s keyword
-    arguments (None: no guard); ``consensus``: the audit's config. A
-    ``branch`` with ``audit=True`` places the step on the audit clock's
-    boundary; ``fallback=True`` opens the escape window."""
+    ``world`` ranks, as ``rank`` (default 0), on the JAX package's audit
+    model with a local batch of 4 rows. ``guard``: ``guarded_chain``'s
+    keyword arguments (None: no guard); ``consensus``: the audit's config.
+    A ``branch`` with ``audit=True`` places the step on the audit clock's
+    boundary; ``fallback=True`` opens the escape window. With a guard, the
+    traced step's ``GuardTransform.apply`` is probed (``guard_probe``).
+    ``params`` (``{name: (shape, dtype)}``, e.g. ResNet-50's 161 leaves)
+    replaces the audit model by a model of those leaves alone, whose loss
+    makes each gradient read its parameter and the batch."""
     from grace_tpu_torch.resilience import guarded_chain
     from grace_tpu_torch.resilience.consensus import normalize_consensus
     from grace_tpu_torch.train import TrainState, make_train_step
 
     branch = branch or Branch()
+    retrace = _retracer(trace_train_step, branch, grace=grace, world=world,
+                        guard=guard, consensus=consensus, name=name,
+                        meta=meta, fsdp=fsdp, device=device, params=params)
     mesh_axes, sizes, dp = _layout(world, fsdp, _fsdp_axis(grace))
     (_, (dim, classes)), _ = _DEFAULT_PARAMS
-    with fake_world(math.prod(sizes.values())), \
+    with fake_world(math.prod(sizes.values()), rank), \
             _recording(branch, device) as rec:
         with rec.quiet():
             grace = _prepare_grace(grace, mesh_axes, sizes)
-            tx = (guarded_chain(grace, seed=0, **guard) if guard is not None
-                  else grace.transform(seed=0))
-            model = _AuditModel(device)
+            tx = (_GuardProbe(guarded_chain(grace, seed=0, **guard), rec)
+                  if guard is not None else grace.transform(seed=0))
+            if params is None:
+                model, loss_fn = _AuditModel(device), _audit_loss
+            else:
+                model = _StructModel({k: _struct_of(v)
+                                      for k, v in params.items()}, device)
+                loss_fn = _struct_loss
             optimizer = torch.optim.SGD(model.parameters(), lr=0.1)
             named = dict(model.named_parameters())
             with torch.no_grad():      # no autograd on fake CUDA tensors
@@ -1112,7 +1443,7 @@ def trace_train_step(grace, *, world: int = 8, guard: Optional[dict] = None,
             y = _empty((4,), torch.int64, _CPU)
         mesh = getattr(grace, "mesh", None)
         grad_vids: Dict[str, int] = {}
-        step = make_train_step(_gradient_roots(model, _audit_loss, rec,
+        step = make_train_step(_gradient_roots(model, loss_fn, rec,
                                                grad_vids), tx,
                                consensus=consensus,
                                mesh=mesh if mesh is not None
@@ -1139,7 +1470,13 @@ def trace_train_step(grace, *, world: int = 8, guard: Optional[dict] = None,
             state, _ = step(state, (x, y))
         start = len(rec.nodes)
         grad_vids.clear()
-        step(state, (x, y))
+        leaves_in = _identities(rec, _step_leaves(named, optimizer,
+                                                  state.grace))
+        if guard is not None:
+            tx.armed = True
+        state, _ = step(state, (x, y))
+        leaves_out = _identities(rec, _step_leaves(named, optimizer,
+                                                   state.grace))
         from grace_tpu_torch.transform import leaf_order
         grad_in = [grad_vids[k] for k in leaf_order(grad_vids)]
     meta = dict(meta or {})
@@ -1150,4 +1487,7 @@ def trace_train_step(grace, *, world: int = 8, guard: Optional[dict] = None,
                        world=dp, device=device,
                        mesh_axes=mesh_axes, axis_sizes=sizes, seeds=seeds,
                        grad_in=grad_in, meta=meta, branch=branch.label,
-                       start=start)
+                       start=start, rank=rank, leaves_in=leaves_in,
+                       leaves_out=leaves_out,
+                       guard_probe=tx.probe if guard is not None else None,
+                       scans=set(rec.scans), retrace=retrace)

@@ -318,6 +318,14 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+# The static auditor's recorder of the trace in progress (analysis.trace
+# sets and clears it), else None: LeafKey notes each draw on it.
+DRAW_RECORDER = None
+
+# The state fields the transform's step keys are read from.
+STEP_KEY_FIELDS = ("seed", "count")
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafKey:
     """The random stream of one gradient leaf at one step.
@@ -341,12 +349,21 @@ class LeafKey:
     a group's rows with it (``leaf`` is then the group's index).
     :meth:`seed_int32` is the counterpart of ``jax.random.randint(key, (),
     0, 2**31 - 1, int32)``: a host-side seed for the kernels' counter hash.
+
+    ``fields`` names the state fields ``seed`` and ``count`` were read
+    from (the transform's step keys: ``STEP_KEY_FIELDS``); empty for a key
+    built from constants. It takes no part in the stream or in equality:
+    the static auditor reads it as the draw's lineage root. While the
+    auditor records a trace, every consumption of a key (each method
+    below but :meth:`fold` and :meth:`split`) is noted on its recorder
+    (:data:`DRAW_RECORDER`); otherwise that costs one module-level check.
     """
 
     seed: int
     count: int
     leaf: int
     folds: Tuple[int, ...] = ()
+    fields: Tuple[str, ...] = dataclasses.field(default=(), compare=False)
 
     def derived_seed(self) -> int:
         s = _splitmix64(self.seed & _MASK64)
@@ -360,43 +377,57 @@ class LeafKey:
         """The key of sub-stream ``i`` (``jax.random.fold_in(key, i)``)."""
         return dataclasses.replace(self, folds=self.folds + (int(i),))
 
+    def _note(self, method: str, shape, dtype: str) -> None:
+        rec = DRAW_RECORDER
+        if rec is not None:
+            rec.draw(self, method, tuple(shape), dtype)
+
     def seed_int32(self) -> int:
         """A seed in ``[0, 2**31 - 1)``, drawn on the host from this key."""
+        self._note("seed_int32", (), "int32")
         return self.derived_seed() % (2**31 - 1)
 
-    def generator(self, device) -> torch.Generator:
-        """A fresh generator on ``device`` seeded by the contract above."""
+    def _generator(self, device) -> torch.Generator:
         gen = torch.Generator(device=device)
         gen.manual_seed(self.derived_seed())
         return gen
+
+    def generator(self, device) -> torch.Generator:
+        """A fresh generator on ``device`` seeded by the contract above."""
+        self._note("generator", (), "generator")
+        return self._generator(device)
 
     def uniform(self, shape, device) -> torch.Tensor:
         """Float32 uniforms in ``[0, 1)`` from this key's stream: the one
         place the staged stochastic codecs draw their noise (the
         counterpart of ``jax.random.uniform(key, shape)``)."""
-        return torch.rand(shape, generator=self.generator(device),
+        self._note("uniform", shape, "float32")
+        return torch.rand(shape, generator=self._generator(device),
                           device=device, dtype=torch.float32)
 
     def permutation(self, n: int, device) -> torch.Tensor:
         """A permutation of ``range(n)`` (int64) from this key's stream,
         the same on every rank for the same key (the counterpart of
         ``jax.random.permutation(key, n)``, whose bits differ)."""
-        return torch.randperm(n, generator=self.generator(device),
+        self._note("permutation", (n,), "int64")
+        return torch.randperm(n, generator=self._generator(device),
                               device=device)
 
     def randint(self, shape, low: int, high: int, device) -> torch.Tensor:
         """Int32 integers in ``[low, high)`` from this key's stream (the
         counterpart of ``jax.random.randint(key, shape, low, high)``,
         whose bits differ)."""
+        self._note("randint", shape, "int32")
         return torch.randint(low, high, tuple(shape),
-                             generator=self.generator(device), device=device,
+                             generator=self._generator(device), device=device,
                              dtype=torch.int32)
 
     def normal(self, shape, device) -> torch.Tensor:
         """Float32 standard normals from this key's stream (the
         counterpart of ``jax.random.normal(key, shape)``, whose bits
         differ)."""
-        return torch.randn(tuple(shape), generator=self.generator(device),
+        self._note("normal", shape, "float32")
+        return torch.randn(tuple(shape), generator=self._generator(device),
                            device=device, dtype=torch.float32)
 
     def split(self, n: int = 2) -> Tuple["LeafKey", ...]:

@@ -91,9 +91,9 @@ from typing import (Dict, List, Mapping, NamedTuple, Optional, Sequence,
 
 import torch
 
-from grace_tpu_torch.core import (Communicator, Compressor, LeafKey,
-                                  LinkBytes, Memory, State, Topology,
-                                  negotiation_bytes_for)
+from grace_tpu_torch.core import (STEP_KEY_FIELDS, Communicator,
+                                  Compressor, LeafKey, LinkBytes, Memory,
+                                  State, Topology, negotiation_bytes_for)
 from grace_tpu_torch.telemetry.aggregate import (WatchConfig, WatchState,
                                                  normalize_watch,
                                                  watch_gather_bytes,
@@ -450,6 +450,12 @@ def _absmax(tensors) -> torch.Tensor:
 _REINIT = ("the state was built under a different fusion setting. Re-init "
            "the optimizer state (or restore a checkpoint written with the "
            "same fusion config).")
+
+
+def _step_key(state: "GraceState", i: int) -> LeafKey:
+    """Position ``i``'s random stream at this step: the state's ``seed``
+    and ``count``, named in the key for the static auditor."""
+    return LeafKey(state.seed, state.count, i, fields=STEP_KEY_FIELDS)
 
 
 class AuditState(NamedTuple):
@@ -954,7 +960,7 @@ class GraceTransform:
             for i, g in enumerate(leaves):
                 payload, ctx, _ = self.escape.compress(
                     g, self.escape.init_state(g),
-                    LeafKey(state.seed, state.count, i))
+                    _step_key(state, i))
                 outs.append(allreduce.exchange(payload, ctx, self.escape)
                             .to(g.dtype))
         return outs, state.mem, state.comp
@@ -971,17 +977,17 @@ class GraceTransform:
         if self._grouped:
             items = []
             for gi, idxs in enumerate(_group_views(leaves)):
-                keys = LeafKey(state.seed, state.count, gi).split(len(idxs))
+                keys = _step_key(state, gi).split(len(idxs))
                 comps = _unstack_state(state.comp[gi], len(idxs))
                 items += [(leaves[i], cs, key, codec)
                           for i, cs, key in zip(idxs, comps, keys)]
             return items
         if self._bucketed:
-            return [(f, state.comp[b], LeafKey(state.seed, state.count, b),
+            return [(f, state.comp[b], _step_key(state, b),
                      codec) for b, f in enumerate(plan[1])]
         codecs = ([c for c, _, _ in self.leaf_triads(names)] if self.routes
                   else [codec] * len(leaves))
-        return [(g, state.comp[i], LeafKey(state.seed, state.count, i), c)
+        return [(g, state.comp[i], _step_key(state, i), c)
                 for i, (g, c) in enumerate(zip(leaves, codecs))]
 
     def _codec_error_sq(self, names, leaves, plan, state: GraceState,
@@ -1150,7 +1156,7 @@ class GraceTransform:
         partitioned by triad, in order of each triad's first leaf, and each
         part runs through its communicator's ``step_leaves``; every leaf
         keeps its own key."""
-        keys = [LeafKey(state.seed, state.count, i)
+        keys = [_step_key(state, i)
                 for i in range(len(names))]
         triads = (self.leaf_triads(names) if self.routes
                   else [(codec, self.memory, self.communicator)]
@@ -1191,7 +1197,7 @@ class GraceTransform:
             o, ms, cs = self.communicator.step_rows(
                 [leaves[i] for i in idxs], _unstack_state(state.mem[gi], g),
                 _unstack_state(state.comp[gi], g), self.memory, codec,
-                LeafKey(state.seed, state.count, gi).split(g))
+                _step_key(state, gi).split(g))
             for i, oi in zip(idxs, o):
                 outs[i] = oi
             mem.append(_stack_states(ms))
@@ -1204,17 +1210,27 @@ class GraceTransform:
         leaves concatenated at the common dtype (``plan``:
         :meth:`_bucket_buffers` of them), one ``step`` under
         ``LeafKey(seed, count, b)`` with the bucket's own states, the result
-        split back into the leaves and each cast to its dtype."""
+        split back into the leaves and each cast to its dtype. Each bucket
+        is its own ``step_leaves`` call under ``grace/bucket/<b>``, as in
+        the JAX package: a communicator that groups leaves (the grouped
+        Top-K, the grouped vote) would otherwise join the buckets into one
+        compress, and no bucket's exchange could start before the last
+        bucket's gradient."""
         buckets, flats = plan
         if len(state.mem) != len(buckets):
             raise ValueError(
                 f"grace state has {len(state.mem)} buffers but the fusion "
                 f"plan has {len(buckets)} buckets — {_REINIT}")
+        out_flats, mem, comp = [], [], []
         with trace_stage(STAGE_BUCKET):
-            out_flats, mem, comp = self.communicator.step_leaves(
-                flats, state.mem, state.comp, self.memory, codec,
-                [LeafKey(state.seed, state.count, b)
-                 for b in range(len(buckets))])
+            for b, flat in enumerate(flats):
+                with trace_stage(f"{STAGE_BUCKET}/{b}"):
+                    o, m, c = self.communicator.step_leaves(
+                        [flat], [state.mem[b]], [state.comp[b]],
+                        self.memory, codec, [_step_key(state, b)])
+                out_flats += list(o)
+                mem += list(m)
+                comp += list(c)
         outs = [None] * len(leaves)
         for idxs, out in zip(buckets, out_flats):
             off = 0

@@ -105,8 +105,8 @@ def run_cli(out_dir, shard: str) -> dict:
 
 
 def jax_audit(name: str) -> dict:
-    """The JAX package's audit of registry entry ``name`` over the ported
-    passes: its findings, its counted received bytes (the traced graph's,
+    """The JAX package's audit of registry entry ``name`` over its passes
+    (all ten, as the port's): its findings, its counted received bytes (the traced graph's,
     cond branches at their larger count) and, in update mode, its
     footprint model at the audit world."""
     from grace_tpu.analysis import AUDIT_CONFIGS as JAX_CONFIGS
@@ -127,10 +127,9 @@ def jax_audit(name: str) -> dict:
     else:
         t = jtu(grace, world=world, name=name, meta=meta,
                 fsdp=entry.get("fsdp"))
-    passes = tuple(p for p in entry["passes"] if p in PASS_NAMES)
     out = {"entry": entry,
            "findings": {(f.config, f.pass_name, f.severity)
-                        for f in run_passes(t, passes)},
+                        for f in run_passes(t, tuple(entry["passes"]))},
            "recv_bytes": jax_count(t.body, t.axis_name, t.world)}
     if entry["mode"] == "update":
         out["footprint"] = footprint_model(grace, jparams(), world=t.world)
@@ -145,8 +144,7 @@ def registry_parity(entry: dict, docs: dict) -> None:
     assert entry["params"] == j["params"]
     for key in ("mode", "guard", "consensus", "fsdp", "world"):
         assert entry.get(key) == j.get(key), key
-    assert tuple(entry["passes"]) == tuple(p for p in j["passes"]
-                                           if p in PASS_NAMES)
+    assert tuple(entry["passes"]) == tuple(j["passes"])
     for device, doc in docs.items():
         rep = doc["configs"][entry["name"]]
         found = {(f["config"], f["pass"], f["severity"])

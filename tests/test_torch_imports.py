@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, nothing of the JAX package, and no CUDA,
-nvcc or triton at import time."""
+"""The port stands alone: no JAX, nothing of the JAX package or of the
+repository's ``bench.py``, and no CUDA, nvcc or triton at import time."""
 
 import pathlib
 import re
@@ -14,8 +14,10 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 _IMPORT_ALL = r"""
 import sys
-# jax, the JAX package and triton are made unimportable; no CUDA is asked.
-for name in ("jax", "jaxlib", "optax", "flax", "grace_tpu", "triton"):
+# jax, the JAX package, bench.py and triton are made unimportable; no CUDA
+# is asked.
+for name in ("jax", "jaxlib", "optax", "flax", "grace_tpu", "triton",
+             "bench"):
     sys.modules[name] = None
 import importlib, pkgutil
 import grace_tpu_torch
@@ -25,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(n for n in sys.modules
-                if n.split(".")[0] in ("jax", "jaxlib", "grace_tpu", "triton")
+                if n.split(".")[0] in ("jax", "jaxlib", "grace_tpu", "triton",
+                                       "bench")
                 and sys.modules[n] is not None)
 print(",".join(names), leaked)
 """
@@ -100,6 +103,13 @@ ANALYSIS_MODULES = {
     *(f"grace_tpu_torch.analysis.{m}" for m in (
         "trace", "passes", "flow", "configs", "report", "__main__"))}
 
+# The auditor's repo rules and state passes, and the tuner.
+STATE_TUNING_MODULES = {
+    "grace_tpu_torch.analysis.rules", "grace_tpu_torch.analysis.state_passes",
+    "grace_tpu_torch.tuning",
+    *(f"grace_tpu_torch.tuning.{m}" for m in (
+        "cost", "candidates", "prune", "measure", "online", "__main__"))}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -120,6 +130,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert ADAPT_ELASTIC_MODULES <= names
     assert PROFILING_MESH_MODULES <= names
     assert ANALYSIS_MODULES <= names
+    assert STATE_TUNING_MODULES <= names
     assert leaked.strip() == "[]"
 
 
@@ -128,8 +139,9 @@ def test_sources_name_no_jax(path):
     text = path.read_text()
     assert "grace_tpu." not in text
     assert "import jax" not in text
-    assert not re.search(r"^\s*(from|import)\s+(jax|optax|flax|grace_tpu)\b",
-                         text, re.M)
+    assert not re.search(
+        r"^\s*(from|import)\s+(jax|optax|flax|grace_tpu|bench)\b", text,
+        re.M)
 
 
 def test_kernel_source_is_in_the_package():
