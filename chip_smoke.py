@@ -382,7 +382,37 @@ measured one started before phase 33's audits, beside them):
     launched in its timed steps (ops.launch_counts() around them), the
     winner and its overlap sandwich (the capture's measured overlap
     against the static bound). Fails unless the document is ok, the
-    sandwich holds and each named candidate launched its kernels.
+    sandwich holds and each named candidate launched its kernels. Its
+    winner is recorded as ``tune-winner`` in a temporary evidence ledger
+    (--ledger), which phase 35 reads.
+
+The online re-tuner (grace_tpu_torch.resilience.retune) and the evidence
+package (grace_tpu_torch.evidence):
+
+35. The retune drill of the JAX package's ``chaos_smoke --retune`` on
+    [5]'s HEADLINE at ResNet-50 width (batch 256, seed 0), W=1: the
+    incumbent topk1pct with the fp16 escape, telemetry and the audit
+    every 5 through guarded_chain, an IncidentRecorder and a JSONL sink on
+    its records. A healthy baseline, then fleet drift
+    (ChaosCompressor(drift_scale=RETUNE_DRIFT_SCALE, rank=None)) until
+    retune_drift, the guard silent; propose (the static funnel in a child
+    process, the toy shortlist with the incumbent and the candidate
+    forced in measured over the live group); a promotion to JAX's
+    candidate (PowerSGD rank 4, a rank-1 ladder: PREPARE's lint child,
+    migration, footprint and good checkpoint, COMMIT's barrier) through a
+    quiet probation, a promotion back to topk1pct through another, then a
+    promotion sabotaged with ChaosCompressor(nan_prob=1.0), which the
+    guard trips in probation and demote restores. Fails unless every
+    PREPARE leaves the incumbent's state_digest unchanged, the demotion is
+    bit-exact (the PREPARE-time witness), one topk1pct step after it
+    equals the same step of a twin taken from the PREPARE-time state (cuDNN
+    deterministic), the events come in order, the chunk kernels launch 2 +
+    1 a step on topk1pct and 0 under PowerSGD, an incident is written for
+    each trigger, the ledger's tune-winner and retune-drill records
+    (platform gpu, the card's name and power limit) verify through
+    gate_report as MEASURED (or as an unresolvable rev where the checkout
+    has no .git), and the summary renders the drill's document. Each leg's
+    time is printed beside the card's name and power limit.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -393,6 +423,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -5827,9 +5858,11 @@ def _tune_cli(out_dir: Path, name: str, *args: str) -> subprocess.Popen:
 def start_measured_tune(out: Path) -> subprocess.Popen:
     """[34]'s measured tune (the W8 shortlist and the named candidates on
     the card), started ahead of phase 33: it needs the card and little of
-    the host, so it runs while [33]'s audits trace."""
+    the host, so it runs while [33]'s audits trace. Its winner goes to the
+    evidence ledger ``out/ledger.jsonl`` ([35] reads it)."""
     return _tune_cli(out, "measured", "--topology", "8",
-                     *(a for n in TUNE_INCLUDE for a in ("--include", n)))
+                     *(a for n in TUNE_INCLUDE for a in ("--include", n)),
+                     "--ledger", str(out / "ledger.jsonl"))
 
 
 def tuner_phase(runs, smi, measured_proc: subprocess.Popen,
@@ -5912,6 +5945,501 @@ def tuner_phase(runs, smi, measured_proc: subprocess.Popen,
         f"{sandwich['static_overlap_bound']} (+{sandwich['slack']}): holds; "
         f"kernels {launches}; phase {seconds:.1f} s after [33] (the "
         f"measured tune ran beside [33]) | {smi}")
+
+
+# -- phase 35 -----------------------------------------------------------------
+
+RETUNE_WINDOW = 5                  # steps a drift window (and the ladder's)
+RETUNE_PROBATION = 5               # steps of probation after a cutover
+# The drift: every sent value lane scaled by 1 - RETUNE_DRIFT_SCALE (0: an
+# encoder that sends nothing, the compression error at its ceiling of 1).
+# The telemetry's error is relative (||g - decompress(compress(g))|| /
+# ||g||), and a Top-K at ratio r keeps at least the fraction r of the
+# energy, so a healthy topk1pct window's mean is at most sqrt(1 - 0.01):
+# RETUNE_DRIFT_ERROR, the controller's absolute threshold (drift_error).
+# JAX's drill's relative factor (1.4x the baseline) cannot fire on an error
+# this close to its ceiling; it stays armed beside the threshold.
+RETUNE_DRIFT_SCALE = 1.0
+RETUNE_DRIFT_ERROR = math.sqrt(1.0 - HEADLINE[1]["params"]["compress_ratio"])
+RETUNE_DRIFT_FACTOR = 1.4
+RETUNE_AUDIT_EVERY = 5
+RETUNE_GUARD_KW = {"fallback_after": 3, "fallback_steps": 4}
+RETUNE_LEG_TIMEOUT_S = 120.0
+RETUNE_DRIFT_WINDOWS = 4           # drifting windows allowed before failing
+# SGD with momentum: the optimizer has per-parameter state for PREPARE to
+# carry, the checkpoint to hold and the demotion to restore.
+RETUNE_SGD = {"lr": 1e-3, "momentum": 0.9}
+_NO_LAUNCHES: dict = {}
+
+
+def _retune_params():
+    """The drill's incumbent (the HEADLINE's topk1pct with the fp16 escape,
+    telemetry with the compression error and the audit every 5) and JAX's
+    candidate (tests/test_retune.py:326-330: PowerSGD rank 4 with a rank-1
+    ladder), on the same escape, telemetry and audit."""
+    from grace_tpu_torch.resilience import ConsensusConfig
+
+    consensus = ConsensusConfig(audit_every=RETUNE_AUDIT_EVERY)
+    common = {"escape": "fp16", "telemetry": GUARD_PARAMS["telemetry"],
+              "consensus": consensus}
+    incumbent = {**HEADLINE[1]["params"], **common}
+    candidate = {"compressor": "powersgd", "compress_rank": 4,
+                 "memory": "powersgd", "communicator": "allreduce",
+                 **common, "adapt": {"window": RETUNE_WINDOW,
+                                     "ladder": [{"compress_rank": 1}]}}
+    return incumbent, candidate
+
+
+def retune_phase(dev, group, x, y, runs, smi, out: Path) -> None:
+    """Phase 35 (module docstring): the retune drill on the HEADLINE, the
+    evidence records of [34] and [35] through the gate, the summary."""
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.checkpoint import Checkpointer
+    from grace_tpu_torch.evidence import (IncidentRecorder, gate_report,
+                                          latest_by_id, load_ledger,
+                                          record_artifact)
+    from grace_tpu_torch.evidence.incident import DEFAULT_TRIGGERS
+    from grace_tpu_torch.evidence.ledger import git_head_rev
+    from grace_tpu_torch.evidence.summary import sec_retune
+    from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.resilience import (ChaosCompressor,
+                                            RetuneController, guarded_chain,
+                                            replica_variants, state_digest)
+    from grace_tpu_torch.telemetry import (JSONLSink, MultiSink, Sink,
+                                           TelemetryReader, Timeline)
+    from grace_tpu_torch.train import (TrainState, init_stateful_train_state,
+                                       make_stateful_train_step)
+    from grace_tpu_torch.tuning.candidates import Candidate
+    from grace_tpu_torch.utils.logging import GuardMonitor, run_provenance
+    from grace_tpu_torch.utils.metrics import guard_report
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    incumbent, candidate = _retune_params()
+    chaos = {"drift": False, "nan": False}
+
+    def build(p):
+        """The run's chain factory; the chaos flags wrap the codec (and a
+        ladder's rungs) outside the controller, as JAX's drill does."""
+        grc = grace_from_params(p, group=group)
+        wraps = []
+        if chaos["drift"]:
+            wraps.append(lambda c: ChaosCompressor(
+                inner=c, drift_scale=RETUNE_DRIFT_SCALE, rank=None,
+                seed=SEED + 3, group=group))
+        if chaos["nan"]:
+            wraps.append(lambda c: ChaosCompressor(
+                inner=c, nan_prob=1.0, rank=0, seed=SEED + 5, group=group))
+        for wrap in wraps:
+            grc = dataclasses.replace(grc, compressor=wrap(grc.compressor))
+            if grc.adapt is not None:
+                grc = dataclasses.replace(grc, adapt=dataclasses.replace(
+                    grc.adapt, ladder=tuple(wrap(c)
+                                            for c in grc.adapt.ladder)))
+        return grc, guarded_chain(grc, seed=SEED, **RETUNE_GUARD_KW)
+
+    def step_of(tx, p):
+        return make_stateful_train_step(loss_fn, tx, group,
+                                        consensus=p["consensus"])
+
+    class Tape(Sink):
+        def __init__(self):
+            self.records = []
+
+        def write(self, rec):
+            self.records.append(dict(rec))
+
+    tape = Tape()
+    ledger = out / "ledger.jsonl"
+    jsonl = out / "phase35.jsonl"
+    prov = {"platform": "gpu", "device": smi, "n_devices": 1}
+    # Two flight recorders on one stream: one opens an incident on every
+    # trigger (each promotion and demotion), the other debounces at the
+    # JAX package's default gap, as its drill runs.
+    recorder = IncidentRecorder(str(out / "incidents"), run_tag="phase35",
+                                min_gap_steps=0, ledger_path=str(ledger),
+                                provenance=prov)
+    debounced = IncidentRecorder(str(out / "incidents_debounced"),
+                                 run_tag="phase35-debounced",
+                                 ledger_path=str(ledger), provenance=prov)
+    sink = MultiSink(JSONLSink(jsonl, provenance=run_provenance(
+        "synthetic", tool="chip_smoke.py [35]")), tape, recorder, debounced)
+    reader = TelemetryReader(sink, every=RETUNE_WINDOW)
+    monitor = GuardMonitor(printer=lambda *a: None, sink=sink)
+    ckpt = Checkpointer(out / "ckpt35", max_to_keep=2)
+    ctl = RetuneController(
+        build=build, params=incumbent, consensus=incumbent["consensus"],
+        checkpointer=ckpt, sink=sink, window=RETUNE_WINDOW,
+        drift_factor=RETUNE_DRIFT_FACTOR, drift_error=RETUNE_DRIFT_ERROR,
+        drift_windows=2,
+        probation_steps=RETUNE_PROBATION,
+        leg_timeout_s=RETUNE_LEG_TIMEOUT_S, leg_retries=1, audit_world=8,
+        group=group)
+
+    model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
+    _, tx = build(incumbent)
+    state = init_stateful_train_state(
+        model, tx, torch.optim.SGD(model.parameters(), **RETUNE_SGD), group)
+    steps = []                           # (label, step, launches)
+    errors = []                          # (step, compression_error)
+    clock = [0]
+
+    def run(state, step_fn, n, label, observe=False):
+        """``n`` steps (fewer when drift fires or probation trips):
+        ``(state, loss, drift_step, trigger)``."""
+        drift, trig, loss = None, None, None
+        for _ in range(n):
+            i = clock[0]
+            clock[0] += 1
+            before = ops.launch_counts()
+            state, loss = step_fn(state, (x, y))
+            now = ops.launch_counts()
+            steps.append((label, i, {k: v - before.get(k, 0)
+                                     for k, v in now.items()
+                                     if v - before.get(k, 0)}))
+            n0 = len(tape.records)
+            monitor.update(i, guard_report(state))
+            for row in reader.update(i, state):
+                err = row.get("compression_error")
+                errors.append((row["step"], err))
+                if observe and ctl.observe(row["step"], err) \
+                        and drift is None:
+                    drift = int(row["step"])
+            if ctl.phase == "probation":
+                trig = ctl.watch(i, tape.records[n0:])
+            if drift is not None or trig:
+                break
+        if not math.isfinite(float(loss)):
+            fail(f"[35] {label}: non-finite loss {float(loss)}")
+        return state, loss, drift, trig
+
+    def promote(state, params, label):
+        """PREPARE (the incumbent's digest unchanged) and COMMIT."""
+        pre = state_digest(state)
+        staged = ctl.prepare(clock[0], state, params)
+        if staged is None:
+            fail(f"[35] PREPARE aborted ({label}): {ctl.events[-1]}")
+        if state_digest(state) != pre or staged.lkg_digest != pre:
+            fail(f"[35] PREPARE ({label}) wrote the live state")
+        legs = dict(ctl.leg_seconds)
+        committed = ctl.commit(clock[0])
+        if committed is None:
+            fail(f"[35] COMMIT timed out ({label}): {ctl.events[-1]}")
+        state, (_, tx), ev = committed
+        legs["commit"] = ctl.leg_seconds["commit"]
+        return state, tx, ev, staged, legs, pre
+
+    # -- 1, 2: the incumbent, its baseline, then fleet drift ------------------
+    ops.reset_launch_counts()             # just before the drill's main path
+    step1 = step_of(tx, incumbent)
+    state, _, _, _ = run(state, step1, 1, "warm-up")
+    # Rows are windowed from step 0: the drift's onset on a window edge.
+    state, _, drift, _ = run(state, step1, 2 * RETUNE_WINDOW - 1,
+                             "incumbent", observe=True)
+    if drift is not None:
+        fail(f"[35] retune_drift at step {drift} on healthy windows: "
+             f"errors {errors}")
+    onset = clock[0]
+    chaos["drift"] = True
+    _, tx_drift = build(incumbent)
+    chaos["drift"] = False
+    state, _, drift, _ = run(state, step_of(tx_drift, incumbent),
+                             RETUNE_DRIFT_WINDOWS * RETUNE_WINDOW, "drift",
+                             observe=True)
+    guard_skips = guard_report(state)["notfinite_count"]
+    if drift is None or drift < onset or guard_skips:
+        fail(f"[35] fleet drift from step {onset}: retune_drift at "
+             f"{drift}, guard skips {guard_skips}; windows' errors {errors}")
+    log(f"[35] drift: baseline window mean "
+        f"{ctl.events[-1]['baseline']:.6f}, drifting window mean "
+        f"{ctl.events[-1]['window_mean']:.6f} (threshold "
+        f"{RETUNE_DRIFT_ERROR:.6f} or x{RETUNE_DRIFT_FACTOR} the baseline; "
+        f"drift_scale {RETUNE_DRIFT_SCALE} from step {onset}): retune_drift "
+        f"at step {drift}, the guard silent")
+
+    # -- 3: propose ------------------------------------------------------------
+    inc_triad = {k: v for k, v in incumbent.items()
+                 if k not in ("escape", "telemetry", "consensus")}
+    cand_params = {k: v for k, v in candidate.items() if k != "consensus"}
+    include = [Candidate("retune-incumbent", inc_triad, "generated", True),
+               Candidate("retune-candidate", cand_params, "generated")]
+    t0 = time.perf_counter()
+    funnel = ctl.propose(clock[0], "8", device=dev, model="toy",
+                         shortlist_n=2, timed_steps=2, repeats=1, seed=SEED,
+                         include=include)
+    propose_s = time.perf_counter() - t0
+    measure = [e for e in ctl.events if e["event"] == "retune_measure"]
+    if not measure or not measure[-1]["measured"]:
+        fail(f"[35] propose measured nothing: {ctl.events[-1]}")
+    static = (funnel or {}).get("static") or {}
+    log(f"[35] propose: the static funnel in a child process "
+        f"({ctl.leg_seconds['funnel']:.1f} s; shortlist "
+        f"{static.get('shortlist')}), the toy shortlist measured over the "
+        f"live group: {measure[-1]['measured']} measured, "
+        f"{measure[-1]['skipped']} skipped, winner "
+        f"{measure[-1]['winner']}; {propose_s:.1f} s | {smi}")
+
+    # -- 4: promote to JAX's candidate, a quiet probation ---------------------
+    state, tx2, ev_fwd, staged_fwd, legs_fwd, _ = promote(
+        state, candidate, "topk1pct -> powersgd ladder")
+    variants_fwd = replica_variants(state, group)
+    state, _, _, trig = run(state, step_of(tx2, candidate),
+                            RETUNE_PROBATION + 1, "powersgd")
+    if trig is not None or ctl.phase != "idle" or variants_fwd != 1:
+        fail(f"[35] the forward promotion's probation: trigger {trig}, "
+             f"phase {ctl.phase}, replica variants {variants_fwd}")
+
+    # -- 5: promote back to topk1pct ------------------------------------------
+    state, tx3, ev_back, staged_back, legs_back, _ = promote(
+        state, incumbent, "powersgd ladder -> topk1pct")
+    state, _, _, trig = run(state, step_of(tx3, incumbent),
+                            RETUNE_PROBATION + 1, "topk1pct back")
+    if trig is not None or ctl.phase != "idle":
+        fail(f"[35] the back promotion's probation: trigger {trig}, phase "
+             f"{ctl.phase}")
+    healthy_guard = [r for r in tape.records
+                     if str(r.get("event", "")).startswith("guard")]
+    if healthy_guard:
+        fail(f"[35] the guard fired in the healthy drill: {healthy_guard}")
+
+    # -- 6: the sabotaged promotion, demoted ----------------------------------
+    state.grace.settle()
+    twin_model = copy.deepcopy(state.model)
+    twin = TrainState(twin_model, torch.optim.SGD(twin_model.parameters(),
+                                                  **RETUNE_SGD),
+                      copy.deepcopy(state.grace))
+    twin.optimizer.load_state_dict(
+        copy.deepcopy(state.optimizer.state_dict()))
+    chaos["nan"] = True
+    try:
+        state, tx_sab, ev_sab, staged_sab, legs_sab, witness = promote(
+            state, candidate, "sabotaged powersgd ladder")
+    finally:
+        chaos["nan"] = False
+    state, _, _, trig = run(state, step_of(tx_sab, candidate),
+                            RETUNE_PROBATION + 1, "sabotaged")
+    if trig is None:
+        fail("[35] the sabotaged promotion survived its probation")
+    # The demotion takes the trigger's step: the guard's record carries the
+    # guard's own step count (guard_report's "step", the next step's).
+    trig_step = [r["step"] for r in tape.records
+                 if r.get("event") == trig][-1]
+    within = trig_step < ev_sab["probation_until"]
+    t0 = time.perf_counter()
+    state, (_, tx4), ev_dem = ctl.demote(trig_step, state, trigger=trig)
+    demote_ms = (time.perf_counter() - t0) * 1e3
+    restored_digest = state_digest(state)
+    if not (within and ev_dem["restored"] and ev_dem["bit_exact"]
+            and restored_digest == witness):
+        fail(f"[35] the demotion: within probation {within}, {ev_dem}, "
+             f"digest {restored_digest} against the witness {witness}")
+    # One topk1pct step after the demotion against the twin's, cuDNN
+    # deterministic on both sides.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, loss_a, _, _ = run(state, step_of(tx4, incumbent), 1,
+                                  "after demotion")
+        _, twin_tx = build(incumbent)
+        twin, loss_b = step_of(twin_tx, incumbent)(twin, (x, y))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    compared = 0
+    for (k, a), (_, b) in zip(state.model.state_dict().items(),
+                              twin.model.state_dict().items()):
+        if not same_bits(a.cpu(), b.cpu()):
+            fail(f"[35] after the demotion, {k} differs from the twin's")
+        compared += 1
+    for i, (a, b) in enumerate(zip(state.grace.inner.mem,
+                                   twin.grace.inner.mem)):
+        if not same_bits(a.cpu(), b.cpu()):
+            fail(f"[35] after the demotion, residual {i} differs from the "
+                 "twin's")
+        compared += 1
+    if not same_bits(loss_a.cpu(), loss_b.cpu()):
+        fail(f"[35] loss {float(loss_a)} after the demotion, the twin's "
+             f"{float(loss_b)}")
+    reader.close()
+    ckpt_mb = sum(f.stat().st_size for f in (out / "ckpt35").rglob("*")
+                  if f.is_file()) / 2**20
+    ckpt.close()
+
+    # -- the checks on the drill's records ------------------------------------
+    want = {"warm-up": _TOPK_TELEM, "incumbent": _TOPK_TELEM,
+            "drift": _NO_LAUNCHES, "powersgd": _NO_LAUNCHES,
+            "topk1pct back": _TOPK_TELEM, "sabotaged": _NO_LAUNCHES,
+            "after demotion": _TOPK_TELEM}
+    for label, i, got in steps:
+        if got != want[label]:
+            fail(f"[35] {label} step {i} launched {got}, expected "
+                 f"{want[label]}")
+    launches: dict = {}
+    for _, _, got in steps:
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    firsts, lasts = {}, {}
+    for e in Timeline.from_jsonl(str(jsonl)).kinds("retune"):
+        name = str(e.record.get("event"))
+        firsts.setdefault(name, e.step)
+        lasts[name] = e.step
+    order = ["retune_drift", "retune_prepare", "retune_promote",
+             "retune_probation_clear"]
+    ordering_ok = (all(n in firsts for n in order)
+                   and all(firsts[a] <= firsts[b]
+                           for a, b in zip(order, order[1:]))
+                   and "retune_demote" in lasts
+                   and lasts["retune_prepare"] <= lasts["retune_promote"]
+                   <= lasts["retune_demote"]
+                   and lasts["retune_probation_clear"]
+                   < lasts["retune_prepare"])
+    if not ordering_ok:
+        fail(f"[35] the retune events' order: firsts {firsts}, lasts "
+             f"{lasts}")
+
+    def opened(rec):
+        return [(d["trigger"]["event"], d["step"]) for d in (
+            json.loads(Path(path).read_text()) for path in rec.incidents)]
+
+    incidents, collapsed = opened(recorder), opened(debounced)
+    triggers = [(str(r["event"]), r["step"]) for r in tape.records
+                if str(r.get("event", "")).startswith(DEFAULT_TRIGGERS)]
+    transitions = [(e["event"], e["step"]) for e in ctl.events
+                   if e["event"] in ("retune_promote", "retune_demote")]
+    if incidents != triggers[:recorder.max_incidents] \
+            or not set(transitions) <= set(incidents):
+        fail(f"[35] incidents {incidents}, expected one a trigger "
+             f"{triggers} (every promotion and demotion: {transitions})")
+    # The debounce: a trigger opens an incident where it comes at least
+    # the gap after the last one opened, and none opens otherwise; the
+    # drill's triggers lie closer than that, so some collapse.
+    gap, want, last = debounced.min_gap_steps, [], None
+    for trig_ev in triggers:
+        if last is None or trig_ev[1] - last >= gap:
+            want.append(trig_ev)
+            last = trig_ev[1]
+    if collapsed != want or len(collapsed) >= len(triggers):
+        fail(f"[35] the debounced incidents {collapsed} at a gap of {gap} "
+             f"steps, expected {want} from the triggers {triggers}")
+
+    drill = {
+        "tool": "chip_smoke",
+        "captured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+        "argv": "chip_smoke.py [35]", "world": 1, "device": smi,
+        "window": RETUNE_WINDOW, "probation_steps": RETUNE_PROBATION,
+        "incumbent": "topk1pct (chunk Top-K 1%, residual, allgather) + "
+                     "fp16 escape + telemetry + audit every 5",
+        "candidate": "powersgd rank 4 + rank-1 adapt ladder",
+        "drift": {"scale": RETUNE_DRIFT_SCALE, "from_step": onset,
+                  "verdict_step": drift},
+        "funnel": (None if funnel is None else {
+            "winner": funnel.get("winner"),
+            "measured": [{"candidate": r["candidate"],
+                          "measured_step_ms": r["measured_step_ms"],
+                          "projected_step_ms": r["projected_step_ms"]}
+                         for r in funnel["measured"]["rows"]],
+            "skipped": funnel["measured"]["skipped"]}),
+        "forward_promotion": {"step": ev_fwd["step"],
+                              "migration": staged_fwd.migration,
+                              "replica_variants": variants_fwd,
+                              "probation_until": ev_fwd["probation_until"]},
+        "back_promotion": {"step": ev_back["step"],
+                           "migration": staged_back.migration,
+                           "probation_until": ev_back["probation_until"]},
+        "sabotage": {"promote_step": ev_sab["step"], "trigger": trig,
+                     "trigger_step": trig_step,
+                     "probation_until": ev_sab["probation_until"],
+                     "within_probation": bool(within),
+                     "restored": bool(ev_dem["restored"]),
+                     "bit_exact": bool(ev_dem["bit_exact"])},
+        "guard_events_during_healthy_drill": len(healthy_guard),
+        "ordering_ok": bool(ordering_ok), "first_steps": firsts,
+        "incidents": incidents, "incidents_debounced": collapsed,
+        "launches": launches,
+        "final_loss": float(loss_a),
+    }
+    doc_path = out / "phase35_retune.json"
+    doc_path.write_text(json.dumps(drill, indent=1, default=str) + "\n")
+    rec = record_artifact(
+        str(doc_path), id="retune-drill", metric="retune_demote_bit_exact",
+        value=bool(ev_dem["bit_exact"]), claim_class="measured",
+        tool="chip_smoke", platform="gpu", chip=smi, n_devices=1,
+        topology={"world": 1, "tiers": None, "slice": None, "region": None},
+        config={"incumbent": "topk1pct", "candidate": "powersgd_r4_ladder"},
+        lint_clean=True, ledger_path=str(ledger))
+    records = latest_by_id(load_ledger(str(ledger)))
+    for rid in ("tune-winner", "retune-drill"):
+        r = records.get(rid)
+        if rec is None or r is None or r["platform"] != "gpu" \
+                or r["chip"] != smi:
+            fail(f"[35] ledger record {rid}: {r} (the card: {smi})")
+    claims = out / "claims.md"
+    claims.write_text("The tuner's winner on the card and the retune drill's "
+                      "bit-exact demotion.\n<!-- evidence: tune-winner "
+                      "retune-drill -->\n")
+    gate = gate_report(root=str(root), ledger_path=str(ledger),
+                       docs=(str(claims),))
+    has_git = git_head_rev(str(root)) is not None
+    unresolvable = ["git_rev None does not resolve in this clone — "
+                    "ancestry unprovable"]
+    for rid in ("tune-winner", "retune-drill"):
+        res = gate["records"].get(rid) or {}
+        if not (res.get("status") == "MEASURED" or (
+                not has_git and res.get("status") == "STALE"
+                and res.get("failures") == unresolvable)):
+            fail(f"[35] the gate on {rid}: {res}")
+    text = sec_retune(drill, doc_path.name)
+    if not text or "bit-exact" not in text[0] \
+            or "ordering holds" not in text[0]:
+        fail(f"[35] the summary of the drill: {text}")
+
+    seconds = time.perf_counter() - t_phase
+    runs["phase35_retune"] = {
+        "launches": launches, "seconds": seconds,
+        "drift_step": drift, "trigger": trig, "trigger_step": trig_step,
+        "migration": {"forward": staged_fwd.migration,
+                      "back": staged_back.migration},
+        "legs_s": {"forward": legs_fwd, "back": legs_back,
+                   "sabotage": legs_sab},
+        "checkpoint_mb": ckpt_mb, "demote_ms": demote_ms,
+        "gate": {rid: gate["records"][rid]["status"]
+                 for rid in ("tune-winner", "retune-drill")},
+        "incidents": incidents, "incidents_debounced": collapsed}
+    log(f"[35] PREPARE legs (forward, back, sabotage): lint child "
+        f"{legs_fwd['lint']:.2f} / {legs_back['lint']:.2f} / "
+        f"{legs_sab['lint']:.2f} s; migrate "
+        f"and footprint {legs_fwd['migrate'] * 1e3:.1f} / "
+        f"{legs_back['migrate'] * 1e3:.1f} / "
+        f"{legs_sab['migrate'] * 1e3:.1f} ms; good checkpoint "
+        f"{legs_fwd['prepare_checkpoint'] * 1e3:.1f} / "
+        f"{legs_back['prepare_checkpoint'] * 1e3:.1f} / "
+        f"{legs_sab['prepare_checkpoint'] * 1e3:.1f} ms ({ckpt_mb:.1f} MB "
+        f"on disk, two kept); COMMIT barrier {legs_fwd['commit'] * 1e3:.1f}"
+        f" / {legs_back['commit'] * 1e3:.1f} / "
+        f"{legs_sab['commit'] * 1e3:.1f} ms | {smi}")
+    log(f"[35] migration forward {staged_fwd.migration['mem']} / "
+        f"{staged_fwd.migration['comp']}, back "
+        f"{staged_back.migration['mem']} / {staged_back.migration['comp']}; "
+        f"replicas after the forward commit {variants_fwd}; probation "
+        f"quiet twice; the sabotaged promotion at step {ev_sab['step']} "
+        f"tripped {trig} at step {trig_step} (probation until "
+        f"{ev_sab['probation_until']}); demote restore "
+        f"{ctl.leg_seconds['demote_restore'] * 1e3:.1f} ms "
+        f"(demote {demote_ms:.1f} ms in all), bit-exact, the digest the "
+        f"PREPARE-time witness; the next topk1pct step equals the twin's in "
+        f"{compared} tensors and the loss | {smi}")
+    log(f"[35] every PREPARE left the incumbent's digest unchanged; events "
+        f"in order ({' <= '.join(f'{n[7:]}@{firsts[n]}' for n in order)}, "
+        f"then prepare@{lasts['retune_prepare']} <= "
+        f"promote@{lasts['retune_promote']} <= "
+        f"demote@{lasts['retune_demote']}); chunk launches 2 + 1 a topk1pct "
+        f"step, 0 under PowerSGD and the chaos codec: {launches} in "
+        f"{len(steps)} steps; incidents {incidents}, at JAX's "
+        f"{debounced.min_gap_steps}-step debounce {collapsed}; ledger records "
+        f"tune-winner and retune-drill on {smi}, the gate "
+        f"{runs['phase35_retune']['gate']}"
+        f"{'' if has_git else ' (no .git: the rev is unresolvable)'}; the "
+        f"summary: {text[0][:160]}...; phase {seconds:.1f} s | {smi}")
 
 
 def main() -> int:
@@ -6236,6 +6764,7 @@ def main() -> int:
             "on the card's route at W=8 and W=1, phase29_consensus's audit "
             "step, the footprint model, the registry on both routes")
         import tempfile
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tune_dir:
             measured = start_measured_tune(Path(tune_dir))
             try:
@@ -6246,6 +6775,14 @@ def main() -> int:
                     "card (toy model, W=1) with the kernel candidates named, "
                     "the winner's overlap sandwich")
                 tuner_phase(runs, smi, measured, Path(tune_dir))
+                # -- 35. the online re-tuner and the evidence ---------------
+                log(f"[35] the retune drill on the HEADLINE at ResNet-50 "
+                    f"width, batch {bs}, W=1: topk1pct + fp16 escape + "
+                    f"telemetry + audit every {RETUNE_AUDIT_EVERY}, drift, "
+                    f"propose, promote to PowerSGD r4 + rank-1 ladder and "
+                    f"back, a sabotaged promotion demoted; the evidence "
+                    f"ledger, the gate and the summary")
+                retune_phase(dev, group, x, y, runs, smi, Path(tune_dir))
             finally:
                 if measured.poll() is None:
                     measured.kill()

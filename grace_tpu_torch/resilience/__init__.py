@@ -2,7 +2,7 @@
 cross-rank consistency audit, the fault injectors, the adaptive
 compression ladder and elastic resize; counterpart of the JAX package's
 ``resilience`` (its ``guard``, ``guarded_chain``, ``consensus``,
-``chaos``, ``adapt`` and ``elastic``; retune is not ported yet).
+``chaos``, ``adapt``, ``elastic`` and ``retune``).
 
 * :func:`guard_transform` wraps the GRACE transform and the torch
   optimizer: a step whose update or new state is non-finite (or whose
@@ -32,6 +32,12 @@ compression ladder and elastic resize; counterpart of the JAX package's
   survivors and re-initialize the per-rank state;
   :func:`rejoin_barrier` repairs a rejoining rank with one forced audit;
   :class:`ElasticController` drains on watch anomalies.
+* Online re-tuning (:class:`RetuneController`): sustained compression-error
+  drift arms a promotion to another configuration, staged (lint audit,
+  state migration, footprint check, last-known-good checkpoint) without
+  writing the live state, committed behind the consensus barrier, and
+  demoted bit for bit (:func:`state_digest`) when the guard trips during
+  its probation.
 """
 
 from __future__ import annotations
@@ -59,6 +65,8 @@ from grace_tpu_torch.resilience.elastic import (ElasticController,
                                                 reshard_grace_state,
                                                 resize_group,
                                                 validate_resharded)
+from grace_tpu_torch.resilience.retune import (RetuneController,
+                                               StagedPromotion, state_digest)
 from grace_tpu_torch.resilience.guard import (GUARD_ROLLBACK_EXCLUDED,
                                               GUARD_SCAN_EXCLUDED_TYPES,
                                               GuardState, GuardTransform,
@@ -74,7 +82,8 @@ __all__ = ["GUARD_ROLLBACK_EXCLUDED", "GUARD_SCAN_EXCLUDED_TYPES",
            "plan_resize", "resize_group", "reshard_grace_state",
            "validate_resharded", "barrier_wire_bytes", "rejoin_barrier",
            "replica_variants", "implant_stale_replica",
-           "ElasticController"]
+           "ElasticController", "StagedPromotion", "RetuneController",
+           "state_digest"]
 
 
 def guarded_chain(grace, *, seed: int = 0, max_norm: Optional[float] = None,

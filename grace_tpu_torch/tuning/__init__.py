@@ -22,9 +22,9 @@ Given a model's parameters and a target topology, it
 
 The static stage traces over a fake default process group and runs first,
 where no default group may exist; the measured stage then makes its
-group (:func:`.measure.measuring_group`). The JAX package also records
-its winner in its evidence ledger; the port's ledger (``evidence/``) is
-not ported yet, so no record is made. Command line: ``python -m
+group (:func:`.measure.measuring_group`). :func:`write_tune_evidence` also
+records the winner in the port's evidence ledger (``tune-winner``,
+:mod:`grace_tpu_torch.evidence`). Command line: ``python -m
 grace_tpu_torch.tuning``.
 """
 
@@ -184,8 +184,14 @@ def run_tune(topologies: Sequence[Union[str, TuneTopology]], *,
 
 
 def write_tune_evidence(doc: Dict[str, Any],
-                        path: str = TUNE_EVIDENCE_PATH) -> None:
-    """Write ``doc`` atomically: a temporary file, fsync, replace."""
+                        path: str = TUNE_EVIDENCE_PATH,
+                        ledger_path: Optional[str] = None) -> None:
+    """Write ``doc`` atomically (a temporary file, fsync, replace) and
+    record its winner as ``tune-winner`` in the evidence ledger: the
+    port's ledger for the default path, ``ledger_path`` when given, and
+    none for another path without one (a test's file must not reach the
+    port's ledger). On the card the record's ``chip`` is the card's name
+    and power limit (``nvidia-smi``)."""
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(doc, f, indent=1)
@@ -193,3 +199,24 @@ def write_tune_evidence(doc: Dict[str, Any],
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+    if ledger_path is None and (os.path.abspath(path)
+                                != os.path.abspath(TUNE_EVIDENCE_PATH)):
+        return
+    from grace_tpu_torch.evidence.ledger import (LEDGER_PATH, card_chip,
+                                                 record_artifact)
+    prov = doc.get("provenance") or {}
+    winner = doc.get("winner") or {}
+    n_dev = prov.get("n_devices")
+    platform = prov.get("platform")
+    record_artifact(
+        path, id="tune-winner", metric="tune_winner_config",
+        value=winner.get("candidate"), claim_class="measured",
+        tool="grace_tpu_torch.tuning", platform=platform,
+        chip=((card_chip() or prov.get("device")) if platform == "gpu"
+              else prov.get("device")),
+        n_devices=n_dev,
+        topology={"world": n_dev, "tiers": ["ici"], "slice": None,
+                  "region": None},
+        config=winner.get("grace_params"),
+        lint_clean=bool(doc.get("ok")),
+        ledger_path=ledger_path or LEDGER_PATH)

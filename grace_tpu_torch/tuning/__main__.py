@@ -9,7 +9,9 @@ the card (``--device cpu`` on the CPU) and stamps the winner, gated by
 the measured≤static overlap sandwich. ``--topology`` is ``W``,
 ``W,slice_size[,region_size]`` or ``DPxFSDP[,...]`` (repeatable; the first
 is the decision target; default ``8`` and ``256,8``). The document goes to
-``--out`` (default ``grace_tpu_torch/TUNE_LAST.json``; ``''``: none).
+``--out`` (default ``grace_tpu_torch/TUNE_LAST.json``; ``''``: none), its
+winner as a ``tune-winner`` record to the port's evidence ledger for the
+default ``--out``, or to ``--ledger PATH``.
 Exits 0 when the document is ok, 1 when no candidate was measured or the
 winner's sandwich fails, 2 on a bad argument.
 
@@ -112,6 +114,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--out", default=None,
                     help="where to write the document ('' : nowhere; "
                          "default grace_tpu_torch/TUNE_LAST.json)")
+    ap.add_argument("--ledger", default=None,
+                    help="the evidence ledger the winner is recorded in "
+                         "(default: the port's, for the default --out)")
     args = ap.parse_args(argv)
 
     from grace_tpu_torch.tuning import (TUNE_EVIDENCE_PATH, run_tune,
@@ -131,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     out = TUNE_EVIDENCE_PATH if args.out is None else args.out
     if out:
-        write_tune_evidence(doc, out)
+        write_tune_evidence(doc, out, ledger_path=args.ledger)
     print(json.dumps(doc, indent=1) if args.json else render(doc))
     return 0 if doc.get("ok") else 1
 

@@ -1059,3 +1059,177 @@ def test_footprint_with_the_ladder_equals_jax(group):
     for side in ("live", "model"):
         assert got[side] == want
     assert want["bookkeeping_bytes"] == 4 + 8 + 1 + 10 * 4
+
+
+# -- the ladder in the auditor and the tuner (the JAX package's verdicts) --------
+
+ADAPT_AUDITED = ("adapt-homoqsgd-ring", "adapt-topk-hier",
+                 "adapt-guard-consensus")
+# An int16-accumulated 8-bit rung under an int32-safe base rung
+# (tests/test_adapt.py:489-495).
+RUNG_BOUND = {"compressor": "homoqsgd", "quantum_num": 7,
+              "accum_dtype": "int32", "memory": "residual",
+              "communicator": "ring", "fusion": "flat", "escape": "fp16",
+              "telemetry": True,
+              "adapt": {"window": 5, "ladder": [
+                  {"quantum_num": 127, "accum_dtype": "int16"}]}}
+
+
+@pytest.mark.parametrize("name", ADAPT_AUDITED)
+def test_adapt_registry_config_audits_clean_as_jax(name):
+    from grace_tpu.analysis.configs import AUDIT_CONFIGS as JAX_CONFIGS
+    from grace_tpu.analysis.configs import audit_config as jax_audit
+
+    from grace_tpu_torch.analysis.configs import AUDIT_CONFIGS, audit_config
+
+    (entry,) = [e for e in AUDIT_CONFIGS if e["name"] == name]
+    (jentry,) = [e for e in JAX_CONFIGS if e["name"] == name]
+    assert jax_audit(jentry) == []
+    findings = audit_config(entry)
+    assert findings == [], [f.message for f in findings]
+
+
+def test_shared_scale_rung_bound_fires_statically_as_jax():
+    """Flow pass 6 audits every reachable rung: the gentle 8-bit rung
+    fires at W=512 where the base rung is safe, with JAX's bound and
+    message head; clean at W=8."""
+    import types
+
+    from grace_tpu.analysis import flow as jflow
+    from grace_tpu.analysis.trace import TracedGraph as JaxTracedGraph
+
+    from grace_tpu_torch.analysis import flow
+
+    grc = grace_from_params(RUNG_BOUND)
+    jgrc = jax_grace_from_params(RUNG_BOUND)
+    bound = grc.adapt.ladder[0].payload_sum_max_world()
+    assert bound == jgrc.adapt.ladder[0].payload_sum_max_world()
+    assert bound < 512 <= grc.compressor.payload_sum_max_world()
+    for world in (512, 8):
+        got = flow._shared_scale_findings(types.SimpleNamespace(
+            name="adapt-rung-bound", world=world, meta={"grace": grc}))
+        want = jflow._shared_scale_findings(JaxTracedGraph(
+            name="adapt-rung-bound", closed=None, body=None, world=world,
+            axis_name="data", varying={}, meta={"grace": jgrc}))
+        # The message's head (up to the bound) is JAX's; its tail is the
+        # port's own wording of the remedy.
+        assert [(f.severity, f.message.split(" (")[0], dict(f.details))
+                for f in got] == \
+            [(f.severity, f.message.split(" (")[0], dict(f.details))
+             for f in want]
+        assert len(got) == (world == 512)
+
+
+def test_adaptive_candidate_priced_at_steady_state_as_jax():
+    """The adaptive candidate's projected step equals the static top rung's
+    and its rung schedule (codec, rung, payload bytes) equals JAX's."""
+    from grace_tpu.tuning.cost import TuneTopology as JaxTuneTopology
+    from grace_tpu.tuning.cost import price_candidate as jax_price
+
+    from grace_tpu_torch.tuning.cost import TuneTopology, price_candidate
+
+    static = {"compressor": "homoqsgd", "quantum_num": 7,
+              "memory": "residual", "communicator": "ring",
+              "fusion": "flat"}
+    adaptive = {**static, "escape": "fp16", "telemetry": 16,
+                "adapt": {"window": 25, "ladder": [{"quantum_num": 127}]}}
+    structs = {"w": ((4096, 64), torch.float32)}
+    jstructs = {"w": jax.ShapeDtypeStruct((4096, 64), jnp.float32)}
+    spec = TuneTopology(world=256, slice_size=8)
+    jspec = JaxTuneTopology(world=256, slice_size=8)
+    p_static = price_candidate(grace_from_params(static), structs, spec)
+    p_adapt = price_candidate(grace_from_params(adaptive), structs, spec)
+    j_adapt = jax_price(jax_grace_from_params(adaptive), jstructs, jspec)
+    assert p_adapt["projected_step_ms"] == p_static["projected_step_ms"]
+    assert p_adapt["steady_state_rung"] == j_adapt["steady_state_rung"] == 2
+    keys = ("rung", "codec", "payload_bytes")
+    assert [{k: r[k] for k in keys} for r in p_adapt["rung_prices"]] == \
+        [{k: r[k] for k in keys} for r in j_adapt["rung_prices"]]
+    rungs = p_adapt["rung_prices"]
+    assert rungs[0]["codec"] == "FP16Compressor"
+    assert (rungs[2]["projected_step_ms"] <= rungs[1]["projected_step_ms"]
+            <= rungs[0]["projected_step_ms"])
+    assert rungs[2]["payload_bytes"] == p_static["payload_bytes"]
+
+
+def test_funnel_gates_every_rung_as_jax():
+    from grace_tpu.tuning.candidates import Candidate as JaxCandidate
+    from grace_tpu.tuning.candidates import \
+        candidate_legal as jax_candidate_legal
+    from grace_tpu.tuning.cost import TuneTopology as JaxTuneTopology
+    from grace_tpu.tuning.prune import numeric_verdict as jax_numeric
+
+    from grace_tpu_torch.tuning.candidates import Candidate, candidate_legal
+    from grace_tpu_torch.tuning.cost import TuneTopology
+    from grace_tpu_torch.tuning.prune import numeric_verdict
+
+    grc, jgrc = grace_from_params(RUNG_BOUND), \
+        jax_grace_from_params(RUNG_BOUND)
+    for world in (8, 512):
+        got = numeric_verdict(grc, TuneTopology(world=world))
+        want = jax_numeric(jgrc, JaxTuneTopology(world=world))
+        assert (got is None) == (want is None)
+    assert "adapt rung" in got and "adapt rung" in want
+    bad = {"compressor": "qsgd", "quantum_num": 15, "use_pallas": False,
+           "memory": "none", "communicator": "ring", "fusion": "flat",
+           "escape": "fp16", "telemetry": True,
+           "adapt": {"window": 5, "ladder": [{"compressor": "onebit"}]}}
+    legal, reason, _ = candidate_legal(Candidate("bad-adapt-rung", bad),
+                                       TuneTopology(world=8))
+    jlegal, jreason, _ = jax_candidate_legal(
+        JaxCandidate("bad-adapt-rung", bad), JaxTuneTopology(world=8))
+    assert legal is jlegal is False
+    assert "adapt rung" in reason and "adapt rung" in jreason
+
+
+def test_generated_adaptive_variant_is_legal_and_priced_as_jax():
+    from grace_tpu.tuning.candidates import \
+        generated_variants as jax_generated
+    from grace_tpu.tuning.cost import TuneTopology as JaxTuneTopology
+
+    from grace_tpu_torch.tuning.candidates import (candidate_legal,
+                                                   generated_variants)
+    from grace_tpu_torch.tuning.cost import TuneTopology, price_candidate
+
+    name = "tune-adapt-homoqsgd4-ring"
+    (cand,) = [c for c in generated_variants(TuneTopology(world=8))
+               if c.name == name]
+    (jcand,) = [c for c in jax_generated(JaxTuneTopology(world=8))
+                if c.name == name]
+    assert cand.params == jcand.params
+    legal, reason, grace = candidate_legal(cand, TuneTopology(world=8))
+    assert legal, reason
+    price = price_candidate(grace, {"w": ((512,), torch.float32)},
+                            TuneTopology(world=8))
+    assert [r["rung"] for r in price["rung_prices"]] == [0, 1, 2]
+
+
+def test_adapt_trail_matches_the_telemetry_report_tool():
+    """The ladder's trail of ``telemetry.report`` against the repository's
+    ``tools/telemetry_report.py`` (loaded read-only), on JAX's test rows
+    (tests/test_adapt.py:627-661) and on a run without rows."""
+    import importlib.util
+    import os
+
+    from grace_tpu_torch.telemetry.report import render_adapt, render_trails
+
+    spec = importlib.util.spec_from_file_location(
+        "telemetry_report_port_adapt", os.path.join(
+            os.path.dirname(__file__), os.pardir, "tools",
+            "telemetry_report.py"))
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    records = [{"step": i, "adapt_rung": float(2 - (i >= 3)),
+                "adapt_bytes": 14.0, "wire_bytes": 100.0,
+                "dense_bytes": 336.0} for i in range(6)]
+    events = [{"event": "adapt_tighten", "step": 3, "rung": 1,
+               "from_rung": 2},
+              {"event": "adapt_loosen", "step": 5, "rung": 2,
+               "from_rung": 1}]
+    for recs, evs in ((records, events), ([], events[:1]),
+                      ([{"step": 0, "adapt_rung": -1.0}], [])):
+        assert render_adapt(evs, recs) == report._render_adapt(evs, recs)
+    text = report.render(None, records, events)
+    trail = "\n".join(render_trails(records, events))
+    assert "== adapt (graft-adapt rung transitions) ==" in trail
+    assert "1 tighten(s), 1 loosen(s)" in trail and trail in text

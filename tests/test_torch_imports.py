@@ -110,6 +110,13 @@ STATE_TUNING_MODULES = {
     *(f"grace_tpu_torch.tuning.{m}" for m in (
         "cost", "candidates", "prune", "measure", "online", "__main__"))}
 
+# The online re-tuner, the evidence package and the controllers' trails.
+RETUNE_EVIDENCE_MODULES = {
+    "grace_tpu_torch.resilience.retune", "grace_tpu_torch.telemetry.report",
+    "grace_tpu_torch.evidence",
+    *(f"grace_tpu_torch.evidence.{m}" for m in (
+        "ledger", "staleness", "gate", "incident", "backfill", "summary"))}
+
 
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -131,6 +138,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert PROFILING_MESH_MODULES <= names
     assert ANALYSIS_MODULES <= names
     assert STATE_TUNING_MODULES <= names
+    assert RETUNE_EVIDENCE_MODULES <= names
     assert leaked.strip() == "[]"
 
 

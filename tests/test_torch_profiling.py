@@ -288,11 +288,22 @@ def test_torch_capture_attributes_the_grace_ranges(captures):
                 "grace/compress", "grace/exchange",
                 "grace/decompress"} <= stages
         assert abs(sum(a.stage_us.values()) - a.total_us) < 1e-6
-        # forward and backward ops sit inside their range: nearly all of
-        # the step is attributed
-        assert a.stage_us.get(UNATTRIBUTED, 0.0) < 0.5 * a.total_us
-        assert a.collective_us > 0.0                # gloo's all-gathers
+        # Every forward and backward op of both steps sits inside its
+        # range, and nearly all of the step's ops are attributed (the rest:
+        # the loss's mean over the group after the step, about 1%). Counted
+        # in ops, not microseconds: the unattributed time is mostly gloo's
+        # worker-thread ranges, whose length is the wait for the other rank
+        # and grows with host load.
         spans = load_trace_events(path)
+        ops = [s for s in spans if s.cat != "Trace" and not s.is_range()
+               and not s.is_step_marker()]
+        fwd = [s for s in ops if s.name in ("aten::linear", "aten::relu",
+                                            "aten::cross_entropy_loss")]
+        bwd = [s for s in ops if "Backward0" in s.name]
+        assert len(fwd) == 2 * 4 and len(bwd) >= 2 * 5
+        assert {s.stage() for s in fwd + bwd} == {"grace/forward_backward"}
+        assert sum(1 for s in ops if not s.stage()) < 0.05 * len(ops)
+        assert a.collective_us > 0.0                # gloo's all-gathers
         gathers = [s for s in spans if "allgather" in s.name.lower()
                    and s.stage()]
         assert gathers and {s.stage() for s in gathers} == \
