@@ -247,8 +247,12 @@ The guarded training step:
     round-trip, one aggregate). The ring, flushed by a TelemetryReader
     through JSONL and TensorBoard sinks, holds 10 rows (fallback 1.0 on
     the escape's three, their wire_bytes the escape's), guard_report reads
-    2 skips, last bad step 5, no window left, and tools/telemetry_report.py
-    renders the JSONL. Checkpoints at steps 3 (good) and 5 (not good):
+    2 skips, last bad step 5, no window left, and the port's report
+    (``python -m grace_tpu_torch.telemetry``, JSON and text) reads the
+    JSONL back: its fallback windows are the escape's rows, its per-metric
+    count the reader's 10 rows, its wire_bytes statistics those of the
+    rows, and its guard log the GuardMonitor's 2 skips. Checkpoints at
+    steps 3 (good) and 5 (not good):
     restore_last_good gives step 3 back bit for bit, and one update from
     it equals the same update from a copy kept in memory. A healthy
     guarded + telemetry run of 5 steps equals the unguarded topk1pct run
@@ -271,7 +275,11 @@ The cross-rank watch and the consistency audit:
     the reader's anomaly detectors silent, the reader's flush one
     transfer with the watch ring armed, audit_bytes the W=1 gather's 64 B
     a row, and Timeline.from_jsonl of the run's JSONL summarising it.
-    fingerprint_tree of the card's state against the same tensors on the
+    ``python -m grace_tpu_torch.telemetry.watch`` over that JSONL
+    (--timeline --anomalies --json): no anomaly recorded or re-derived,
+    its timeline's metric rows the 5 audited steps, --write-baseline then
+    --baseline on the same file exit 0, and a copy with one planted
+    watch_anomaly record exits 1. fingerprint_tree of the card's state against the same tensors on the
     CPU (checksum words bit for bit, float folds within 1e-5 of each
     segment's sum of |x|); ChaosParams(rank=0, at_steps=(2,)) flips
     exactly its logged bit; masked_broadcast at W=1 is the identity; a
@@ -341,7 +349,12 @@ The 2-D mesh and the profiler's read side:
     why), the overlap fraction, StepTimer's p50 over the 5 timed steps,
     device_memory_watermarks against torch.cuda.max_memory_allocated and
     one ProfileRecorder flush record through a JSONLSink, each time and
-    size beside the card's name and power limit.
+    size beside the card's name and power limit. ``python -m
+    grace_tpu_torch.profiling --trace`` over the capture: its stage table
+    and device total exactly the in-process reading's, the overlap
+    sandwich against the HEADLINE's registry entry (topk-allgather)
+    holding, its own baseline exit 0 and that baseline with every stage's
+    ms halved exit 1.
 
 The static auditor (grace_tpu_torch.analysis), in processes of their own
 (the script's NCCL group owns the default process group; the auditor
@@ -368,6 +381,8 @@ traces over a fake one), all started together:
     ResNet-50 width (HEADLINE + fp16 escape, the registry's guard) traced
     at W=8 as rank 0 and as rank 7 (--rank): 1 + 1 chunk kernel nodes, 0
     findings (the state passes compare each with the other end's trace).
+    The first registry shard on the card's route also writes --evidence
+    (LINT_LAST.json): 0 findings over its configs and the four rules.
 
 The tuner (grace_tpu_torch.tuning), in processes of its own (the
 measured one started before phase 33's audits, beside them):
@@ -412,7 +427,25 @@ package (grace_tpu_torch.evidence):
     (platform gpu, the card's name and power limit) verify through
     gate_report as MEASURED (or as an unresolvable rev where the checkout
     has no .git), and the summary renders the drill's document. Each leg's
-    time is printed beside the card's name and power limit.
+    time is printed beside the card's name and power limit. Then the same
+    through the command lines: ``python -m grace_tpu_torch.evidence --json
+    --ledger <the phase's ledger> --root <the checkout>`` (retune-drill
+    MEASURED, or the unresolvable rev without .git), and ``python -m
+    grace_tpu_torch.evidence.summary`` over a directory holding the
+    LINT/PROF/WATCH documents of [29], [32] and [33], [34]'s measured tune
+    and [35]'s drill renders each section.
+
+The flagship example:
+
+36. ``python -m grace_tpu_torch.examples.mnist_lenet --epochs 1
+    --compressor topk --topk-algorithm chunk --memory residual --ckpt-dir
+    <tmp>`` in a process of its own (the bundled MNIST split, batch 512):
+    exit 0, each chunk kernel launched once a step (15 steps), and its
+    checkpoint restored into the example's own fresh state
+    (``mnist_lenet.build``) reproduces the state digest it printed.
+
+Every read-side command line's wall seconds are printed on a line of their
+own beside the card's name and power limit.
 
 Output: progress lines, then a JSON line with one entry per kernel, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -428,6 +461,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -714,6 +748,9 @@ EXAMPLE_ARGV = ["--compressor", "topk", "--topk-algorithm", "chunk",
                 "--num-iters", "3", "--num-batches-per-iter", "5",
                 "--num-warmup-batches", "3"]
 EXAMPLE_TIMEOUT_S = 300
+# A read-side command line's limit (each reads a file; the sandwich's child
+# traces one registry entry).
+CLI_TIMEOUT_S = 300
 # Phase 24: BERT-base (base(num_classes=2, max_len=384)) under the four
 # configurations of tools/tpu_bert_bench.py:52-80, params verbatim (its
 # BERT_ROUTE too), and topk1pct's HEADLINE params; the span loss of
@@ -751,6 +788,9 @@ BERT_WARMUP_STEPS, BERT_TIMED_STEPS = 1, 3
 BERT_TINY_RTOL, BERT_TINY_ATOL = 1e-4, 1e-5     # atol: × each leaf's max
 # Phase 25: the BERT example at its defaults, in a process of its own.
 BERT_EXAMPLE_TIMEOUT_S = 300
+# A read-side command line's limit (each reads a file; the sandwich's child
+# traces one registry entry).
+CLI_TIMEOUT_S = 300
 # Phase 26: cifar10_dawn at one rank with its defaults (24 epochs, batch
 # 512, 8,192 train and 2,048 test images), dense and Top-K 1% chunk over the
 # flat buffer; the JAX 8-device synthetic curves read 100.00 from epochs 13
@@ -3271,7 +3311,8 @@ def check_optimizer(dev, group):
 def run_example(module, argv, prefix, timeout, phase) -> str:
     """Runs ``python -m grace_tpu_torch.examples.<module> <argv>`` in a
     process of its own on the card; the last stdout line that starts with
-    ``prefix``. Phases 23, 25 and 27."""
+    ``prefix`` (a tuple: each prefix's last line, in order). Phases 23,
+    25, 27 and 36."""
     root = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", f"grace_tpu_torch.examples.{module}"] + argv
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -3282,10 +3323,38 @@ def run_example(module, argv, prefix, timeout, phase) -> str:
     if out.returncode != 0:
         fail(f"{phase} {module} exited {out.returncode}: "
              f"{out.stderr[-2000:]}")
-    lines = [l for l in out.stdout.splitlines() if l.startswith(prefix)]
-    if not lines:
-        fail(f"{phase} {module} printed no {prefix!r} line")
-    return lines[-1]
+    found = []
+    for p in (prefix if isinstance(prefix, tuple) else (prefix,)):
+        lines = [l for l in out.stdout.splitlines() if l.startswith(p)]
+        if not lines:
+            fail(f"{phase} {module} printed no {p!r} line")
+        found.append(lines[-1])
+    return tuple(found) if isinstance(prefix, tuple) else found[0]
+
+
+def read_side_cli(phase: str, module: str, *args: str, expect: int = 0,
+                  smi: str = "", seconds: dict = None) -> str:
+    """``python -m <module> <args>`` in a process of its own, from the
+    checkout: its stdout. Fails unless it exits ``expect``. Its wall
+    seconds are logged beside the card and added to ``seconds`` under the
+    command (paths shortened to their file names)."""
+    root = Path(__file__).resolve().parent
+    label = " ".join([module] + [os.path.basename(a) if os.sep in a
+                                 else a or "''" for a in args])
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                         capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S,
+                         env={**os.environ, "PYTHONPATH": str(root)})
+    wall = time.perf_counter() - t0
+    log(f"{phase} python -m {label}: exit {out.returncode} in {wall:.2f} s "
+        f"| {smi or nvidia_smi_line()}")
+    if out.returncode != expect:
+        fail(f"{phase} python -m {label} exited {out.returncode}, expected "
+             f"{expect}: {out.stderr[-2000:]}")
+    if seconds is not None:
+        seconds[label] = wall
+    return out.stdout
 
 
 def rate(line: str) -> float:
@@ -3674,10 +3743,11 @@ def _same_state(label, got: dict, want: dict, skip=()) -> int:
     return checked
 
 
-def guarded_injection_run(dev, group, x, y, tmp) -> dict:
+def guarded_injection_run(dev, group, x, y, tmp, seconds=None) -> dict:
     """The guarded chain with NaN steps, its fallback window, its
-    telemetry through the sinks and the report tool, and its checkpoints
-    (phase 28's first half). Returns the run's launches."""
+    telemetry through the sinks and the port's report, and its checkpoints
+    (phase 28's first half). Returns the run's launches; the report's wall
+    seconds go to ``seconds``."""
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.checkpoint import Checkpointer
@@ -3688,10 +3758,14 @@ def guarded_injection_run(dev, group, x, y, tmp) -> dict:
     from grace_tpu_torch.train import (init_stateful_train_state,
                                        make_stateful_train_step)
     from grace_tpu_torch.transform import leaf_order
-    from grace_tpu_torch.utils.logging import run_provenance
+    from grace_tpu_torch.utils.logging import GuardMonitor, run_provenance
     from grace_tpu_torch.utils.metrics import guard_report
     import numpy as np
 
+    jsonl, tbdir = tmp / "telemetry.jsonl", tmp / "tb"
+    jsonl_sink = JSONLSink(jsonl, provenance=run_provenance(
+        "synthetic", tool="chip_smoke.py [28]"))
+    monitor = GuardMonitor(printer=lambda *a: None, sink=jsonl_sink)
     model = resnet50(NUM_CLASSES, device=dev, seed=SEED)
     opt = torch.optim.SGD(model.parameters(), lr=1e-3)
     chain = guarded_chain(grace_from_params(GUARD_PARAMS, group=group),
@@ -3717,6 +3791,7 @@ def guarded_injection_run(dev, group, x, y, tmp) -> dict:
         state, loss = step(state, (x, y))
         now = ops.launch_counts()
         per_step.append({k: now[k] - before[k] for k in now})
+        monitor.update(i, guard_report(state))
         if i == 3:
             after3 = _guard_tensors(state)
             state.grace.settle()
@@ -3758,12 +3833,10 @@ def guarded_injection_run(dev, group, x, y, tmp) -> dict:
             "fallback_remaining": 0, "step": GUARD_STEPS}
     if {k: report[k] for k in want} != want:
         fail(f"[28] guard_report {report}, expected {want}")
-    # Telemetry: one flush through both sinks, then the report tool.
-    jsonl, tbdir = tmp / "telemetry.jsonl", tmp / "tb"
-    reader = TelemetryReader(MultiSink(
-        JSONLSink(jsonl, provenance=run_provenance(
-            "synthetic", tool="chip_smoke.py [28]")),
-        TensorBoardSink(tbdir)), every=GUARD_STEPS)
+    # Telemetry: one flush through both sinks (the guard's transitions are
+    # in the JSONL already), then the port's report reads it back.
+    reader = TelemetryReader(MultiSink(jsonl_sink, TensorBoardSink(tbdir)),
+                             every=GUARD_STEPS)
     records = reader.update(GUARD_STEPS - 1, state)
     reader.close()
     inner = chain.inner
@@ -3790,14 +3863,37 @@ def guarded_injection_run(dev, group, x, y, tmp) -> dict:
     if (records[-1].get("guard_notfinite_count"),
             records[-1].get("guard_last_bad_step")) != (2, GUARD_BAD[-1]):
         fail(f"[28] the flush's guard fields: {records[-1]}")
-    tool = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve().parent / "tools" /
-                             "telemetry_report.py"), str(jsonl)],
-        capture_output=True, text=True, timeout=60)
+    cli = read_side_cli("[28]", "grace_tpu_torch.telemetry", str(jsonl),
+                        "--json", seconds=seconds)
+    doc = json.loads(cli)
+    text = read_side_cli("[28]", "grace_tpu_torch.telemetry", str(jsonl),
+                         seconds=seconds)
+    wire = [float(r["wire_bytes"]) for r in records]
+    want_wire = {"count": len(wire), "mean": sum(wire) / len(wire),
+                 "min": min(wire), "max": max(wire), "last": wire[-1]}
+    # The monitor sees a step's verdict once the next exchange has read it:
+    # each skip names its bad step as last_bad_step.
+    skips = [e["last_bad_step"] for e in doc["guard_events"]
+             if e["event"] == "guard_skip"]
+    if doc["fallback_windows"] != [[min(window_rows), max(window_rows)]] \
+            or doc["records"] != len(records) \
+            or {m["count"] for k, m in doc["metrics"].items()
+                if not k.startswith("guard_")} != {len(records)} \
+            or doc["metrics"]["wire_bytes"] != want_wire \
+            or skips != list(GUARD_BAD):
+        fail(f"[28] the report of the JSONL: fallback windows "
+             f"{doc['fallback_windows']} (the escape's rows "
+             f"{sorted(window_rows)}), {doc['records']} records, counts "
+             f"{ {k: m['count'] for k, m in doc['metrics'].items()} }, "
+             f"wire_bytes {doc['metrics'].get('wire_bytes')} (the rows' "
+             f"{want_wire}), guard skips at {skips} (want {GUARD_BAD})")
+    spans = f"{min(window_rows)}..{max(window_rows)}"
+    if f"  dense-fallback windows (recorded steps): {spans}" not in \
+            text.splitlines() or f"== guard events " \
+            f"({len(doc['guard_events'])}) ==" not in text:
+        fail(f"[28] the text report lacks the fallback windows {spans} or "
+             f"the guard log:\n{text[-3000:]}")
     events = list(tbdir.glob("events.out.tfevents.*"))
-    if tool.returncode or not tool.stdout.strip():
-        fail(f"[28] tools/telemetry_report.py exited {tool.returncode}: "
-             f"{tool.stderr[-2000:]}")
     if len(events) != 1 or events[0].stat().st_size < 1000:
         fail(f"[28] TensorBoard events: {events}")
     log(f"[28] telemetry: {len(records)} rows (steps 0-{accepted - 1}; "
@@ -3805,9 +3901,13 @@ def guarded_injection_run(dev, group, x, y, tmp) -> dict:
         f"escape's {esc_link.total} B against Top-K's {link.total} B at W=1, "
         f"dense_bytes {dense_b}); guard_report {report}; JSONL "
         f"{jsonl.stat().st_size} B and TensorBoard {events[0].stat().st_size} "
-        f"B written; telemetry_report.py rendered "
-        f"{len(tool.stdout.splitlines())} lines")
-    for line in tool.stdout.splitlines()[:12]:
+        f"B written; python -m grace_tpu_torch.telemetry read back fallback "
+        f"windows {doc['fallback_windows']}, {doc['records']} rows a metric, "
+        f"wire_bytes {doc['metrics']['wire_bytes']}, guard log "
+        f"{[(e['step'], e['event'], e['last_bad_step']) for e in doc['guard_events']]}"
+        f" (loop step, event, last bad step); its "
+        f"text ({len(text.splitlines())} lines):")
+    for line in text.splitlines()[:40]:
         log(f"    | {line}")
     # Last-known-good: step 3 back bit for bit, then one update from it
     # equals the same update from the copy kept in memory.
@@ -3987,9 +4087,10 @@ def guarded_phase(dev, group, x, y, runs) -> None:
 
     import torch
     t0 = time.perf_counter()
+    seconds: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         runs["phase28_injected"] = {"launches": guarded_injection_run(
-            dev, group, x, y, Path(tmp))}
+            dev, group, x, y, Path(tmp), seconds), "cli_seconds": seconds}
     torch.cuda.empty_cache()
     runs["phase28_healthy"] = {"launches": guarded_healthy_run(dev, group,
                                                                x, y)}
@@ -4336,9 +4437,56 @@ def audit_cost(dev, group, healthy) -> dict:
     return out
 
 
-def watch_phase(dev, group, x, y, runs) -> None:
+def watch_read_side(jsonl: Path, tmp: Path, docs: Path, smi: str) -> dict:
+    """[29]'s healthy JSONL through ``python -m
+    grace_tpu_torch.telemetry.watch``: no anomaly re-derived (the live
+    detectors were silent), the timeline's metric rows the run's audited
+    steps, its own baseline clean (exit 0) and a copy with one planted
+    ``watch_anomaly`` a regression (exit 1). The document goes to
+    ``docs/WATCH_LAST.json``. Returns the command lines' wall seconds."""
+    seconds: dict = {}
+    module = "grace_tpu_torch.telemetry.watch"
+    doc = json.loads(read_side_cli(
+        "[29]", module, str(jsonl), "--timeline", "--anomalies", "--json",
+        "--out", str(docs / "WATCH_LAST.json"), smi=smi, seconds=seconds))
+    if doc["recorded_anomalies"] or doc["derived_anomalies"] \
+            or doc["anomalies"]:
+        fail(f"[29] the watch re-derived anomalies from a run whose live "
+             f"detectors were silent: {doc['derived_anomalies']}")
+    base = tmp / "watch_baseline.json"
+    text = read_side_cli("[29]", module, str(jsonl), "--timeline", "--kinds",
+                         "telemetry", "--write-baseline", str(base), "--out",
+                         "", smi=smi, seconds=seconds)
+    rows = [line for line in text.splitlines() if "[telemetry" in line]
+    steps = [int(line.split()[1]) for line in rows]
+    with open(jsonl) as f:
+        audited = [r["step"] for r in map(json.loads, f)
+                   if "wire_bytes" in r and r.get("audit_bytes", 0) > 0]
+    if steps != list(range(WATCH_HEALTHY_STEPS)) or audited != steps:
+        fail(f"[29] the watch's timeline holds metric rows at {steps}, "
+             f"audited rows at {audited}; want the "
+             f"{WATCH_HEALTHY_STEPS} audited steps")
+    read_side_cli("[29]", module, str(jsonl), "--baseline", str(base),
+                  "--out", "", smi=smi, seconds=seconds)
+    planted = tmp / "planted.jsonl"
+    planted.write_text(jsonl.read_text() + json.dumps(
+        {"event": "watch_anomaly", "step": 2, "kind": "skew",
+         "metric": "compression_error", "rank": 0, "score": 9.0,
+         "threshold": 6.0, "value": 0.5}) + "\n")
+    out = read_side_cli("[29]", module, str(planted), "--baseline",
+                        str(base), "--out", "", expect=1, smi=smi,
+                        seconds=seconds)
+    log(f"[29] the watch: 0 anomalies recorded or re-derived; timeline "
+        f"metric rows at steps {steps}, each an audited step; its own "
+        f"baseline clean; the planted anomaly: "
+        + "; ".join(l.strip() for l in out.splitlines() if "REGRESSION" in l))
+    return seconds
+
+
+def watch_phase(dev, group, x, y, runs, docs_dir=None) -> None:
     """Phase 29, each part driven with the kernels' counts set to 0 just
-    before it and read just after it."""
+    before it and read just after it. The watch's evidence document goes
+    to ``docs_dir`` (default: a temporary directory)."""
     import tempfile
 
     import torch
@@ -4350,7 +4498,11 @@ def watch_phase(dev, group, x, y, runs) -> None:
         "test_torch_chaos.py)")
     with tempfile.TemporaryDirectory() as tmp:
         healthy = consensus_healthy_run(dev, group, x, y, Path(tmp))
-    runs["phase29_healthy"] = {"launches": healthy["launches"]}
+        watch_seconds = watch_read_side(Path(tmp) / "phase29.jsonl",
+                                        Path(tmp), Path(docs_dir or tmp),
+                                        nvidia_smi_line())
+    runs["phase29_healthy"] = {"launches": healthy["launches"],
+                               "cli_seconds": watch_seconds}
     runs["phase29_chaos"] = check_chaos_on_the_card(dev, group, x, y,
                                                     healthy)
     torch.cuda.empty_cache()
@@ -5342,11 +5494,62 @@ def check_shard_kernels(dev, shards, errs) -> int:
     return len(pairs)
 
 
-def mesh_profiling_phase(dev, group, x, y, runs, errs, smi) -> None:
+# The registry entry of the HEADLINE's family (per-leaf Top-K over the
+# all-gather, grace_tpu/analysis/configs.py's topk-allgather): the static
+# overlap bound [32]'s capture is held under.
+HEADLINE_REGISTRY_ENTRY = "topk-allgather"
+
+
+def profiling_read_side(logdir: str, analysis, tmp: Path, docs: Path,
+                        smi: str) -> dict:
+    """[32]'s capture through ``python -m grace_tpu_torch.profiling``: the
+    stage table and device total exactly the in-process ``analyze_trace``
+    reading's, the overlap sandwich against the HEADLINE's registry entry
+    holding, its own baseline clean (exit 0) and that baseline with every
+    stage's ms halved a regression (exit 1). The document goes to
+    ``docs/PROF_LAST.json``. Returns the command lines' wall seconds."""
+    seconds: dict = {}
+    module = "grace_tpu_torch.profiling"
+    base = tmp / "prof_baseline.json"
+    doc = json.loads(read_side_cli(
+        "[32]", module, "--trace", logdir, "--json", "--overlap-config",
+        HEADLINE_REGISTRY_ENTRY, "--write-baseline", str(base), "--out",
+        str(docs / "PROF_LAST.json"), smi=smi, seconds=seconds))
+    want = analysis.as_dict()
+    sandwich = doc.get("overlap_sandwich") or {}
+    if doc["stages_ms"] != want["stages_ms"] \
+            or doc["total_device_ms"] != want["total_device_ms"] \
+            or sandwich.get("violations") != [] \
+            or sandwich.get("static_overlap_bound") is None:
+        fail(f"[32] python -m {module}: stages {doc['stages_ms']}, total "
+             f"{doc['total_device_ms']} ms (in process: {want['stages_ms']}, "
+             f"{want['total_device_ms']} ms); sandwich {sandwich}")
+    read_side_cli("[32]", module, "--trace", logdir, "--baseline", str(base),
+                  "--out", "", smi=smi, seconds=seconds)
+    halved = json.loads(base.read_text())
+    halved["stages_ms"] = {k: v / 2 for k, v in halved["stages_ms"].items()}
+    halved_path = tmp / "prof_halved.json"
+    halved_path.write_text(json.dumps(halved))
+    out = read_side_cli("[32]", module, "--trace", logdir, "--baseline",
+                        str(halved_path), "--out", "", expect=1, smi=smi,
+                        seconds=seconds)
+    log(f"[32c] python -m {module}: the stage table and device total "
+        f"{doc['total_device_ms']} ms = analyze_trace's in process; overlap "
+        f"sandwich vs {HEADLINE_REGISTRY_ENTRY}: measured "
+        f"{sandwich['measured_overlap']} <= static bound "
+        f"{sandwich['static_overlap_bound']} (+{sandwich['slack']}): holds; "
+        f"its own baseline clean, the halved one "
+        f"{sum('REGRESSION' in l for l in out.splitlines())} regression(s)")
+    return seconds
+
+
+def mesh_profiling_phase(dev, group, x, y, runs, errs, smi,
+                         docs_dir=None) -> None:
     """Phase 32 (module docstring): the HEADLINE on a 1×1 dp×fsdp mesh
     against [5]'s 1-D steps, shard 0 of real gradients through the 2-D
     transform and the chunk kernels, and one 2-D step read back through the
-    ported profiler."""
+    ported profiler, in process and through its command line (whose
+    document goes to ``docs_dir``, default a temporary directory)."""
     import tempfile
 
     import torch
@@ -5498,6 +5701,8 @@ def mesh_profiling_phase(dev, group, x, y, runs, errs, smi) -> None:
         f"device_events' {ev_ms:.3f} ms over {sum(e.count for e in events)} "
         f"CUDA rows ({100 * rel:.2f}% apart){why}; overlap fraction "
         f"{analysis.overlap_fraction}")
+    cli_seconds = profiling_read_side(logdir, analysis, Path(tmp),
+                                      Path(docs_dir or tmp), smi)
     rec.flush(WARMUP_STEPS + TIMED_STEPS - 1)
     rec.close()
     with open(sink_path) as f:
@@ -5522,7 +5727,7 @@ def mesh_profiling_phase(dev, group, x, y, runs, errs, smi) -> None:
         profiled_launches=profiled, analyzer_total_ms=total_ms,
         device_events_ms=ev_ms, overlap_fraction=analysis.overlap_fraction,
         stages_ms=analysis.as_dict()["stages_ms"],
-        peak_mem_gb=peak / 1e9)
+        peak_mem_gb=peak / 1e9, cli_seconds=cli_seconds)
     log(f"[32] {time.perf_counter() - t0:.1f} s")
 
 
@@ -5633,10 +5838,12 @@ def _audit_cli(out_dir: Path, name: str, *args: str) -> subprocess.Popen:
         stderr=subprocess.STDOUT, text=True)
 
 
-def static_audit_phase(dev, group, x, y, runs, smi) -> None:
+def static_audit_phase(dev, group, x, y, runs, smi, docs_dir=None) -> None:
     """Phase 33 (module docstring). Every audit runs in a child process:
     the auditor owns a fake default process group, which this process's
-    NCCL group excludes."""
+    NCCL group excludes. The first registry shard on the card's route also
+    writes its ``LINT_LAST.json`` evidence document to ``docs_dir``
+    (default: a temporary directory)."""
     import tempfile
 
     import torch
@@ -5650,6 +5857,7 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
     consensus = WATCH_ROWS[1]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
+        lint_doc = Path(docs_dir or tmp) / "LINT_LAST.json"
         procs = {
             "w8": _audit_cli(out, "w8", "--params", headline, "--model",
                              "resnet50", "--world", "8"),
@@ -5668,9 +5876,11 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
                 "--world", "8", "--rank", str(r)) for r in (0, 7)},
             # The registry on each route, all ten passes and the repo
             # rules, in shards.
-            **{f"{d}{i}": _audit_cli(out, f"{d}{i}", "--all-configs",
-                                     "--device", d, "--rules", "--shard",
-                                     f"{i}/{REGISTRY_SHARDS}")
+            **{f"{d}{i}": _audit_cli(
+                out, f"{d}{i}", "--all-configs", "--device", d, "--rules",
+                "--shard", f"{i}/{REGISTRY_SHARDS}",
+                *(("--evidence", str(lint_doc)) if (d, i) == ("cuda", 0)
+                  else ()))
                for d in ("cpu", "cuda") for i in range(REGISTRY_SHARDS)},
         }
         # The real side while the children trace: one HEADLINE step on the
@@ -5717,6 +5927,13 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
                                  f"(exit {proc.returncode}):\n{text[-2000:]}")
             docs[key] = json.loads(path.read_text())
             docs[key]["returncode"] = proc.returncode
+        lint = json.loads(lint_doc.read_text()) if lint_doc.exists() else {}
+    if lint.get("errors") != 0 or lint.get("findings") != [] \
+            or lint.get("configs_audited") != docs["cuda0"]["configs_audited"] \
+            or lint.get("rules_checked") != 4 \
+            or any(lint.get("pass_counts", {"?": 1}).values()):
+        raise SystemExit(f"[33] the cuda0 shard's --evidence document: "
+                         f"{ {k: lint.get(k) for k in ('errors', 'configs_audited', 'rules_checked', 'pass_counts')} }")
     # (a) the HEADLINE at ResNet-50 width, W=8, the card's route.
     w8 = docs["w8"]["configs"]["adhoc"]
     base8 = w8["branches"]["base"]
@@ -5789,6 +6006,12 @@ def static_audit_phase(dev, group, x, y, runs, smi) -> None:
                              f"{v['configs']} configs, {v['rules']} rules, "
                              f"passes {v['passes']}, findings "
                              f"{v['findings']}")
+    log(f"[33] python -m grace_tpu_torch.analysis --all-configs --device "
+        f"cuda --rules --shard 0/{REGISTRY_SHARDS} --evidence "
+        f"LINT_LAST.json: {lint['configs_audited']} configs, "
+        f"{lint['rules_checked']} rules, {lint['errors']} errors, overlap "
+        f"bounds {lint['overlap_bounds']}; the shard traced in "
+        f"{docs['cuda0']['seconds']:.2f} s | {smi}")
     seconds = time.perf_counter() - t0
     runs["phase33_static_audit"] = {
         "launches": {}, "seconds": seconds,
@@ -5990,9 +6213,59 @@ def _retune_params():
     return incumbent, candidate
 
 
-def retune_phase(dev, group, x, y, runs, smi, out: Path) -> None:
+def evidence_read_side(root: Path, ledger: Path, claims: Path, has_git,
+                       unresolvable, out: Path, docs: Path, drill_path: Path,
+                       smi: str) -> dict:
+    """[35]'s records through ``python -m grace_tpu_torch.evidence`` (the
+    ``retune-drill`` citation MEASURED, or STALE only on the unresolvable
+    rev of a tree without ``.git``), then ``python -m
+    grace_tpu_torch.evidence.summary`` over ``docs``, which holds the
+    LINT/PROF/WATCH documents of [29], [32] and [33] and gets [34]'s
+    measured tune and [35]'s drill as TUNE/RETUNE: each section renders.
+    Returns the command lines' wall seconds."""
+    seconds: dict = {}
+    gate = json.loads(read_side_cli(
+        "[35]", "grace_tpu_torch.evidence", "--json", "--ledger",
+        str(ledger), "--root", str(root), "--doc", str(claims), smi=smi,
+        seconds=seconds))
+    for rid in ("tune-winner", "retune-drill"):
+        res = gate["records"].get(rid) or {}
+        if not (res.get("status") == "MEASURED" or (
+                not has_git and res.get("status") == "STALE"
+                and res.get("failures") == unresolvable)):
+            fail(f"[35] python -m grace_tpu_torch.evidence on {rid}: {res}")
+    (docs / "TUNE_LAST.json").write_text((out / "measured.json").read_text())
+    (docs / "RETUNE_LAST.json").write_text(drill_path.read_text())
+    md = read_side_cli("[35]", "grace_tpu_torch.evidence.summary", "--root",
+                       str(docs), "--ledger", str(ledger), smi=smi,
+                       seconds=seconds)
+    heads = ("Static analysis: `python -m grace_tpu_torch.analysis "
+             "--all-configs`", "Performance attribution: `python -m "
+             "grace_tpu_torch.profiling", "Run health (graft-watch): "
+             "`python -m grace_tpu_torch.telemetry.watch",
+             "Online re-tuning (graft-retune): `chip_smoke.py [35]`",
+             "Autotuning (graft-tune): `grace_tpu_torch.tuning`")
+    missing = [h for h in heads if h not in md]
+    if missing:
+        fail(f"[35] the summary over {sorted(p.name for p in docs.iterdir())}"
+             f" lacks {missing}:\n{md[-3000:]}")
+    log(f"[35] python -m grace_tpu_torch.evidence: "
+        f"{ {rid: gate['records'][rid]['status'] for rid in ('tune-winner', 'retune-drill')} }"
+        f"; python -m grace_tpu_torch.evidence.summary rendered "
+        f"{len(heads)} sections over "
+        f"{sorted(p.name for p in docs.iterdir())}:")
+    for line in md.splitlines():
+        if line.strip():
+            log(f"    | {line[:240]}")
+    return seconds
+
+
+def retune_phase(dev, group, x, y, runs, smi, out: Path,
+                 docs_dir=None) -> None:
     """Phase 35 (module docstring): the retune drill on the HEADLINE, the
-    evidence records of [34] and [35] through the gate, the summary."""
+    evidence records of [34] and [35] through the gate in process and
+    through its command line, the summary's command line over
+    ``docs_dir`` (default: ``out``)."""
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.checkpoint import Checkpointer
@@ -6392,6 +6665,9 @@ def retune_phase(dev, group, x, y, runs, smi, out: Path) -> None:
     if not text or "bit-exact" not in text[0] \
             or "ordering holds" not in text[0]:
         fail(f"[35] the summary of the drill: {text}")
+    cli_seconds = evidence_read_side(root, ledger, claims, has_git,
+                                     unresolvable, out,
+                                     Path(docs_dir or out), doc_path, smi)
 
     seconds = time.perf_counter() - t_phase
     runs["phase35_retune"] = {
@@ -6404,7 +6680,8 @@ def retune_phase(dev, group, x, y, runs, smi, out: Path) -> None:
         "checkpoint_mb": ckpt_mb, "demote_ms": demote_ms,
         "gate": {rid: gate["records"][rid]["status"]
                  for rid in ("tune-winner", "retune-drill")},
-        "incidents": incidents, "incidents_debounced": collapsed}
+        "incidents": incidents, "incidents_debounced": collapsed,
+        "cli_seconds": cli_seconds}
     log(f"[35] PREPARE legs (forward, back, sabotage): lint child "
         f"{legs_fwd['lint']:.2f} / {legs_back['lint']:.2f} / "
         f"{legs_sab['lint']:.2f} s; migrate "
@@ -6440,6 +6717,58 @@ def retune_phase(dev, group, x, y, runs, smi, out: Path) -> None:
         f"{runs['phase35_retune']['gate']}"
         f"{'' if has_git else ' (no .git: the rev is unresolvable)'}; the "
         f"summary: {text[0][:160]}...; phase {seconds:.1f} s | {smi}")
+
+
+# -- phase 36: the flagship example -------------------------------------------
+
+FLAGSHIP_ARGV = ["--epochs", "1", "--compressor", "topk", "--topk-algorithm",
+                 "chunk", "--memory", "residual"]
+
+
+def flagship_phase(dev, group, runs, smi) -> None:
+    """Phase 36 (module docstring): ``examples/mnist_lenet.py`` for one
+    epoch on the bundled split under Top-K 1% chunk + residual, in a
+    process of its own; both chunk kernels launch once a step, and its
+    checkpoint restores into the example's own fresh state with the digest
+    it printed."""
+    import tempfile
+
+    from grace_tpu_torch.checkpoint import Checkpointer
+    from grace_tpu_torch.data import BUNDLED_MNIST_DIR, load_mnist_auto
+    from grace_tpu_torch.examples import mnist_lenet
+    from grace_tpu_torch.resilience import state_digest
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = FLAGSHIP_ARGV + ["--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        launch_line, ckpt_line, acc_line = run_example(
+            "mnist_lenet", argv, ("kernel launches:", "checkpoint",
+                                  "final test accuracy:"),
+            EXAMPLE_TIMEOUT_S, "[36]")
+        wall = time.perf_counter() - t0
+        launches = json.loads(launch_line.split(":", 1)[1])
+        digest = ckpt_line.rsplit("digest ", 1)[1].rstrip(")")
+        args = mnist_lenet.build_parser().parse_args(argv)
+        steps = len(load_mnist_auto(BUNDLED_MNIST_DIR)[0]) // args.batch_size
+        want = {"chunk_compress_feedback": steps,
+                "chunk_aggregate_dense": steps}
+        if launches != want:
+            fail(f"[36] mnist_lenet launched {launches} in {steps} steps, "
+                 f"expected {want}")
+        _, state, _, _ = mnist_lenet.build(args, group, dev)
+        restored = Checkpointer(ckpt, group=group).restore(state)
+        got = state_digest(restored)
+        if got != digest:
+            fail(f"[36] the checkpoint restored with digest {got}, the "
+                 f"example saved {digest}")
+    runs["mnist_lenet_example"] = {"launches": launches, "seconds": wall,
+                                   "digest": digest,
+                                   "test_acc": rate(acc_line)}
+    log(f"[36] python -m grace_tpu_torch.examples.mnist_lenet "
+        f"{' '.join(FLAGSHIP_ARGV)}: exit 0 in {wall:.2f} s; launches "
+        f"{launches} in {steps} steps; the checkpoint restored bit for bit "
+        f"(digest {digest[:16]}...); {acc_line} | {smi}")
 
 
 def main() -> int:
@@ -6735,6 +7064,9 @@ def main() -> int:
             f"telemetry through guarded_chain(fallback_after=2, "
             f"fallback_steps=3): {GUARD_STEPS} steps with NaN steps "
             f"{GUARD_BAD}, checkpoints, a healthy run, four timed rows")
+        # The evidence documents of [29], [32] to [35], for [35]'s summary.
+        import tempfile
+        docs_dir = Path(tempfile.mkdtemp(prefix="grace_docs_"))
         guarded_phase(dev, group, x, y, runs)
         # -- 29. the cross-rank watch and the consistency audit -------------
         log(f"[29] ResNet-50, batch {bs}, under topk1pct + telemetry + watch "
@@ -6742,7 +7074,7 @@ def main() -> int:
             f"guarded_chain and make_stateful_train_step(consensus=...): a "
             f"healthy run against the unaudited one, the chaos injectors, "
             f"the audit's cost, three timed rows")
-        watch_phase(dev, group, x, y, runs)
+        watch_phase(dev, group, x, y, runs, docs_dir)
         # -- 30. the adaptive ladder and elastic resize ---------------------
         log(f"[30] ResNet-50, batch {bs}: topk1pct under the adaptive ladder "
             f"(fp16, Top-K 4%, Top-K 1%; window {ADAPT_WINDOW}) for 1 + "
@@ -6758,17 +7090,16 @@ def main() -> int:
         log(f"[32] ResNet-50, batch {bs}: topk1pct on a 1×1 dp×fsdp mesh "
             f"against [5]'s steps, shard 0 of real gradients, one step "
             f"through the ported profiler")
-        mesh_profiling_phase(dev, group, x, y, runs, errs, smi)
+        mesh_profiling_phase(dev, group, x, y, runs, errs, smi, docs_dir)
         # -- 33. the static auditor ------------------------------------------
         log("[33] the static auditor: the HEADLINE at ResNet-50 width traced "
             "on the card's route at W=8 and W=1, phase29_consensus's audit "
             "step, the footprint model, the registry on both routes")
-        import tempfile
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tune_dir:
             measured = start_measured_tune(Path(tune_dir))
             try:
-                static_audit_phase(dev, group, x, y, runs, smi)
+                static_audit_phase(dev, group, x, y, runs, smi, docs_dir)
                 # -- 34. the tuner --------------------------------------------
                 log("[34] the tuner: the static funnel at ResNet-50 width for "
                     "W8 and W256/slice8, the W8 shortlist measured on the "
@@ -6782,11 +7113,17 @@ def main() -> int:
                     f"propose, promote to PowerSGD r4 + rank-1 ladder and "
                     f"back, a sabotaged promotion demoted; the evidence "
                     f"ledger, the gate and the summary")
-                retune_phase(dev, group, x, y, runs, smi, Path(tune_dir))
+                retune_phase(dev, group, x, y, runs, smi, Path(tune_dir),
+                             docs_dir)
             finally:
                 if measured.poll() is None:
                     measured.kill()
                     measured.wait()
+                shutil.rmtree(docs_dir, ignore_errors=True)
+        # -- 36. the flagship example -----------------------------------------
+        log("[36] grace_tpu_torch/examples/mnist_lenet.py "
+            f"{' '.join(FLAGSHIP_ARGV)} --ckpt-dir <tmp>")
+        flagship_phase(dev, group, runs, smi)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

@@ -12,8 +12,16 @@ syncs) and the state footprint model; ``--jsonl PATH`` appends them as
 ``lint_finding`` events that ``tools/telemetry_report.py`` renders.
 ``--rules`` runs the four AST repo rules (:mod:`.rules`) over the port's
 source, alone or beside the configs a ``--config``/``--all-configs``/
-``--params`` selects. Exits 1 when there is an error finding, 2 on a bad
-argument.
+``--params`` selects; ``--rules-only`` runs them alone, ``--no-rules``
+never. ``--list`` prints the registry. A full-matrix run
+(``--all-configs``) writes the ``LINT_LAST.json`` evidence document (the
+findings, the per-pass counts and every bucketed entry's static overlap
+bound): to ``--evidence PATH``, or by default to the gitignored
+``grace_tpu_torch/LINT_LAST.json`` (never the repository root's, the JAX
+tool's; a ``--shard`` writes only where ``--evidence`` points). With
+``--ledger PATH``, or at the default path, the document is recorded in
+the port's evidence ledger (``lint-clean``). Exits 1 when there is an
+error finding, 2 on a bad argument.
 """
 
 from __future__ import annotations
@@ -25,6 +33,11 @@ import os
 import sys
 import time
 from typing import List, Optional
+
+PROG = "python -m grace_tpu_torch.analysis"
+DEFAULT_EVIDENCE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "LINT_LAST.json")
 
 # The registry's fast, representative subset (the JAX tool's default).
 CORE_CONFIGS = ("none-allreduce", "topk-allgather", "signsgd-sign_allreduce",
@@ -64,8 +77,59 @@ def _report(entry, structs, world: int, device: str, rank: int = 0):
     return out, findings
 
 
+def write_evidence(path: str, findings, configs, rules_checked: int, args,
+                   argv) -> None:
+    """The ``LINT_LAST.json`` document of a full-matrix run, and its
+    ``lint-clean`` ledger record where :func:`main`'s flags name a
+    ledger."""
+    from grace_tpu_torch.analysis.configs import overlap_bound_report
+    from grace_tpu_torch.evidence.ledger import (LEDGER_PATH, record_artifact,
+                                                 write_json_atomic)
+
+    # Zeros are evidence too: a pass that ran clean is not a pass that
+    # never ran.
+    passes_run = sorted({p for e in configs for p in e["passes"]})
+    bounds = {}
+    for e in configs:
+        try:
+            rep = overlap_bound_report(e, world=args.world,
+                                       device=args.device)
+        except Exception as err:                        # noqa: BLE001
+            rep = {"error": f"{type(err).__name__}: {err}"}
+        if rep is not None:
+            bounds[e["name"]] = rep
+    errors = sum(1 for f in findings if f.severity == "error")
+    doc = {"tool": "grace_tpu_torch.analysis", "errors": errors,
+           "warnings": len(findings) - errors,
+           "configs_audited": len(configs), "rules_checked": rules_checked,
+           "world": args.world, "device": args.device, "shard": args.shard,
+           "passes_run": passes_run,
+           "pass_counts": {p: sum(1 for f in findings if f.pass_name == p)
+                           for p in passes_run},
+           "overlap_bounds": bounds,
+           "findings": [f.as_dict() for f in findings],
+           "captured_at": datetime.datetime.now(
+               datetime.timezone.utc).isoformat(timespec="seconds")}
+    try:
+        write_json_atomic(path, doc)
+    except OSError as e:
+        print(f"[{PROG}] could not save {path}: {e}", file=sys.stderr)
+        return
+    ledger = args.ledger or (LEDGER_PATH if os.path.abspath(path)
+                             == DEFAULT_EVIDENCE else None)
+    if ledger:
+        record_artifact(
+            path, id="lint-clean", metric="configs_lint_clean",
+            value=len(configs), claim_class="measured",
+            tool="grace_tpu_torch.analysis",
+            platform="cpu", chip="cpu", n_devices=args.world,
+            config=" ".join(sys.argv[1:] if argv is None else argv) or None,
+            lint_clean=errors == 0, passes_run=passes_run,
+            ledger_path=ledger)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m grace_tpu_torch.analysis",
+    ap = argparse.ArgumentParser(prog=PROG,
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--all-configs", action="store_true",
                     help="audit the whole registry")
@@ -100,9 +164,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--rules", action="store_true",
                     help="run the AST repo rules; alone unless configs "
                          "are selected too")
+    ap.add_argument("--rules-only", action="store_true",
+                    help="run only the AST repo rules (no tracing)")
+    ap.add_argument("--no-rules", action="store_true",
+                    help="skip the AST repo rules")
     ap.add_argument("--shard", default=None, metavar="I/N",
                     help="audit every N-th selected config from the I-th "
                          "(0-based): N processes together audit them all")
+    ap.add_argument("--evidence", default=None, metavar="PATH",
+                    help="where --all-configs writes its LINT_LAST.json "
+                         "evidence (default: grace_tpu_torch/"
+                         "LINT_LAST.json, unsharded runs only)")
+    ap.add_argument("--ledger", default=None, metavar="PATH",
+                    help="record the evidence document in this ledger "
+                         "(default: the port's ledger when the document "
+                         "goes to its default path, else none)")
+    ap.add_argument("--list", action="store_true",
+                    help="list registered config names and exit")
     args = ap.parse_args(argv)
 
     from grace_tpu_torch.analysis.configs import (AUDIT_CONFIGS,
@@ -110,8 +188,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from grace_tpu_torch.analysis.passes import PASS_NAMES
     from grace_tpu_torch.analysis.report import render_text, write_jsonl
 
+    if args.list:
+        for entry in AUDIT_CONFIGS:
+            print(f"{entry['name']:30s} "
+                  f"mode={entry.get('mode', 'update'):6s} "
+                  f"passes={','.join(entry['passes'])}")
+        return 0
     by_name = {e["name"]: e for e in AUDIT_CONFIGS}
-    if args.rules and not (args.params or args.config or args.all_configs):
+    rules = (args.rules or args.rules_only) and not args.no_rules
+    if args.rules_only or (args.rules and not (args.params or args.config
+                                               or args.all_configs)):
         configs = []
     elif args.params:
         params = json.loads(args.params)
@@ -153,7 +239,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     findings, reports = [], {}
     t0 = time.perf_counter()
     rules_checked = 0
-    if args.rules:
+    if rules:
         from grace_tpu_torch.analysis.rules import RULE_NAMES, run_repo_rules
         findings += run_repo_rules()
         rules_checked = len(RULE_NAMES)
@@ -185,6 +271,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(args.json, "w") as f:
             json.dump(doc, f, indent=1, default=str)
             f.write("\n")
+    evidence = args.evidence or (None if args.shard else DEFAULT_EVIDENCE)
+    if args.all_configs and not args.rules_only and evidence:
+        write_evidence(evidence, findings, configs, rules_checked, args,
+                       argv)
     if args.jsonl:
         write_jsonl(findings, args.jsonl,
                     provenance={"tool": "grace_tpu_torch.analysis",

@@ -24,7 +24,7 @@ from grace_tpu_torch.analysis.trace import (Branch, TracedGraph,
 
 __all__ = ["AUDIT_CONFIGS", "audit_all", "audit_config", "audit_traces",
            "branches", "build_grace", "model_param_structs",
-           "overlap_bound_report", "trace_config"]
+           "overlap_bound_report", "overlap_sandwich", "trace_config"]
 
 _ALL = tuple(PASS_NAMES)
 _NO_WIRE = tuple(p for p in PASS_NAMES if p != "wire_reconciliation")
@@ -565,3 +565,23 @@ def overlap_bound_report(entry: Dict[str, Any], *, world: int = 8,
             "expected_chains": flow._expected_chains(traced),
             "exchange_collectives": int(s["exchange_collectives"]),
             "world": int(world)}
+
+
+def overlap_sandwich(entry: Dict[str, Any], measured: Optional[float], *,
+                     world: int = 8, device: str = "cuda") -> Dict[str, Any]:
+    """The measured <= static overlap sandwich of one capture against one
+    entry: the static bound the entry's traced dataflow permits, and the
+    overlap pass's findings on ``measured`` (the capture's overlap
+    fraction; None for a capture with no collective time)."""
+    from grace_tpu_torch.analysis import flow
+
+    traced = trace_config(entry, world=world, device=device)
+    traced.meta["measured_overlap"] = measured
+    bound = flow.overlap_summary(traced)["static_overlap_bound"]
+    return {"config": entry["name"], "measured_overlap": measured,
+            "static_overlap_bound": (round(bound, 6)
+                                     if bound is not None else None),
+            "slack": flow.OVERLAP_SLACK,
+            "violations": [f.message
+                           for f in flow.pass_overlap_schedulability(traced)
+                           if "measured overlap" in f.message]}

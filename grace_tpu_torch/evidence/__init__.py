@@ -23,20 +23,7 @@
 Host code only: the ledger, the gate and the backfill import no torch.
 """
 
-from grace_tpu_torch.evidence.ledger import (CLAIM_CLASSES, LEDGER_PATH,
-                                             REQUIRED_FIELDS, append_record,
-                                             latest_by_id, load_ledger,
-                                             new_record, record_artifact,
-                                             repo_root, sha256_file)
-from grace_tpu_torch.evidence.staleness import (STALE_BANNER,
-                                                ancestor_verdict,
-                                                evidence_staleness,
-                                                feature_staleness, head_rev)
-from grace_tpu_torch.evidence.gate import (gate_report, render_badges,
-                                           scan_claims, splice_badges,
-                                           verify_record)
-from grace_tpu_torch.evidence.backfill import backfill_ledger
-from grace_tpu_torch.evidence.incident import IncidentRecorder
+from grace_tpu_torch._lazy import lazy_exports
 
 __all__ = [
     "CLAIM_CLASSES", "LEDGER_PATH", "REQUIRED_FIELDS",
@@ -48,3 +35,14 @@ __all__ = [
     "verify_record",
     "backfill_ledger", "IncidentRecorder",
 ]
+
+__getattr__, __dir__ = lazy_exports(__name__, {
+    ".ledger": ("CLAIM_CLASSES", "LEDGER_PATH", "REQUIRED_FIELDS",
+                "append_record", "latest_by_id", "load_ledger", "new_record",
+                "record_artifact", "repo_root", "sha256_file"),
+    ".staleness": ("STALE_BANNER", "ancestor_verdict", "evidence_staleness",
+                   "feature_staleness", "head_rev"),
+    ".gate": ("gate_report", "render_badges", "scan_claims", "splice_badges",
+              "verify_record"),
+    ".backfill": ("backfill_ledger",),
+    ".incident": ("IncidentRecorder",)})

@@ -35,7 +35,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional
 __all__ = ["CLAIM_CLASSES", "LEDGER_PATH", "REQUIRED_FIELDS",
            "append_record", "latest_by_id", "load_ledger", "new_record",
            "record_artifact", "repo_root", "sha256_file", "git_head_rev",
-           "artifact_rev", "card_chip"]
+           "artifact_rev", "card_chip", "write_json_atomic"]
 
 
 def repo_root() -> str:
@@ -159,6 +159,18 @@ def append_record(record: Mapping[str, Any],
         f.flush()
         os.fsync(f.fileno())
     return rec
+
+
+def write_json_atomic(path: str, doc: Mapping[str, Any]) -> None:
+    """Write an evidence document as indented JSON through a temporary
+    file and a rename, so a reader never sees half a document."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 def load_ledger(path: str = LEDGER_PATH) -> List[Dict[str, Any]]:

@@ -7,29 +7,44 @@ has.
   its records, and the table of a capture that no dedicated reader
   renders;
 * :func:`incident_rollup`: the flight recorder's one-line roll-up;
-* :func:`sec_elastic`, :func:`sec_adapt`, :func:`sec_retune`,
-  :func:`sec_watch`, :func:`sec_tune`: one line each over a drill's or
-  the tuner's document in the JAX package's schema (the retune drill of
-  ``chip_smoke.py`` writes one, tool ``chip_smoke``; the port's tuner
-  writes ``grace_tpu_torch/TUNE_LAST.json``);
-* :func:`build`: the whole summary of named documents and a ledger.
+* :func:`sec_lint`, :func:`sec_prof`, :func:`sec_elastic`,
+  :func:`sec_region`, :func:`sec_adapt`, :func:`sec_retune`,
+  :func:`sec_watch`, :func:`sec_tune`: one line each over an evidence
+  document in the JAX package's schema, written by the JAX tools or by the
+  port's own command lines (``python -m grace_tpu_torch.analysis
+  --all-configs``, ``.profiling``, ``.telemetry.watch``, ``.tuning``; the
+  retune drill of ``chip_smoke.py``, tool ``chip_smoke``);
+* :func:`build`: the whole summary of named documents and a ledger;
+* :func:`main`: ``python -m grace_tpu_torch.evidence.summary [--root DIR]
+  [--ledger PATH] [--update-readme]``, the summary of the documents under
+  ``DIR`` (default: ``grace_tpu_torch/``, where the port's command lines
+  write theirs) against the port's ledger, printed or spliced between the
+  ``<!-- evidence:begin -->`` / ``<!-- evidence:end -->`` markers of
+  ``DIR/README.md`` (``--update-readme`` needs ``--root`` given: the
+  repository root's README is the JAX package's).
 
-The benchmark's sections (headline, sweep, variants, BERT, projection,
-curves) wait for the port's benchmark.
+The CPU sweep's section and the benchmark's (headline, sweep, variants,
+BERT, projection, curves) wait for the port's benchmark, their writer.
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import os
+import sys
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 from grace_tpu_torch.evidence.ledger import (LEDGER_PATH, latest_by_id,
                                              load_ledger, repo_root)
 
 __all__ = ["ledger_view", "ledger_note", "generic_section",
-           "incident_rollup", "sec_elastic", "sec_adapt", "sec_retune",
-           "sec_watch", "sec_tune", "SECTIONS", "build"]
+           "incident_rollup", "sec_lint", "sec_prof", "sec_elastic",
+           "sec_region", "sec_adapt", "sec_retune", "sec_watch", "sec_tune",
+           "SECTIONS", "build", "load_docs", "splice_summary", "main"]
+
+PROG = "python -m grace_tpu_torch.evidence.summary"
+BEGIN, END = "<!-- evidence:begin -->", "<!-- evidence:end -->"
 
 
 def ledger_view(path: str = LEDGER_PATH
@@ -87,6 +102,70 @@ def _variants(n) -> str:
     return "bit-identical" if n == 1 else f"{n} variants"
 
 
+def sec_lint(doc, name: str = "LINT_LAST.json") -> List[str]:
+    """The auditor's full-matrix run: errors and warnings over the configs
+    and repo rules, the passes with findings, and the bucketed entries'
+    static overlap bounds."""
+    if not (isinstance(doc, dict) and "errors" in doc):
+        return []
+    counts = doc.get("pass_counts") or {}
+    per_pass = ""
+    if counts:
+        dirty = {p: n for p, n in counts.items() if n}
+        per_pass = ("; per-pass findings: "
+                    + ", ".join(f"{p} {n}" for p, n in sorted(dirty.items()))
+                    if dirty else f"; all {len(counts)} passes clean")
+    bounds = doc.get("overlap_bounds") or {}
+    bound_s = ""
+    if bounds:
+        bound_s = ("; bucketed overlap bounds: " + ", ".join(
+            f"{n} static≤{rep.get('static_overlap_bound')} "
+            f"({rep.get('independent_chains')}/"
+            f"{rep.get('expected_chains')} chains)"
+            for n, rep in sorted(bounds.items())
+            if isinstance(rep, dict) and "error" not in rep))
+    command = ("python -m grace_tpu_torch.analysis --all-configs"
+               if doc.get("tool") == "grace_tpu_torch.analysis"
+               else "graft_lint --all-configs")
+    return [f"Static analysis: `{command}` → "
+            f"{doc['errors']} error(s) / {doc.get('warnings', 0)} "
+            f"warning(s) over {doc.get('configs_audited', '?')} configs + "
+            f"{doc.get('rules_checked', '?')} repo rules"
+            f"{per_pass}{bound_s}" + _tail(name, doc)]
+
+
+def sec_prof(doc, name: str = "PROF_LAST.json") -> List[str]:
+    """A trace's attribution: the device total and top stage, the overlap
+    fraction and its sandwich, the step p50, the baseline regressions."""
+    if not (isinstance(doc, dict) and doc.get("stages_ms")):
+        return []
+    top = max(doc["stages_ms"].items(), key=lambda kv: kv[1])
+    ov = doc.get("overlap_fraction")
+    steps = doc.get("step_times") or {}
+    bits = [f"total device time {_fmt(doc.get('total_device_ms'), 3)} "
+            f"ms, top stage {top[0]} ({_fmt(top[1], 3)} ms)"]
+    if ov is not None:
+        bits.append(f"overlap fraction {100.0 * ov:.1f}%")
+    sand = doc.get("overlap_sandwich")
+    if isinstance(sand, dict):
+        verdict = "VIOLATED" if sand.get("violations") else "holds"
+        bits.append(
+            f"measured≤static sandwich vs {sand.get('config')} "
+            f"(bound {sand.get('static_overlap_bound')}): {verdict}")
+    if steps.get("p50_ms") is not None:
+        bits.append(f"step p50 {_fmt(steps['p50_ms'], 3)} ms")
+    regr = doc.get("regressions")
+    if regr is not None:
+        bits.append(f"{len(regr)} baseline regression(s)")
+    note = f" — {doc['note']}" if doc.get("note") else ""
+    command = ("python -m grace_tpu_torch.profiling"
+               if doc.get("tool") == "grace_tpu_torch.profiling"
+               else "perf_report")
+    return [f"Performance attribution: `{command} --trace "
+            f"{doc.get('trace', '?')}` → " + ", ".join(bits)
+            + _tail(name, doc, note)]
+
+
 def sec_elastic(doc, name: str = "ELASTIC_LAST.json") -> List[str]:
     """The elastic drill: the world cycle, the resizes, the rejoin
     barrier, the convergence floor and the footprint checks."""
@@ -111,6 +190,45 @@ def sec_elastic(doc, name: str = "ELASTIC_LAST.json") -> List[str]:
         bits.append(_footprint_bits(fp))
     return ["Elastic training (graft-elastic): `chaos_smoke --elastic` → "
             + ", ".join(bits) + _tail(name, doc)]
+
+
+def sec_region(doc, name: str = "REGION_LAST.json") -> List[str]:
+    """The cross-region drill: the world cycle and layout, the drain's
+    scope, the region rejoin barrier, the floor, the footprint checks and
+    the guard through the drift."""
+    if not (isinstance(doc, dict) and doc.get("tool") == "chaos_smoke"):
+        return []
+    cycle = " → ".join(str(w) for w in (doc.get("world_cycle") or []))
+    drain = doc.get("drain") or {}
+    rejoin = doc.get("rejoin") or {}
+    floor = doc.get("floor") or {}
+    fp = doc.get("footprint") or {}
+    layout = (f"{doc.get('regions', '?')} regions × "
+              f"region {doc.get('region_size', '?')} / "
+              f"slice {doc.get('slice_size', '?')}")
+    bits = [f"world cycle {cycle} ({layout})"]
+    if drain:
+        scoped = ("region-wide" if drain.get("region_wide")
+                  else f"PARTIAL scope {drain.get('scope')}")
+        bits.append(
+            f"{drain.get('transitions', '?')} drain transition(s) for "
+            f"drift on ranks {doc.get('drift_ranks')} — {scoped}, "
+            f"{drain.get('drain_timeouts', 0)} watchdog timeout(s)")
+    if rejoin:
+        bits.append(
+            f"region rejoin barrier: {rejoin.get('barrier_repairs', '?')}"
+            f" repair(s) for {rejoin.get('rejoins', '?')} region "
+            f"rejoin(s) ({rejoin.get('rejoined_ranks', '?')} ranks), "
+            f"replicas {_variants(rejoin.get('replica_variants'))}")
+    if floor:
+        bits.append(_floor_bits(floor))
+    if fp:
+        bits.append(_footprint_bits(fp))
+    if doc.get("guard_silent") is not None:
+        bits.append("guard " + ("silent through the drift phase"
+                                if doc.get("guard_silent") else "TRIPPED"))
+    return ["Cross-region elasticity (graft-region): `chaos_smoke "
+            "--region` → " + ", ".join(bits) + _tail(name, doc)]
 
 
 def sec_adapt(doc, name: str = "ADAPT_LAST.json") -> List[str]:
@@ -194,9 +312,15 @@ def sec_retune(doc, name: str = "RETUNE_LAST.json") -> List[str]:
             + _tail(name, doc)]
 
 
+# The watch document's writers: the JAX package's tool and the port's.
+_WATCH_COMMANDS = {"graft_watch": "graft_watch",
+                   "grace_tpu_torch.telemetry.watch":
+                       "python -m grace_tpu_torch.telemetry.watch"}
+
+
 def sec_watch(doc, name: str = "WATCH_LAST.json") -> List[str]:
     """The watch drill: event counts, anomalies and flagged ranks."""
-    if not (isinstance(doc, dict) and doc.get("tool") == "graft_watch"):
+    if not (isinstance(doc, dict) and doc.get("tool") in _WATCH_COMMANDS):
         return []
     counts = doc.get("kind_counts") or {}
     bits = [f"{doc.get('events', '?')} events "
@@ -211,7 +335,7 @@ def sec_watch(doc, name: str = "WATCH_LAST.json") -> List[str]:
         bits.append(f"{len(regr)} baseline regression(s)")
     note = (" — seeded single-rank drift scenario, not a healthy run"
             if ranks else "")
-    return [f"Run health (graft-watch): `graft_watch "
+    return [f"Run health (graft-watch): `{_WATCH_COMMANDS[doc['tool']]} "
             f"{doc.get('artifact', '?')}` → " + ", ".join(bits)
             + _tail(name, doc, note)]
 
@@ -300,7 +424,10 @@ def incident_rollup(latest: Mapping[str, Mapping],
 
 # Base name → reader, in render order.
 SECTIONS: Tuple[Tuple[str, Callable[..., List[str]]], ...] = (
+    ("LINT_LAST.json", sec_lint),
+    ("PROF_LAST.json", sec_prof),
     ("ELASTIC_LAST.json", sec_elastic),
+    ("REGION_LAST.json", sec_region),
     ("ADAPT_LAST.json", sec_adapt),
     ("RETUNE_LAST.json", sec_retune),
     ("WATCH_LAST.json", sec_watch),
@@ -336,3 +463,59 @@ def build(docs: Mapping[str, Any], ledger_path: str = LEDGER_PATH,
     parts += incident_rollup(latest, incident_dir, root)
     return "\n".join(parts).rstrip() + "\n"
 
+
+def load_docs(root: str) -> Dict[str, Any]:
+    """Every :data:`SECTIONS` document found under ``root``, by base name
+    (a JSON document, or the rows of a JSON-lines file)."""
+    from grace_tpu_torch.evidence.backfill import load_doc
+
+    docs = {}
+    for base, _ in SECTIONS:
+        doc = load_doc(os.path.join(root, base))
+        if doc is not None:
+            docs[base] = doc
+    return docs
+
+
+def splice_summary(readme_path: str, md: str) -> None:
+    """Replace the text between the evidence markers of ``readme_path``
+    with ``md``; SystemExit when the file lacks the markers."""
+    with open(readme_path) as f:
+        text = f.read()
+    if BEGIN not in text or END not in text:
+        raise SystemExit(f"{readme_path} lacks {BEGIN} / {END} markers")
+    pre = text.split(BEGIN)[0]
+    post = text.split(END)[1]
+    with open(readme_path, "w") as f:
+        f.write(pre + BEGIN + "\n" + md + END + post)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog=PROG,
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="directory of the evidence documents (default: "
+                         "grace_tpu_torch/)")
+    ap.add_argument("--ledger", default=LEDGER_PATH,
+                    help="ledger path (default: the port's)")
+    ap.add_argument("--update-readme", action="store_true",
+                    help="splice the summary into <root>/README.md "
+                         "(needs --root)")
+    args = ap.parse_args(argv)
+    if args.update_readme and args.root is None:
+        print(f"[{PROG}] --update-readme needs --root: the repository "
+              "root's README.md is the JAX package's", file=sys.stderr)
+        return 2
+    root = args.root or os.path.join(repo_root(), "grace_tpu_torch")
+    md = build(load_docs(root), args.ledger)
+    if not args.update_readme:
+        print(md, end="")
+        return 0
+    path = os.path.join(root, "README.md")
+    splice_summary(path, md)
+    print(f"{path} updated")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -19,23 +19,7 @@ and its Chrome trace carries the ranges and launch correlations that
 attribute kernels to stages instead.
 """
 
-from grace_tpu_torch.profiling.recorder import (ProfileRecorder,
-                                                check_state_footprint,
-                                                compile_count,
-                                                device_memory_watermarks,
-                                                expected_state_footprint,
-                                                grace_state_footprint)
-from grace_tpu_torch.profiling.trace_analysis import (Span, TraceAnalysis,
-                                                      analyze_spans,
-                                                      analyze_trace,
-                                                      find_latest_trace,
-                                                      interval_union_us,
-                                                      load_trace_events,
-                                                      overlap_us,
-                                                      parse_chrome_trace)
-from grace_tpu_torch.profiling.trace_export import (chrome_trace_doc,
-                                                    merge_host_traces,
-                                                    write_chrome_trace)
+from grace_tpu_torch._lazy import lazy_exports
 
 __all__ = [
     "ProfileRecorder", "check_state_footprint", "compile_count",
@@ -46,3 +30,14 @@ __all__ = [
     "overlap_us", "parse_chrome_trace",
     "chrome_trace_doc", "merge_host_traces", "write_chrome_trace",
 ]
+
+__getattr__, __dir__ = lazy_exports(__name__, {
+    ".recorder": ("ProfileRecorder", "check_state_footprint", "compile_count",
+                  "device_memory_watermarks", "expected_state_footprint",
+                  "grace_state_footprint"),
+    ".trace_analysis": ("Span", "TraceAnalysis", "analyze_spans",
+                        "analyze_trace", "find_latest_trace",
+                        "interval_union_us", "load_trace_events", "overlap_us",
+                        "parse_chrome_trace"),
+    ".trace_export": ("chrome_trace_doc", "merge_host_traces",
+                      "write_chrome_trace")})

@@ -23,21 +23,21 @@ the run timeline; counterpart of the JAX package's ``telemetry``.
 * :func:`trace_stage` — ``torch.profiler`` spans named by stage.
 """
 
-from grace_tpu_torch.telemetry.aggregate import (WATCH_FIELDS, WatchConfig,
-                                                 WatchState, watch_init,
-                                                 watch_record)
-from grace_tpu_torch.telemetry.anomaly import AnomalyConfig, WatchMonitor
-from grace_tpu_torch.telemetry.reader import TelemetryReader
-from grace_tpu_torch.telemetry.scopes import trace_stage
-from grace_tpu_torch.telemetry.sinks import (JSONLSink, MultiSink, Sink,
-                                             TensorBoardSink)
-from grace_tpu_torch.telemetry.state import (FIELDS, TelemetryConfig,
-                                             TelemetryState, telemetry_init,
-                                             telemetry_record)
-from grace_tpu_torch.telemetry.timeline import Timeline
+from grace_tpu_torch._lazy import lazy_exports
 
 __all__ = ["FIELDS", "TelemetryConfig", "TelemetryState", "telemetry_init",
            "telemetry_record", "WATCH_FIELDS", "WatchConfig", "WatchState",
            "watch_init", "watch_record", "AnomalyConfig", "WatchMonitor",
            "Timeline", "TelemetryReader", "Sink", "JSONLSink",
            "TensorBoardSink", "MultiSink", "trace_stage"]
+
+__getattr__, __dir__ = lazy_exports(__name__, {
+    ".aggregate": ("WATCH_FIELDS", "WatchConfig", "WatchState", "watch_init",
+                   "watch_record"),
+    ".anomaly": ("AnomalyConfig", "WatchMonitor"),
+    ".reader": ("TelemetryReader",),
+    ".scopes": ("trace_stage",),
+    ".sinks": ("JSONLSink", "MultiSink", "Sink", "TensorBoardSink"),
+    ".state": ("FIELDS", "TelemetryConfig", "TelemetryState", "telemetry_init",
+               "telemetry_record"),
+    ".timeline": ("Timeline",)})

@@ -17,8 +17,6 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, List, Optional
 
-import torch
-
 __all__ = ["trace_stage", "match_stage", "ALL_STAGES",
            "STAGE_COMPENSATE", "STAGE_COMPRESS",
            "STAGE_EXCHANGE", "STAGE_DECOMPRESS", "STAGE_MEMORY_UPDATE",
@@ -83,6 +81,8 @@ def trace_stage(name: str) -> Iterator[None]:
     """A ``record_function`` span named ``name`` while a profiler records;
     nothing otherwise. Under the auditor's recorder, ``name`` is on its
     stage stack for the span's length."""
+    import torch                  # here: the read side imports no torch
+
     stack = STAGE_STACK
     if stack is not None:
         stack.append(name)

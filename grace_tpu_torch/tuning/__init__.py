@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import contextlib
 import datetime
-import json
 import os
 import tempfile
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -192,13 +191,9 @@ def write_tune_evidence(doc: Dict[str, Any],
     none for another path without one (a test's file must not reach the
     port's ledger). On the card the record's ``chip`` is the card's name
     and power limit (``nvidia-smi``)."""
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(doc, f, indent=1)
-        f.write("\n")
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
+    from grace_tpu_torch.evidence.ledger import write_json_atomic
+
+    write_json_atomic(path, doc)
     if ledger_path is None and (os.path.abspath(path)
                                 != os.path.abspath(TUNE_EVIDENCE_PATH)):
         return

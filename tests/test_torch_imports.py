@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, nothing of the JAX package or of the
-repository's ``bench.py``, and no CUDA, nvcc or triton at import time."""
+"""The port stands alone: no JAX, nothing of the JAX package, of the
+repository's ``bench.py`` or of its ``tools/``, and no CUDA, nvcc or triton
+at import time. The read-side command lines start without torch."""
 
 import pathlib
 import re
@@ -17,7 +18,8 @@ import sys
 # jax, the JAX package, bench.py and triton are made unimportable; no CUDA
 # is asked.
 for name in ("jax", "jaxlib", "optax", "flax", "grace_tpu", "triton",
-             "bench"):
+             "bench", "tools", "telemetry_report", "graft_watch",
+             "perf_report", "graft_gate", "graft_lint", "evidence_summary"):
     sys.modules[name] = None
 import importlib, pkgutil
 import grace_tpu_torch
@@ -28,7 +30,7 @@ for name in names:
 import chip_smoke
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "grace_tpu", "triton",
-                                       "bench")
+                                       "bench", "tools")
                 and sys.modules[n] is not None)
 print(",".join(names), leaked)
 """
@@ -118,6 +120,23 @@ RETUNE_EVIDENCE_MODULES = {
         "ledger", "staleness", "gate", "incident", "backfill", "summary"))}
 
 
+# The tools' read side as the port's command lines, and the flagship
+# example.
+READ_SIDE_MODULES = {
+    "grace_tpu_torch._lazy", "grace_tpu_torch.telemetry.__main__",
+    "grace_tpu_torch.telemetry.watch", "grace_tpu_torch.profiling.__main__",
+    "grace_tpu_torch.evidence.__main__",
+    "grace_tpu_torch.examples.mnist_lenet"}
+
+# Each read-side command line on a file, with torch made unimportable.
+_NO_TORCH = r"""
+import runpy, sys
+sys.modules["torch"] = None
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__")
+"""
+
+
 def test_every_module_imports_without_jax_or_triton():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
@@ -139,7 +158,33 @@ def test_every_module_imports_without_jax_or_triton():
     assert ANALYSIS_MODULES <= names
     assert STATE_TUNING_MODULES <= names
     assert RETUNE_EVIDENCE_MODULES <= names
+    assert READ_SIDE_MODULES <= names
     assert leaked.strip() == "[]"
+
+
+@pytest.mark.parametrize("argv", [
+    ["grace_tpu_torch.telemetry", "{jsonl}", "--json"],
+    ["grace_tpu_torch.telemetry.watch", "{jsonl}", "--anomalies", "--out",
+     ""],
+    ["grace_tpu_torch.profiling", "--trace", "{trace}", "--out", ""],
+    ["grace_tpu_torch.evidence", "--root", "{tmp}", "--json"],
+    ["grace_tpu_torch.evidence.summary", "--root", "{tmp}"]],
+    ids=lambda a: a[0])
+def test_read_side_command_lines_run_without_torch(argv, tmp_path):
+    """The JAX tools are standard library only; so are the port's readers:
+    each runs to exit 0 with ``import torch`` refused."""
+    (tmp_path / "REGION_LAST.json").write_text(
+        (REPO / "REGION_LAST.json").read_text())
+    jsonl = tmp_path / "run.jsonl"
+    jsonl.write_text('{"provenance": {"data": "synthetic"}}\n'
+                     '{"step": 0, "grad_norm": 1.0, "wire_bytes": 8.0}\n')
+    subs = {"{jsonl}": str(jsonl), "{tmp}": str(tmp_path),
+            "{trace}": str(REPO / "tests" / "data" / "perf_trace.json.gz")}
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH] + [subs.get(a, a) for a in argv],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -148,8 +193,10 @@ def test_sources_name_no_jax(path):
     assert "grace_tpu." not in text
     assert "import jax" not in text
     assert not re.search(
-        r"^\s*(from|import)\s+(jax|optax|flax|grace_tpu|bench)\b", text,
-        re.M)
+        r"^\s*(from|import)\s+(jax|optax|flax|grace_tpu|bench|tools)\b",
+        text, re.M)
+    # Nothing under the repository's tools/ is loaded or run by path.
+    assert not re.search(r"[\"']tools[\"']", text)
 
 
 def test_kernel_source_is_in_the_package():
