@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-from ROOT
+    python3 chip_smoke.py --profile-callout NPY
 
 Runs as one process on one card, in a world-size-1 NCCL group (the
 collectives are real calls). Every phase passes or ends the script with a
@@ -11,7 +12,9 @@ start while any GRACE_DISABLE_PALLAS* variable is set: a kernel family
 turned off would make its checks compare plain versions with themselves.
 With ``--times-from ROOT`` it runs phase 3's, 8's and 12's timings alone,
 of the kernels of the checkout at ROOT (an earlier commit, unpacked with
-``git archive``), so that two versions compare within one call.
+``git archive``), so that two versions compare within one call. With
+``--profile-callout NPY`` it is phase 37's profiler reading, which phase
+37 runs in a process of its own.
 
 Every timed kernel row of phases 3, 8 and 12 reads the kernel alone with
 two clocks: the profiler's device time of the kernel, and CUDA events
@@ -443,6 +446,34 @@ The flagship example:
     exit 0, each chunk kernel launched once a step (15 steps), and its
     checkpoint restored into the example's own fresh state
     (``mnist_lenet.build``) reproduces the state digest it printed.
+
+The last front end and the drills' command line:
+
+37. The TensorFlow front end's host callout on the card, where TensorFlow
+    is not installed: ``TFExchanger(grace_from_params(topk1pct),
+    device="cuda")`` fed the flat buffer of real ResNet-50 gradients
+    (25,557,032 floats, 102.2 MB) through ``_host_exchange``, 1 warm-up
+    and 5 timed calls. Each output equals, bit for bit, a ``GraceBridge``
+    of the same Grace fed the same buffer resident on the card and the
+    same Grace with ``use_pallas=False`` (the staged chunk path), the
+    state carried. Each call launches each chunk kernel once (the wrappers'
+    counters, and one more call under torch.profiler in a process of its
+    own, ``--profile-callout``); the wall ms a call
+    of the callout and of the resident bridge are printed, their difference
+    the host round trip of the buffer. ``DistributedGradientTape`` raises
+    ImportError naming tensorflow. It runs after [31], before [33] starts
+    the first child process that shares the card.
+38. ``python -m grace_tpu_torch.resilience.smoke --world 1 --device cuda``
+    as four child processes started together beside [36] (whose checks
+    are launches and a digest, not time) and collected after it: the
+    default drill (the guard
+    trips, the loss finite), ``--homo``, ``--pipeline 2`` (the
+    quantize-and-pack kernel live: 5 launches a compressed step, none on
+    the dense escape's steps) and ``--adapt
+    --adapt-rank 0``, each at reduced steps, each writing into a temporary
+    directory; each exits 0, and ``python -m
+    grace_tpu_torch.evidence.summary`` renders the adapt section from the
+    adapt child's document. The wall seconds of each child are printed.
 
 Every read-side command line's wall seconds are printed on a line of their
 own beside the card's name and power limit.
@@ -2554,20 +2585,23 @@ def check_lenet_kernels(dev, errs):
     return cases, leaves
 
 
-def profiled_kernel_launches(step, state, batch, words, want) -> dict:
+def profiled_kernel_launches(fn, words, want, what="step") -> dict:
     """Launches of the kernels whose names hold each of ``words`` in one
-    more step under torch.profiler (the profiler's own count). A session
-    that records no kernels, or fewer launches of a word than ``want``
-    gives it (the launches the wrappers count a step), is a fault of the
-    profiler: the step is profiled again, up to PROFILER_ATTEMPTS times
-    (as kernel_device_ms does); the last session's counts are returned."""
+    more call of ``fn`` (one ``what``) under torch.profiler (the
+    profiler's own count). A session that records no kernels, or fewer
+    launches of a word than ``want`` gives it (the launches the wrappers
+    count a call), is a fault of the profiler: a short session first, as at
+    the start of a process, then after a growing pause the call is profiled
+    again, up to PROFILER_ATTEMPTS times (as kernel_device_ms does); the
+    last session's counts are returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     warm_profiler()
-    for _ in range(PROFILER_ATTEMPTS):
+    for attempt in range(PROFILER_ATTEMPTS):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            step(state, batch)
+            fn()
             torch.cuda.synchronize()
         events = device_events(prof)
         counts = {w: sum(e.count for e in events if w in e.key)
@@ -2575,8 +2609,9 @@ def profiled_kernel_launches(step, state, batch, words, want) -> dict:
         if events and all(counts[w] >= want.get(w, 0) for w in words):
             break
         log(f"  (the profiler recorded {len(events)} kernels and {counts} "
-            f"in one step; profiling another step)")
+            f"in one {what}; profiling another {what})")
         warm_profiler.__wrapped__()
+        time.sleep(0.1 * (attempt + 1))
     return counts
 
 
@@ -2603,7 +2638,7 @@ def train_mnist(dev, group, cfg):
     torch.cuda.synchronize()
     launches = ops.launch_counts()            # just after it
     profiled = profiled_kernel_launches(
-        res["step"], res["state"], res["batch"], MNIST_KERNELS,
+        lambda: res["step"](res["state"], res["batch"]), MNIST_KERNELS,
         cfg["per_step"])
     # The vote is held at its best epoch (on both sides), the rest at the
     # final one.
@@ -6267,7 +6302,7 @@ def retune_phase(dev, group, x, y, runs, smi, out: Path,
     through its command line, the summary's command line over
     ``docs_dir`` (default: ``out``)."""
     import torch
-    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch import ops
     from grace_tpu_torch.checkpoint import Checkpointer
     from grace_tpu_torch.evidence import (IncidentRecorder, gate_report,
                                           latest_by_id, load_ledger,
@@ -6276,9 +6311,9 @@ def retune_phase(dev, group, x, y, runs, smi, out: Path,
     from grace_tpu_torch.evidence.ledger import git_head_rev
     from grace_tpu_torch.evidence.summary import sec_retune
     from grace_tpu_torch.models.resnet import resnet50
-    from grace_tpu_torch.resilience import (ChaosCompressor,
-                                            RetuneController, guarded_chain,
+    from grace_tpu_torch.resilience import (RetuneController,
                                             replica_variants, state_digest)
+    from grace_tpu_torch.resilience.smoke.retune import chaos_build
     from grace_tpu_torch.telemetry import (JSONLSink, MultiSink, Sink,
                                            TelemetryReader, Timeline)
     from grace_tpu_torch.train import (TrainState, init_stateful_train_state,
@@ -6291,26 +6326,12 @@ def retune_phase(dev, group, x, y, runs, smi, out: Path,
     root = Path(__file__).resolve().parent
     incumbent, candidate = _retune_params()
     chaos = {"drift": False, "nan": False}
-
-    def build(p):
-        """The run's chain factory; the chaos flags wrap the codec (and a
-        ladder's rungs) outside the controller, as JAX's drill does."""
-        grc = grace_from_params(p, group=group)
-        wraps = []
-        if chaos["drift"]:
-            wraps.append(lambda c: ChaosCompressor(
-                inner=c, drift_scale=RETUNE_DRIFT_SCALE, rank=None,
-                seed=SEED + 3, group=group))
-        if chaos["nan"]:
-            wraps.append(lambda c: ChaosCompressor(
-                inner=c, nan_prob=1.0, rank=0, seed=SEED + 5, group=group))
-        for wrap in wraps:
-            grc = dataclasses.replace(grc, compressor=wrap(grc.compressor))
-            if grc.adapt is not None:
-                grc = dataclasses.replace(grc, adapt=dataclasses.replace(
-                    grc.adapt, ladder=tuple(wrap(c)
-                                            for c in grc.adapt.ladder)))
-        return grc, guarded_chain(grc, seed=SEED, **RETUNE_GUARD_KW)
+    # The run's chain factory is the drill's (python -m
+    # grace_tpu_torch.resilience.smoke --retune): the chaos flags wrap the
+    # codec and a ladder's rungs outside the controller.
+    build = chaos_build(group, chaos, drift_scale=RETUNE_DRIFT_SCALE,
+                        rank=0, seed=SEED, guard_kw=RETUNE_GUARD_KW,
+                        tx_seed=SEED)
 
     def step_of(tx, p):
         return make_stateful_train_step(loss_fn, tx, group,
@@ -6771,6 +6792,282 @@ def flagship_phase(dev, group, runs, smi) -> None:
         f"(digest {digest[:16]}...); {acc_line} | {smi}")
 
 
+# -- phase 37: the TensorFlow front end's host callout ----------------------------
+
+TF_CALLOUT_CALLS = 6             # 1 warm-up + 5 timed
+RESNET50_NUMEL = 25_557_032
+# Predicted before the call: the callout's bridge holds one flat leaf, so
+# one launch of each chunk kernel a call.
+TF_CALLOUT_PER_CALL = {"chunk_compress_feedback": 1,
+                       "chunk_aggregate_dense": 1}
+
+
+def tf_callout_phase(dev, group, runs, smi) -> None:
+    """Phase 37 (module docstring)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from grace_tpu_torch import grace_from_params, ops
+    from grace_tpu_torch.interop import GraceBridge
+    from grace_tpu_torch.interop import tensorflow as port_tf
+
+    t_phase = time.perf_counter()
+    flat = resnet50_flat_grads(dev, count=1)[0]
+    if flat.numel() != RESNET50_NUMEL:
+        fail(f"[37] the flat ResNet-50 gradient has {flat.numel()} floats")
+    host = flat.cpu().numpy()
+    mb = host.nbytes / 1e6
+    grace = grace_from_params(_TOPK1, group=group)
+    callout = port_tf.TFExchanger(grace, device="cuda")
+    resident = GraceBridge(grace, n=flat.numel(), seed=0, device=dev)
+    staged = GraceBridge(grace_from_params({**_TOPK1, "use_pallas": False},
+                                           group=group),
+                         n=flat.numel(), seed=0, device=dev)
+    call_ms, res_ms, per_call = [], [], []
+    for c in range(TF_CALLOUT_CALLS):
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        got = callout._host_exchange(host)        # back on the host: synced
+        t1 = time.perf_counter()
+        now = ops.launch_counts()
+        per_call.append({k: now[k] - before.get(k, 0)
+                         for k in TF_CALLOUT_PER_CALL})
+        mine = flat.clone()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = resident.exchange(mine)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        plain = staged.exchange(flat.clone())
+        if not same_bits(torch.from_numpy(got), want.cpu()):
+            fail(f"[37] call {c}: the callout differs from the resident "
+                 f"bridge (max abs err "
+                 f"{max_abs_err(torch.from_numpy(got), want.cpu())})")
+        if not same_bits(want, plain):
+            fail(f"[37] call {c}: the kernels differ from the staged chunk "
+                 "path")
+        if c:
+            call_ms.append((t1 - t0) * 1e3)
+            res_ms.append((t3 - t2) * 1e3)
+    if any(p != TF_CALLOUT_PER_CALL for p in per_call):
+        fail(f"[37] launches a call {per_call}, predicted "
+             f"{TF_CALLOUT_PER_CALL}")
+    profiled, profile_s = profile_callout_apart(host)
+    if profiled != TF_CALLOUT_PER_CALL:
+        fail(f"[37] the profiler counted {profiled} in one call, predicted "
+             f"{TF_CALLOUT_PER_CALL}")
+    tape_refused = None
+    if importlib.util.find_spec("tensorflow") is None:
+        try:
+            port_tf.DistributedGradientTape(None, grace, device="cuda")
+        except ImportError as e:
+            tape_refused = str(e)
+        if not tape_refused or "tensorflow" not in tape_refused:
+            fail(f"[37] DistributedGradientTape without tensorflow: "
+                 f"{tape_refused}")
+    launches = {k: sum(p[k] for p in per_call) + profiled[k]
+                for k in TF_CALLOUT_PER_CALL}
+    call = statistics.median(call_ms)
+    res = statistics.median(res_ms)
+    runs["tf_callout"] = {"launches": launches, "callout_ms": call_ms,
+                          "resident_ms": res_ms, "mb_each_way": mb,
+                          "round_trip_ms": call - res}
+    del flat, host, callout, resident, staged
+    torch.cuda.empty_cache()
+    log(f"[37] TFExchanger._host_exchange over the {RESNET50_NUMEL}-float "
+        f"ResNet-50 gradient ({mb:.1f} MB each way): {TF_CALLOUT_CALLS} "
+        f"calls bit for bit equal to the resident GraceBridge and to the "
+        f"staged chunk path; launches a call {per_call[-1]} (predicted "
+        f"{TF_CALLOUT_PER_CALL}; the profiler, a process of its own: "
+        f"{profiled} in {profile_s:.1f} s); median of 5: "
+        f"callout {call:.3f} ms, resident bridge {res:.3f} ms, host round "
+        f"trip {call - res:.3f} ms (callout {[round(v, 3) for v in call_ms]}"
+        f", resident {[round(v, 3) for v in res_ms]}); "
+        f"DistributedGradientTape without tensorflow: "
+        f"{'ImportError' if tape_refused else 'tensorflow present'}; "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def profile_callout_apart(host):
+    """[37]'s profiler count of one callout call over ``host``, read in a
+    process of its own (``chip_smoke.py --profile-callout``): after the
+    hundreds of profiler sessions of the phases before it, this process's
+    profiler has recorded no device event at all, where a fresh process
+    reads each session of the callout. Returns the counts and the child's
+    wall seconds."""
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="grace_callout_") as tmp:
+        npy = Path(tmp) / "flat.npy"
+        np.save(npy, host)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--profile-callout", str(npy)],
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"[37] chip_smoke.py --profile-callout exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [37] {line}")
+    return json.loads(lines[-1])["profiled"], wall
+
+
+def profile_callout(npy: str) -> int:
+    """``--profile-callout NPY``: [37]'s callout, built as [37] builds it,
+    over the float32 buffer in NPY; one call to load the kernels, then one
+    call under torch.profiler (``profiled_kernel_launches``). Prints the
+    counts as one JSON line."""
+    import numpy as np
+    import torch.distributed as dist
+    from grace_tpu_torch import grace_from_params
+    from grace_tpu_torch.interop import tensorflow as port_tf
+    from grace_tpu_torch.parallel import init_process_group
+
+    group, _ = init_process_group("cuda")
+    try:
+        host = np.load(npy)
+        callout = port_tf.TFExchanger(grace_from_params(_TOPK1, group=group),
+                                      device="cuda")
+        callout._host_exchange(host)
+        profiled = profiled_kernel_launches(
+            lambda: callout._host_exchange(host), list(TF_CALLOUT_PER_CALL),
+            TF_CALLOUT_PER_CALL, what="call")
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"profiled": profiled}))
+    return 0
+
+
+# -- phase 38: the drills' command line -------------------------------------------
+
+DRILLS = {
+    "default": ["--steps", "40", "--nan-prob", "0.05", "--telemetry-every",
+                "10"],
+    "homo": ["--homo", "--steps", "30", "--nan-prob", "0.05",
+             "--telemetry-every", "10"],
+    "pipeline2": ["--pipeline", "2", "--steps", "30", "--nan-prob", "0.05",
+                  "--telemetry-every", "10"],
+    "adapt": ["--adapt", "--adapt-rank", "0", "--steps", "60",
+              "--adapt-window", "6", "--telemetry-every", "6"],
+}
+DRILL_TIMEOUT_S = 240
+# The W=1 ring encodes each of the pipeline's 2 segments twice and the
+# telemetry's compression-error probe the flat buffer once: 5 a compressed
+# step; the dense escape's steps launch nothing. (The CPU's count of the
+# wrapper's calls has a sixth on the first step, the wire model's payload
+# probe, which the card runs on fake tensors: no launch.)
+PIPELINE_LAUNCHES = {"quantize_pack_stochastic": {
+    "first_compressed_step": 5, "later_compressed_steps": [5],
+    "dense_launches": 0}}
+
+
+def start_drills() -> dict:
+    """Phase 38's four children, started together into a temporary
+    directory (``DRILLS``); they run beside [36], whose own process only
+    checks launches and a digest, and are collected after it."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="grace_drills_"))
+    procs = {}
+    try:
+        for name, argv in DRILLS.items():
+            out = tmp / name
+            out.mkdir()
+            cmd = [sys.executable, "-m", "grace_tpu_torch.resilience.smoke",
+                   "--world", "1", "--device", "cuda", "--telemetry-out",
+                   str(out / "run.jsonl"), "--adapt-out",
+                   str(out / "ADAPT_LAST.json"), *argv]
+            with open(out / "stdout", "w") as so, \
+                    open(out / "stderr", "w") as se:
+                procs[name] = (subprocess.Popen(
+                    cmd, cwd=root, stdout=so, stderr=se,
+                    env={**os.environ, "PYTHONPATH": str(root)}),
+                    time.perf_counter())
+    except BaseException:
+        stop_drills({"tmp": tmp, "procs": procs})
+        raise
+    return {"tmp": tmp, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_drills(drills: dict) -> None:
+    """Kill what is left of phase 38's children and remove their
+    directory."""
+    for proc, _ in drills["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(drills["tmp"], ignore_errors=True)
+
+
+def drills_phase(drills: dict, runs, smi) -> None:
+    """Phase 38 (module docstring): wait for the children of
+    :func:`start_drills` and check them."""
+    tmp, procs = drills["tmp"], drills["procs"]
+    try:
+        # Each child's own wall: polled together, none waits on another.
+        results, deadline = {}, time.perf_counter() + DRILL_TIMEOUT_S
+        while len(results) < len(procs):
+            if time.perf_counter() > deadline:
+                fail(f"[38] drills still running after {DRILL_TIMEOUT_S} "
+                     f"s: {sorted(set(procs) - set(results))}")
+            for name, (proc, t0) in procs.items():
+                if name not in results and proc.poll() is not None:
+                    results[name] = (
+                        proc.returncode,
+                        (tmp / name / "stdout").read_text(),
+                        (tmp / name / "stderr").read_text(),
+                        time.perf_counter() - t0)
+            time.sleep(0.05)
+        for name, (rc, stdout, stderr, wall) in results.items():
+            for line in stdout.splitlines():
+                if line.startswith("[chaos_smoke]"):
+                    log(f"    {name}: {line}")
+            if rc != 0 or "[chaos_smoke] OK" not in stdout:
+                fail(f"[38] the {name} drill exited {rc}: {stderr[-2000:]}")
+        tally = {}
+        for name, (_, stdout, _, _) in results.items():
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("[chaos_smoke] kernel launches:")]
+            tally[name] = json.loads(lines[-1].split(":", 1)[1]) \
+                if lines else {}
+        for name in ("default", "homo"):
+            if any(t["total"] for t in tally[name].values()):
+                fail(f"[38] the {name} drill launched {tally[name]}, "
+                     "predicted none")
+        pipe = tally["pipeline2"].get("quantize_pack_stochastic")
+        want = PIPELINE_LAUNCHES["quantize_pack_stochastic"]
+        if not pipe or any(pipe[k] != v for k, v in want.items()) \
+                or pipe["total"] != 5 * pipe["compressed_steps"]:
+            fail(f"[38] the pipelined drill launched {pipe}, predicted "
+                 f"{want} (5 a compressed step)")
+        md = read_side_cli("[38]", "grace_tpu_torch.evidence.summary",
+                           "--root", str(tmp / "adapt"), smi=smi)
+        if "`chaos_smoke --adapt`" not in md:
+            fail(f"[38] the summary of the adapt drill's document: {md}")
+        adapt_line = next(ln for ln in md.splitlines()
+                          if "`chaos_smoke --adapt`" in ln)
+    finally:
+        stop_drills(drills)
+    runs["drill_pipeline2"] = {"launches": {
+        "quantize_pack_stochastic": pipe["total"]}, "tally": pipe}
+    walls = {name: round(r[3], 2) for name, r in results.items()}
+    runs["drills"] = {"launches": {}, "wall_s": walls}
+    log(f"[38] python -m grace_tpu_torch.resilience.smoke --world 1 --device "
+        f"cuda, four children together (beside [36]): each exited 0; wall s "
+        f"{walls}; the pipelined drill's quantize-and-pack launches {pipe} "
+        f"(predicted {want}); the summary: {adapt_line[:300]}; "
+        f"{time.perf_counter() - drills['t0']:.1f} s after [36]'s start | "
+        f"{smi}")
+
+
 def main() -> int:
     # A kernel family disabled by the environment would run its plain
     # version in place of the kernel, and the checks would compare plain
@@ -6782,16 +7079,19 @@ def main() -> int:
               "GRACE_DISABLE_PALLAS* variable, which would turn kernels "
               "off", file=sys.stderr)
         return 2
-    if len(sys.argv) not in (1, 3) or sys.argv[1:2] not in ([],
-                                                            ["--times-from"]):
-        print("usage: chip_smoke.py [--times-from ROOT]", file=sys.stderr)
+    if len(sys.argv) not in (1, 3) or sys.argv[1:2] not in (
+            [], ["--times-from"], ["--profile-callout"]):
+        print("usage: chip_smoke.py [--times-from ROOT | --profile-callout "
+              "NPY]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3:
+    if sys.argv[1:2] == ["--times-from"]:
         return times_from(sys.argv[2])
+    if sys.argv[1:2] == ["--profile-callout"]:
+        return profile_callout(sys.argv[2])
     try:
         import grace_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -7086,6 +7386,10 @@ def main() -> int:
         log(f"[31] the data path: the native loader, prefetch_to_device and "
             f"LeNet on the bundled MNIST split, batch {DATA_BATCH}")
         data_path_phase(dev, group, runs, smi)
+        # -- 37. the TensorFlow front end's host callout -------------------
+        log("[37] the TF front end's host callout over the ResNet-50 flat "
+            f"gradient under topk1pct, {TF_CALLOUT_CALLS} calls")
+        tf_callout_phase(dev, group, runs, smi)
         # -- 32. the 2-D mesh and the profiler's read side ------------------
         log(f"[32] ResNet-50, batch {bs}: topk1pct on a 1×1 dp×fsdp mesh "
             f"against [5]'s steps, shard 0 of real gradients, one step "
@@ -7120,10 +7424,18 @@ def main() -> int:
                     measured.kill()
                     measured.wait()
                 shutil.rmtree(docs_dir, ignore_errors=True)
-        # -- 36. the flagship example -----------------------------------------
-        log("[36] grace_tpu_torch/examples/mnist_lenet.py "
-            f"{' '.join(FLAGSHIP_ARGV)} --ckpt-dir <tmp>")
-        flagship_phase(dev, group, runs, smi)
+        # -- 36. the flagship example, [38]'s drills beside it --------------
+        log(f"[38] python -m grace_tpu_torch.resilience.smoke --world 1: "
+            f"{', '.join(DRILLS)}, started beside [36]")
+        drills = start_drills()
+        try:
+            log("[36] grace_tpu_torch/examples/mnist_lenet.py "
+                f"{' '.join(FLAGSHIP_ARGV)} --ckpt-dir <tmp>")
+            flagship_phase(dev, group, runs, smi)
+            # -- 38. the drills' command line -------------------------------
+            drills_phase(drills, runs, smi)
+        finally:
+            stop_drills(drills)
         wire_times["packed_int_accumulate"] = {
             **accum_times["K=1"],
             "hop": {k: accum_times[k] for k in ("K=2", "K=7",

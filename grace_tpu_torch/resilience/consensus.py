@@ -479,10 +479,11 @@ def consensus_step(tree, consensus, group=None):
     return _audit(tree, config, group)
 
 
-def force_audit(tree, consensus, group=None):
+def force_audit(tree, consensus, group=None, outcome=None):
     """One audit and repair now, whatever the clock: the scheduled
     :func:`consensus_step` without its gate (a rejoining rank's admission
-    check)."""
+    check). ``outcome`` (a dict) receives ``repaired``: whether this audit
+    found a divergence and repaired it (the same on every rank)."""
     config = normalize_consensus(consensus)
     if config is None:
         raise ValueError(
@@ -490,10 +491,10 @@ def force_audit(tree, consensus, group=None):
             "audit_every / ConsensusConfig) — None/False disables the "
             "auditor, which cannot gate a rejoin.")
     _armed(tree)
-    return _audit(tree, config, group)
+    return _audit(tree, config, group, outcome)
 
 
-def _audit(tree, config: ConsensusConfig, group):
+def _audit(tree, config: ConsensusConfig, group, outcome=None):
     with trace_stage(STAGE_CONSENSUS):
         for guard in _nodes(tree, GuardState):
             guard.settle()    # the matrix read below waits for the step
@@ -523,6 +524,11 @@ def _audit(tree, config: ConsensusConfig, group):
             extra += np.float32(_view_nbytes(leaves, graces))
             current = _repair(leaves, graces, ref, not eq[rank, ref],
                               config, group)
+            # The reference's clock: a rank restored from an older
+            # checkpoint held another count until the repair.
+            count = current[0].count
+        if outcome is not None:
+            outcome["repaired"] = any_div
         escalate = any_div and _escalates(current, config, count, divergent)
         advanced = {id(orig): _advance(g, any_div, escalate, count,
                                        divergent)

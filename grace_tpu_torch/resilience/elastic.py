@@ -49,6 +49,7 @@ from grace_tpu_torch.resilience.consensus import (_nodes, _rank_world,
                                                   fingerprint_tree,
                                                   force_audit,
                                                   normalize_consensus)
+from grace_tpu_torch.resilience.guard import GuardState
 from grace_tpu_torch.transform import GraceState, _graft, carry_replicated
 
 __all__ = ["ResizePlan", "plan_resize", "resize_group",
@@ -284,11 +285,18 @@ def rejoin_barrier(state, consensus, group=None, check: bool = True):
     if config is None:
         raise ValueError("rejoin_barrier requires an armed consensus "
                          "config — the fingerprint audit IS the gate.")
-    pre_repairs = audit_report(state).get("repairs", 0)
-    new_state = force_audit(state, config, group)
+    outcome: dict = {}
+    new_state = force_audit(state, config, group, outcome)
+    if outcome["repaired"]:
+        # The repair wrote every guard's step counter; its host copy is
+        # the audit's clock, and a rejoiner restored from an older
+        # checkpoint must keep the fleet's audit steps from here on.
+        for guard in _nodes(new_state, GuardState):
+            guard.host_step = int(guard.step)
     report = dict(audit_report(new_state))
-    # The barrier's own repairs: audit_report counts over the whole run.
-    report["barrier_repairs"] = report.get("repairs", 0) - pre_repairs
+    # The barrier's own repairs (audit_report counts over the whole run,
+    # and a rejoiner restored from an older checkpoint counted fewer).
+    report["barrier_repairs"] = int(outcome["repaired"])
     report["replica_variants"] = replica_variants(new_state, group)
     report.update(barrier_wire_bytes(new_state, config,
                                      _rank_world(group)[1]))

@@ -348,6 +348,7 @@ def _lifecycle_run(group, rank) -> dict:
     timeline orders the first adapt event before the first guard event."""
     from grace_tpu_torch.resilience import (ChaosCommunicator,
                                             ChaosCompressor)
+    from grace_tpu_torch.resilience.smoke.common import wrap_codec
     from grace_tpu_torch.telemetry import TelemetryReader
     from grace_tpu_torch.telemetry.timeline import Timeline
     from grace_tpu_torch.train import init_train_state, make_train_step
@@ -364,14 +365,10 @@ def _lifecycle_run(group, rank) -> dict:
     def build(drift_rank=None, nan_prob=0.0):
         grc = grace_from_params(cfg, group=group)
         if drift_rank is not None:
-            def wrap(c):
-                return ChaosCompressor(inner=c, drift_scale=0.9,
-                                       rank=drift_rank, seed=3, group=group)
-            grc = dataclasses.replace(
-                grc, compressor=wrap(grc.compressor),
-                adapt=dataclasses.replace(
-                    grc.adapt, ladder=tuple(wrap(c)
-                                            for c in grc.adapt.ladder)))
+            # The drill's own wrapper: the compressor and every rung.
+            grc = wrap_codec(grc, lambda c: ChaosCompressor(
+                inner=c, drift_scale=0.9, rank=drift_rank, seed=3,
+                group=group))
         if nan_prob:
             grc = dataclasses.replace(grc, communicator=ChaosCommunicator(
                 inner=grc.communicator, nan_prob=nan_prob, rank=0, seed=1))

@@ -315,6 +315,7 @@ def _lifecycle_worker(group, rank, ckpt_dir) -> dict:
     replica), and the barrier repairs it."""
     from grace_tpu_torch.checkpoint import Checkpointer
     from grace_tpu_torch.resilience import ChaosCompressor
+    from grace_tpu_torch.resilience.smoke.common import wrap_codec
     from grace_tpu_torch.telemetry import TelemetryReader
     from grace_tpu_torch.telemetry.timeline import Timeline
     from grace_tpu_torch.train import init_train_state, make_train_step
@@ -329,9 +330,8 @@ def _lifecycle_worker(group, rank, ckpt_dir) -> dict:
     def build(g, drift=False):
         grc = grace_from_params(cfg, group=g)
         if drift:
-            grc = dataclasses.replace(grc, compressor=ChaosCompressor(
-                inner=grc.compressor, drift_scale=0.9, rank=DRIFT_RANK,
-                seed=3, group=g))
+            grc = wrap_codec(grc, lambda c: ChaosCompressor(
+                inner=c, drift_scale=0.9, rank=DRIFT_RANK, seed=3, group=g))
         return grc, guarded_chain(grc, **GUARD)
 
     rng = np.random.default_rng(0)

@@ -128,6 +128,17 @@ READ_SIDE_MODULES = {
     "grace_tpu_torch.evidence.__main__",
     "grace_tpu_torch.examples.mnist_lenet"}
 
+# The last two front ends, their examples, and the chaos drills' command
+# line.
+TF_SMOKE_MODULES = {
+    "grace_tpu_torch.interop.tensorflow", "grace_tpu_torch.interop.keras",
+    *(f"grace_tpu_torch.examples.{m}" for m in (
+        "tf2_mnist", "tf2_keras_mnist", "tf2_synthetic_benchmark")),
+    "grace_tpu_torch.resilience.smoke",
+    *(f"grace_tpu_torch.resilience.smoke.{m}" for m in (
+        "common", "evidence", "base", "adapt", "elastic", "region",
+        "retune", "fsdp", "cli", "__main__"))}
+
 # Each read-side command line on a file, with torch made unimportable.
 _NO_TORCH = r"""
 import runpy, sys
@@ -159,7 +170,50 @@ def test_every_module_imports_without_jax_or_triton():
     assert STATE_TUNING_MODULES <= names
     assert RETUNE_EVIDENCE_MODULES <= names
     assert READ_SIDE_MODULES <= names
+    assert TF_SMOKE_MODULES <= names
     assert leaked.strip() == "[]"
+
+
+_TF_ON_USE = r"""
+import sys
+for name in ("jax", "jaxlib", "grace_tpu"):
+    sys.modules[name] = None
+import grace_tpu_torch.interop
+from grace_tpu_torch.interop import keras, tensorflow
+from grace_tpu_torch.examples import (tf2_keras_mnist, tf2_mnist,
+                                      tf2_synthetic_benchmark)
+import grace_tpu_torch.resilience.smoke.cli
+ex = tensorflow.TFExchanger(None, device="cpu")
+assert ex.grace_state is None
+loaded = sorted({n.split(".")[0] for n in sys.modules
+                 if n.split(".")[0] in ("tensorflow", "keras", "tf_keras")})
+print(loaded)
+if "tensorflow" in sys.modules and sys.modules["tensorflow"] is None:
+    try:
+        tensorflow.DistributedGradientTape(None, None, device="cpu")
+    except ImportError as e:
+        print("refused:", e)
+"""
+
+
+def test_tf_and_keras_are_imported_only_on_use():
+    """The TF front ends, their examples and the drills' command line import
+    neither JAX nor TensorFlow nor Keras; an exchanger is built without
+    them, and with TensorFlow made unimportable the tape raises
+    ``ImportError`` naming it."""
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", _TF_ON_USE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.splitlines()[0] == "[]"
+    refused = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.modules['tensorflow'] = None\n" + _TF_ON_USE],
+        cwd=REPO, capture_output=True, text=True, timeout=120, env=env)
+    assert refused.returncode == 0, refused.stderr[-3000:]
+    assert "refused:" in refused.stdout and "tensorflow" in \
+        refused.stdout.split("refused:")[1]
 
 
 @pytest.mark.parametrize("argv", [
