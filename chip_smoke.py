@@ -1516,50 +1516,18 @@ def profile_step(step, state, batch, label):
             "stage_host_ms": stages}
 
 
-# Collectives issued, counted by the torch.distributed entry points the
-# port calls (install_collective_counter): a batch of point-to-point calls
-# counts once.
-COLLECTIVES = [0]
-_COLLECTIVE_CALLS = ("all_reduce", "all_gather_into_tensor",
-                     "all_gather_single", "all_gather", "all_to_all_single",
-                     "batch_isend_irecv", "broadcast")
+def exchange_collectives() -> int:
+    """Collectives the GRACE exchange issued while the port's collective
+    counters were armed (``telemetry.counters``): every counted call but
+    the train step's own buffer and loss averages and its audit. A batch of
+    point-to-point calls counts once."""
+    from grace_tpu_torch.telemetry import counters, scopes
 
-
-@functools.cache
-def install_collective_counter() -> None:
-    import torch.distributed as dist
-    from grace_tpu_torch import comm
-
-    def counted(fn):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            COLLECTIVES[0] += 1
-            return fn(*args, **kwargs)
-        return call
-
-    for name in _COLLECTIVE_CALLS:
-        if hasattr(dist, name):
-            setattr(dist, name, counted(getattr(dist, name)))
-    # comm binds its all-gather at import.
-    comm._all_gather_into = counted(comm._all_gather_into)
-
-
-class CountedTransform:
-    """A GRACE transform whose ``update`` counts the collectives it issues
-    (the exchange's, not the train step's buffer and loss averages)."""
-
-    def __init__(self, tx):
-        install_collective_counter()
-        self.tx, self.collectives = tx, 0
-
-    def init(self, params):
-        return self.tx.init(params)
-
-    def update(self, grads, state):
-        before = COLLECTIVES[0]
-        out = self.tx.update(grads, state)
-        self.collectives += COLLECTIVES[0] - before
-        return out
+    own = (scopes.STAGE_BUFFER_MEAN, scopes.STAGE_LOSS_MEAN,
+           scopes.STAGE_CONSENSUS)
+    return sum(n for (_, stage), n in
+               counters.collective_counts()["calls"].items()
+               if stage not in own)
 
 
 def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
@@ -1576,6 +1544,7 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     import torch
     from grace_tpu_torch import grace_from_params, ops
     from grace_tpu_torch.models.resnet import resnet50
+    from grace_tpu_torch.telemetry import counters
     from grace_tpu_torch.train import (init_stateful_train_state,
                                        make_stateful_train_step)
 
@@ -1587,8 +1556,9 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
         fail(f"{cfg['name']}: the model has {n_leaves} leaves / {n_params} "
              f"parameters, expected {shape}")
     grace = grace_from_params(cfg["params"], group=group)
-    if cfg.get("guard") is None:
-        tx = CountedTransform(grace.transform(seed=SEED))
+    counted = cfg.get("guard") is None
+    if counted:
+        tx = grace.transform(seed=SEED)
     else:
         from grace_tpu_torch.resilience import guarded_chain
         tx = guarded_chain(grace, seed=SEED, **cfg["guard"])
@@ -1601,13 +1571,15 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()                 # just before the main path
-    counted = isinstance(tx, CountedTransform)
-    if counted:
-        tx.collectives = 0
     losses = []
+    # The warm-up steps' collectives, counted by the port's counters; the
+    # timed steps run with them disarmed.
+    counters.arm()
     for _ in range(warmup):
         state, loss = step(state, (x, y))
         losses.append(float(loss))
+    counters.disarm()
+    collectives = exchange_collectives() if counted and warmup else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
@@ -1616,7 +1588,6 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()            # just after it
-    collectives = tx.collectives if counted else None
     profiled = profile_step(step, state, (x, y), cfg["name"])
     steps = warmup + timed
     res = {"name": cfg["name"], "img_per_s": x.shape[0] * timed / seconds,
@@ -1624,13 +1595,13 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
            "last_loss": losses[-1],
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "launches": launches, "steps": steps, "profiled": profiled,
-           "collectives_per_step": (collectives / steps if counted
-                                    else None)}
+           "collectives_per_step": (None if collectives is None
+                                    else collectives / warmup)}
     log(f"  {cfg['name']}: {res['img_per_s']:.1f} img/s "
         f"({res['step_ms']:.1f} ms/step), loss {res['first_loss']:.4f} -> "
         f"{res['last_loss']:.4f}, peak {res['peak_mem_gb']:.2f} GB, "
         f"launches {launches} over {steps} steps, {collectives} exchange "
-        "collectives")
+        f"collectives over {warmup}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{cfg['name']}: non-finite loss {losses}")
     for name, count in launches.items():
@@ -1640,9 +1611,10 @@ def train(dev, group, cfg, x, y, warmup=WARMUP_STEPS, timed=TIMED_STEPS, *,
                  f"steps, expected {want} ({cfg['per_step'].get(name, 0)} a "
                  "step)")
     want = cfg.get("collectives_per_step")
-    if want is not None and collectives != want * steps:
+    if want is not None and collectives is not None \
+            and collectives != want * warmup:
         fail(f"{cfg['name']}: the exchange issued {collectives} collectives "
-             f"over {steps} steps, expected {want * steps} ({want} a step)")
+             f"over {warmup} steps, expected {want * warmup} ({want} a step)")
     return res
 
 
@@ -3077,6 +3049,7 @@ def exec_path(dev, group):
     import torch
     from grace_tpu_torch import grace_from_params
     from grace_tpu_torch.core import LeafKey
+    from grace_tpu_torch.telemetry import counters
     from grace_tpu_torch.transform import _bucketize, _group_views
 
     names, specs = resnet50_plan()
@@ -3099,14 +3072,14 @@ def exec_path(dev, group):
             buckets = len(_bucketize(specs, cfg["params"]["fusion"])[0])
             grace = grace_from_params({**cfg["params"], "fusion": "flat"},
                                       group=group)
-            install_collective_counter()
             flat = torch.ones(1000, device=dev)
-            before = COLLECTIVES[0]
+            counters.arm()
             grace.communicator.step(
                 flat, grace.memory.init_state(flat),
                 grace.compressor.init_state(flat), grace.memory,
                 grace.compressor, LeafKey(SEED, 0, 0))
-            cfg["collectives_per_step"] = (COLLECTIVES[0] - before) * buckets
+            counters.disarm()
+            cfg["collectives_per_step"] = exchange_collectives() * buckets
             cfg["per_step"] = {k: v * buckets for k, v in per.items()}
             cfg["plan"] = f"{buckets} buckets"
         else:

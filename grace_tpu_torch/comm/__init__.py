@@ -33,6 +33,7 @@ import torch.distributed as dist
 from grace_tpu_torch.core import (SINGLE_SLICE, Communicator, Compressor,
                                   Ctx, LeafKey, LinkBytes, Memory, Payload,
                                   Topology, mean_scale)
+from grace_tpu_torch.telemetry import counters
 from grace_tpu_torch.telemetry.scopes import (STAGE_COMPRESS,
                                               STAGE_DECOMPRESS,
                                               STAGE_EXCHANGE, STAGE_PIPELINE,
@@ -87,9 +88,11 @@ def _all_reduce_sum(t: torch.Tensor, group) -> None:
     """Sum ``t`` across ``group`` in place; int8/int16 through int32."""
     if t.dtype in (torch.int8, torch.int16):
         wide = t.to(torch.int32)
+        counters.count("all_reduce", wide)
         dist.all_reduce(wide, op=dist.ReduceOp.SUM, group=group)
         t.copy_(wide)
     else:
+        counters.count("all_reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
 
 
@@ -123,6 +126,7 @@ def masked_broadcast_(tensors, root: int, group=None) -> None:
         if rank != root:
             bits.zero_()
         if world > 1:
+            counters.count("all_reduce", bits)
             dist.all_reduce(bits, op=dist.ReduceOp.SUM, group=group)
         if work is not t:
             t.copy_(work)
@@ -207,6 +211,7 @@ def _psum_majority_vote(dec: torch.Tensor, group,
     vdt = _torch_dtype(vote_dtype)
     summed = dec.to(vdt, copy=True)
     with trace_stage(f"{STAGE_EXCHANGE}/psum_vote"):
+        counters.count("all_reduce", summed)
         dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
     out = (summed >= 0).to(vdt) * 2 - 1
     return out.to(dec.dtype)
@@ -285,6 +290,7 @@ def _gather(payload: Payload, group) -> Payload:
             buf = _wire(t)
             out = torch.empty(world * buf.numel(), dtype=buf.dtype,
                               device=buf.device)
+            counters.count("all_gather", buf)
             _all_gather_into(out, buf, group=group)
             gathered.append(out.view(t.dtype).view((world,)
                                                    + tuple(t.shape)))
@@ -300,6 +306,7 @@ def _all_to_all(stacked: Payload, group) -> Payload:
         for s in stacked:
             buf = _wire(s)
             recv = torch.empty_like(buf)
+            counters.count("all_to_all", buf)
             dist.all_to_all_single(recv, buf, group=group)
             out.append(recv.view(s.dtype).view(s.shape))
     return tuple(out)
@@ -981,6 +988,7 @@ def _shift(send: Payload, group, to: int, frm: int) -> Payload:
     ops = [dist.P2POp(dist.isend, b, peer(to), group) for b in bufs]
     ops += [dist.P2POp(dist.irecv, r, peer(frm), group) for r in recv]
     with trace_stage(STAGE_RING_HOP):
+        counters.count("send_recv", *bufs)
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return tuple(r.view(t.dtype).view(t.shape) for r, t in zip(recv, send))

@@ -47,6 +47,7 @@ from grace_tpu_torch.core import (Compressor, Ctx, LeafKey, Payload, State,
                                   mean_scale)
 from grace_tpu_torch.ops import pallas_mode, quant, wire
 from grace_tpu_torch.ops.packing import PACKERS
+from grace_tpu_torch.telemetry import counters
 
 _ACCUM_DTYPES = ("int8", "int16", "int32", "int64")
 
@@ -123,6 +124,7 @@ class HomoQSGDCompressor(Compressor):
         """The shared scale: an all-reduce MAX of the local max magnitude,
         in float32, over ``group``. Every rank ends with the same value."""
         local = x.reshape(-1).abs().max().float().reshape(1)
+        counters.count("all_reduce", local)
         dist.all_reduce(local, op=dist.ReduceOp.MAX, group=group)
         return local.reshape(())
 

@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from grace_tpu_torch.core import (Compressor, Ctx, LeafKey, Payload, State,
                                   mean_scale)
+from grace_tpu_torch.telemetry import counters
 
 
 def _factor_shapes(shape, rank: int):
@@ -87,6 +88,7 @@ class PowerSGDCompressor(Compressor):
         return (n + m) * r * itemsize
 
     def _all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
+        counters.count("all_reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t * mean_scale(dist.get_world_size(self.group))   # t / W
 

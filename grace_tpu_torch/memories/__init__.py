@@ -13,6 +13,7 @@ import torch.distributed as dist
 
 from grace_tpu_torch.core import (Compressor, Ctx, Memory, Payload, State,
                                   mean_scale)
+from grace_tpu_torch.telemetry import counters
 
 __all__ = ["NoneMemory", "ResidualMemory", "EFSignSGDMemory", "DgcMemory",
            "PowerSGDMemory"]
@@ -109,6 +110,7 @@ class DgcMemory(Memory):
     def compensate(self, x: torch.Tensor, state: State):
         if self.gradient_clipping:
             sq_sum = torch.sum(x * x)
+            counters.count("all_reduce", sq_sum)
             dist.all_reduce(sq_sum, op=dist.ReduceOp.SUM, group=self.group)
             w = dist.get_world_size(self.group)
             clip = torch.sqrt(sq_sum * mean_scale(w))      # sq_sum / w

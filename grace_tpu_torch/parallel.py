@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from grace_tpu_torch.telemetry import counters
+
 _LOCAL_HOSTS = ("127.0.0.1", "localhost", "::1")
 
 
@@ -161,12 +163,14 @@ class _Psum(torch.autograd.Function):
     def forward(ctx, t, group):
         ctx.group = group
         out = t.clone(memory_format=torch.contiguous_format)
+        counters.count("all_reduce", out)
         dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
+        counters.count("all_reduce", g)
         dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -180,6 +184,7 @@ class _AllGather(torch.autograd.Function):
         ctx.group, ctx.dim, ctx.size = group, dim, t.shape[dim]
         ctx.rank = dist.get_rank(group)
         flat = torch.empty(world * t.numel(), dtype=t.dtype, device=t.device)
+        counters.count("all_gather", t)
         _all_gather_into(flat, t.contiguous().view(-1), group=group)
         parts = flat.view((world,) + tuple(t.shape))
         return torch.cat(list(parts), dim)
@@ -187,6 +192,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
+        counters.count("all_reduce", g)
         dist.all_reduce(g, group=ctx.group)
         return (g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size)
                 .contiguous(), None, None)
@@ -233,6 +239,7 @@ def broadcast_tree(tree, root_process: int = 0, group=None):
     host = [v for v in _leaves(tree) if not isinstance(v, torch.Tensor)]
     if host:
         box = [host if me else None]
+        counters.count("broadcast_object")
         dist.broadcast_object_list(box, src=src, group=group)
         host = iter(box[0])
 
@@ -240,6 +247,7 @@ def broadcast_tree(tree, root_process: int = 0, group=None):
         if not isinstance(v, torch.Tensor):
             return next(host)
         out = v.detach().clone()
+        counters.count("broadcast", *([out] if me else []))
         dist.broadcast(out, src=src, group=group)
         return out
 
@@ -270,6 +278,7 @@ def metric_average(metrics, group=None):
     flat = torch.from_numpy(np.concatenate(
         [v.astype(np.float64).ravel() for v in leaves] or
         [np.zeros(0)])).to(dev)
+    counters.count("all_reduce", flat)
     dist.all_reduce(flat, group=group)
     mean = (flat / world).cpu().numpy()
     parts, at = iter(leaves), 0

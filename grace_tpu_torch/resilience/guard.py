@@ -44,7 +44,9 @@ from typing import Any, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from grace_tpu_torch.telemetry import counters
 from grace_tpu_torch.telemetry.aggregate import WatchState
+from grace_tpu_torch.telemetry.scopes import STAGE_APPLY, trace_stage
 from grace_tpu_torch.telemetry.state import TelemetryState
 from grace_tpu_torch.transform import (GraceState, GraceTransform,
                                        _state_tensors)
@@ -286,7 +288,8 @@ class GuardTransform:
         updates, new = self.inner.update(grads, old)
         for name, p in params.items():
             p.grad = updates[name]
-        optimizer.step()
+        with trace_stage(STAGE_APPLY):
+            optimizer.step()
 
         with torch.no_grad():
             # The update is non-finite exactly when the new parameters are
@@ -306,6 +309,7 @@ class GuardTransform:
                 bad = bad | (norm > self.max_norm)
             if self._world() > 1:
                 flag = bad.to(torch.int32)
+                counters.count("all_reduce", flag)
                 dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
                 bad = flag > 0
 

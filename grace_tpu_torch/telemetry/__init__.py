@@ -20,7 +20,12 @@ the run timeline; counterpart of the JAX package's ``telemetry``.
   sink record kind in one step-keyed sequence.
 * :mod:`~grace_tpu_torch.telemetry.sinks` — :class:`JSONLSink`,
   :class:`TensorBoardSink`, :class:`MultiSink`.
-* :func:`trace_stage` — ``torch.profiler`` spans named by stage.
+* :func:`trace_stage` — spans named by stage, read by ``torch.profiler``,
+  the auditor and the span log.
+* :mod:`~grace_tpu_torch.telemetry.spans` — the span log: a few steps'
+  spans timed on the host and the card without the profiler, on one clock.
+* :mod:`~grace_tpu_torch.telemetry.counters` — the calls and bytes this
+  rank puts into collectives, by op and stage.
 """
 
 from grace_tpu_torch._lazy import lazy_exports

@@ -2,14 +2,30 @@
 ``telemetry/scopes.py``.
 
 The stage names are the JAX package's, so one vocabulary reads both
-packages' traces. :func:`trace_stage` opens a
-``torch.profiler.record_function`` span of the stage's name, which the
-profiler's trace and ``key_averages()`` show as a host range with the
-kernels launched inside it; the JAX package names XLA op metadata instead.
-Outside a profiler session it does nothing, so the per-leaf paths pay no
-host time for it. While the static auditor (:mod:`grace_tpu_torch.analysis`)
-records a trace, it also pushes its name onto the recorder's stage stack
-(:data:`STAGE_STACK`), which names the stage of every recorded op.
+packages' traces, plus the train step's own finer stages
+(:data:`PORT_STAGES`: the step's root, its forward, backward, buffer and
+loss averages, and the optimizer's update), which nest inside the JAX
+package's and which :func:`match_stage` resolves the same way.
+:func:`trace_stage` is the port's one instrument, with three recorders
+behind it:
+
+* **the profiler**: a ``torch.profiler.record_function`` span of the
+  stage's name, which the profiler's trace and ``key_averages()`` show as
+  a host range with the kernels launched inside it (the JAX package names
+  XLA op metadata instead);
+* **the span log** (:mod:`grace_tpu_torch.telemetry.spans`): while it is
+  armed, a record of each span's host and device start and end on one
+  clock, without the profiler;
+* **the auditor** (:mod:`grace_tpu_torch.analysis`): the stage of every
+  op it records.
+
+While the auditor records or the collective counters
+(:mod:`grace_tpu_torch.telemetry.counters`) are armed, the names of the
+open spans are on one stage stack, :data:`STAGE_STACK`, innermost last:
+the auditor names each op's stage by its top, the counters each call's.
+With none of them on, a span costs the profiler's check and one flag
+check and allocates nothing, so the per-leaf paths pay no host time for
+it.
 """
 
 from __future__ import annotations
@@ -23,7 +39,9 @@ __all__ = ["trace_stage", "match_stage", "ALL_STAGES",
            "STAGE_FWD_BWD", "STAGE_OPTIMIZER", "STAGE_APPLY",
            "STAGE_TELEMETRY", "STAGE_DENSE_ESCAPE", "STAGE_CONSENSUS",
            "STAGE_RING_HOP", "STAGE_WATCH", "STAGE_BUCKET", "STAGE_ADAPT",
-           "STAGE_PIPELINE"]
+           "STAGE_PIPELINE", "STAGE_STEP", "STAGE_FORWARD",
+           "STAGE_BACKWARD", "STAGE_BUFFER_MEAN", "STAGE_LOSS_MEAN",
+           "PORT_STAGES"]
 
 STAGE_COMPENSATE = "grace/compensate"
 STAGE_COMPRESS = "grace/compress"
@@ -41,14 +59,24 @@ STAGE_WATCH = "grace/watch"
 STAGE_BUCKET = "grace/bucket"
 STAGE_ADAPT = "grace/adapt"
 STAGE_PIPELINE = "grace/pipeline"
+# The train step's own stages: the root of one step, and the parts of it
+# that the JAX package's single jitted step has no host boundary for.
+STAGE_STEP = "grace/step"
+STAGE_FORWARD = "grace/forward"           # inside grace/forward_backward
+STAGE_BACKWARD = "grace/backward"         # inside grace/forward_backward
+STAGE_BUFFER_MEAN = "grace/buffer_mean"   # the model's buffers averaged
+STAGE_LOSS_MEAN = "grace/loss_mean"       # the loss averaged
+PORT_STAGES = (STAGE_STEP, STAGE_FORWARD, STAGE_BACKWARD, STAGE_BUFFER_MEAN,
+               STAGE_LOSS_MEAN)
 
 # Longest first, so that a nested path attributes to the longest stage at
-# the rightmost position (match_stage).
+# the rightmost position (match_stage): grace/forward_backward is not
+# grace/forward.
 ALL_STAGES = tuple(sorted(
     (STAGE_COMPENSATE, STAGE_COMPRESS, STAGE_EXCHANGE, STAGE_DECOMPRESS,
      STAGE_MEMORY_UPDATE, STAGE_FWD_BWD, STAGE_OPTIMIZER, STAGE_APPLY,
      STAGE_TELEMETRY, STAGE_DENSE_ESCAPE, STAGE_CONSENSUS, STAGE_RING_HOP,
-     STAGE_WATCH, STAGE_BUCKET, STAGE_ADAPT, STAGE_PIPELINE),
+     STAGE_WATCH, STAGE_BUCKET, STAGE_ADAPT, STAGE_PIPELINE) + PORT_STAGES,
     key=len, reverse=True))
 
 
@@ -71,21 +99,26 @@ def match_stage(path: str) -> str:
     return "/".join(segs[i:i + 2])
 
 
-# The auditor's stage stack while it records a trace (analysis.trace sets
-# and clears it), else None.
+# The names of the open spans, innermost last, while the auditor records a
+# trace (analysis.trace sets and clears it) or the collective counters are
+# armed (counters.arm); else None.
 STAGE_STACK: Optional[List[str]] = None
+# The armed span log (spans.arm sets it, spans.disarm clears it), else None.
+SPAN_LOG = None
 
 
 @contextlib.contextmanager
 def trace_stage(name: str) -> Iterator[None]:
-    """A ``record_function`` span named ``name`` while a profiler records;
-    nothing otherwise. Under the auditor's recorder, ``name`` is on its
-    stage stack for the span's length."""
+    """A span named ``name``: a ``record_function`` range while a profiler
+    records, a record of the armed span log, and ``name`` on
+    :data:`STAGE_STACK` while it is live. Nothing otherwise."""
     import torch                  # here: the read side imports no torch
 
     stack = STAGE_STACK
     if stack is not None:
         stack.append(name)
+    log = SPAN_LOG
+    span = -1 if log is None else log.open(name)
     try:
         if not torch.autograd._profiler_enabled():
             yield
@@ -93,5 +126,7 @@ def trace_stage(name: str) -> Iterator[None]:
         with torch.profiler.record_function(name):
             yield
     finally:
+        if log is not None:
+            log.close(span, name)
         if stack is not None:
             stack.pop()

@@ -64,9 +64,13 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from grace_tpu_torch.telemetry.scopes import (STAGE_CONSENSUS,
-                                              STAGE_FWD_BWD,
-                                              STAGE_OPTIMIZER, trace_stage)
+from grace_tpu_torch.telemetry import counters
+from grace_tpu_torch.telemetry.scopes import (STAGE_APPLY, STAGE_BACKWARD,
+                                              STAGE_BUFFER_MEAN,
+                                              STAGE_CONSENSUS, STAGE_FORWARD,
+                                              STAGE_FWD_BWD, STAGE_LOSS_MEAN,
+                                              STAGE_OPTIMIZER, STAGE_STEP,
+                                              trace_stage)
 from grace_tpu_torch.transform import GraceState, GraceTransform, MeshSpec
 
 __all__ = ["TrainState", "make_train_step", "make_stateful_train_step",
@@ -147,6 +151,7 @@ init_stateful_train_state = init_train_state
 
 
 def _mean_over_group(t: torch.Tensor, group) -> torch.Tensor:
+    counters.count("all_reduce", t)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t.div_(dist.get_world_size(group))
 
@@ -166,6 +171,10 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
     unchecked = [param_specs is not None]
 
     def step(state: TrainState, batch):
+        with trace_stage(STAGE_STEP):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         model = state.model
         model.train()
         named = dict(model.named_parameters())
@@ -174,10 +183,12 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
             unchecked[0] = False
         state.optimizer.zero_grad(set_to_none=True)
         with trace_stage(STAGE_FWD_BWD):
-            loss = loss_fn(model, batch)
-            loss.backward()
+            with trace_stage(STAGE_FORWARD):
+                loss = loss_fn(model, batch)
+            with trace_stage(STAGE_BACKWARD):
+                loss.backward()
         if sync_model_state:
-            with torch.no_grad():
+            with torch.no_grad(), trace_stage(STAGE_BUFFER_MEAN):
                 for buf in model.buffers():
                     if buf.is_floating_point():
                         _mean_over_group(buf, group)
@@ -194,7 +205,8 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
                 updates, grace = grace_tx.update(grads, state.grace)
                 for name, p in named.items():
                     p.grad = updates[name]
-                state.optimizer.step()
+                with trace_stage(STAGE_APPLY):
+                    state.optimizer.step()
         if consensus is not None:
             with trace_stage(STAGE_CONSENSUS):
                 # The model's buffers are replicated state only where the
@@ -203,7 +215,8 @@ def _make_step(loss_fn, grace_tx: GraceTransform, group,
                                else dict(model.named_parameters()))
                 _, _, grace = consensus_step(
                     (model_state, state.optimizer, grace), consensus, group)
-        loss = _mean_over_group(loss.detach().clone(), group)
+        with trace_stage(STAGE_LOSS_MEAN):
+            loss = _mean_over_group(loss.detach().clone(), group)
         return TrainState(model, state.optimizer, grace), loss
 
     return step

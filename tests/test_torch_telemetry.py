@@ -152,7 +152,11 @@ def group(tmp_path):
 
 def test_fields_and_stages_equal_jax():
     assert FIELDS == JAX_FIELDS
-    assert scopes.ALL_STAGES == jax_scopes.ALL_STAGES
+    # The JAX package's stages in its order, beside the port's own train
+    # step stages, which its one jitted step has no host boundary for.
+    assert tuple(s for s in scopes.ALL_STAGES
+                 if s not in scopes.PORT_STAGES) == jax_scopes.ALL_STAGES
+    assert not set(scopes.PORT_STAGES) & set(jax_scopes.ALL_STAGES)
     for path in ("grace/optimizer/grace/exchange/grace/decompress",
                  "grace/exchange/psum_vote", "grace/bucket/3",
                  "x/grace/custom/y", "no_stage_here", "grace/telemetry"):
